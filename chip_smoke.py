@@ -2,16 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the fused ECS-LIF kernel (``ecs_yolo_tpu_torch/csrc/ecs_lif.cu``) from
-the checkout, holds it against its plain PyTorch version at every distinct
-EMS-ResNet10@640 neuron-site shape, drives the port's detect path
-(``ecs_yolo_tpu_torch.detect.run``) on synthetic images with a full-width
-res10 (random weights from a seed, bf16), checks that every neuron site of
-that run went through the kernel and agrees with the plain version on its
-real input, and times a batched forward.  Each phase prints one JSON line
-(``--out PATH`` also writes them all to one JSON file).  The last lines are the
-card's ``nvidia-smi`` name and power limit, the ``{"kernels": ...}`` summary
-and ``{"ok": true, "device": ...}``.  Any failure exits non-zero.
+Builds the port's three CUDA kernels from the checkout (``ecs_yolo_tpu_torch/
+csrc/``: the fused ECS-LIF forward, the binary depthwise 3x3, the fused dw+pw
+spread product), takes the EMS-ResNet10@640 neuron-site shapes from the model
+itself, holds every kernel against its plain PyTorch version at those shapes
+(and the two spread kernels' gradients against autograd through the plain
+version), and drives the port's two main paths at full width with random
+weights from a seed:
+
+* serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
+  every neuron site checked against the plain version on its real input, and
+  a timed batched forward;
+* training: one float32 step on the kernel route against the same step under
+  ``plain_kernels()``, then a few bf16 steps of
+  ``ecs_yolo_tpu_torch.train.trainer.make_train_step`` with SGD.
+
+The launch counters are set to 0 just before each main path and read just
+after.  Each phase prints one JSON line (``--out PATH`` also writes them all
+to one JSON file).  The last lines are the card's ``nvidia-smi`` name and
+power limit, the ``{"kernels": ...}`` summary and ``{"ok": true, "device":
+...}``.  Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -22,22 +32,27 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
 T, N, IMGSZ, NC = 4, 8, 640, 13
-# distinct [H, W, C] of the 24 MemUpdate sites of res10 at 640 px, with the
-# number of sites of each shape
-SITES = [((320, 320, 64), 1), ((160, 160, 64), 3), ((80, 80, 128), 3),
-         ((40, 40, 256), 3), ((20, 20, 512), 3), ((20, 20, 1024), 1),
-         ((20, 20, 256), 6), ((20, 20, 128), 1), ((40, 40, 384), 2)]
-# share of spikes allowed to differ from the plain version (the kernel's
-# 1x1 product sums in another order than the library's; a membrane within
-# an ulp of the threshold may flip)
+TRAIN_BOXES, TRAIN_STEPS = 8, 5
+# share of spikes allowed to differ from the plain version (a kernel's
+# product sums in another order than the library's; a membrane within an ulp
+# of the threshold may flip)
 SPIKE_BOUND = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SILU_ATOL = 2e-4           # act=True (SiLU) sites, float32
+# spread kernels against their plain versions: float32 to 1e-5 * (1 + |want|);
+# bfloat16 at most 1 ulp of the output on at most 1e-2 of the elements (the
+# sum is taken in another order before the one rounding).  Where a sum
+# cancels to near zero its bfloat16 ulp is smaller than the float32 sums'
+# own difference, so there the float32 bound holds instead.
+SPREAD_RTOL_F32 = 1e-5
+SPREAD_ULP_SHARE_BF16 = 1e-2
+GRAD_RTOL = 1e-4           # spread gradients against autograd, float32
 # H100 SXM: HBM 3.35 TB/s; dense fp32 (CUDA cores) 67 TFLOP/s, bf16 989
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -67,35 +82,91 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def dname(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def itemsize(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    ms_b, ms_f = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return max(ms_b, ms_f), "bytes" if ms_b >= ms_f else "operations"
+
+
+class Agg:
+    """Sums of a kernel's per-shape readings weighted by launches per pass
+    of the main path (the served / trained dtype only)."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
+        self.max_abs_err = 0.0
+        self.by = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, rec: dict, weight: int) -> None:
+        self.ms += weight * rec["ms"]
+        self.plain_ms += weight * rec["plain_ms"]
+        self.bound_ms += weight * rec["bound_ms"]
+        self.by[rec["bound_by"]] += weight * rec["bound_ms"]
+        if rec.get("library_ms") is not None:
+            self.library_ms += weight * rec["library_ms"]
+
+    def entry(self, **kw) -> dict:
+        return {**kw, "max_abs_err": self.max_abs_err, "ms": self.ms,
+                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+                "bound_by": max(self.by, key=self.by.get),
+                "library_ms": self.library_ms or None}
+
+
+def site_shapes(model, memupdate_cls, x1) -> Counter:
+    """[H, W, C] of every neuron site, counted, from one hooked forward."""
+    sites = [m for m in model.modules() if isinstance(m, memupdate_cls)]
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: seen.append(tuple(i[0].shape[2:]))) for m in sites]
+    with torch.no_grad():
+        model(x1)
+    for h in hooks:
+        h.remove()
+    counts = Counter(seen)
+    if sum(counts.values()) != len(sites):
+        raise AssertionError(f"{sum(counts.values())} site inputs seen for "
+                             f"{len(sites)} neuron sites")
+    return counts
+
+
+def rand_fn(seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return lambda *s: torch.rand(*s, generator=g, device="cuda")
+
+
 def site_inputs(shape, dtype, seed):
     """x = rand*2-0.5 and spread weights scaled as the JAX package's fused
     kernel tests (tests/test_pallas_kernels.py:TestEcsV3)."""
     c = shape[-1]
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    r = lambda *s: torch.rand(*s, generator=g, device="cuda")
+    r = rand_fn(seed)
     args = (r(*shape) * 2 - 0.5, (r(3, 3, 1, c) - 0.5) * 0.4,
             (r(c) - 0.5) * 0.2, (r(1, 1, c, c) - 0.5) * 0.2, (r(c) - 0.5) * 0.2)
     return [a.to(dtype) for a in args]
 
 
-def bound_ms(shape, dtype) -> tuple:
-    """Least time for the function: each input read once, each output written
-    once, and the spread's FLOPs (1x1 product + 3x3 taps, T-1 steps)."""
-    t, n, h, w, c = shape
-    item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * t * n * h * w * c + 11 * c + c * c) * item
-    flops = (t - 1) * n * h * w * (2 * c * c + 18 * c)
-    ms_b, ms_f = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
-    return max(ms_b, ms_f), "bytes" if ms_b >= ms_f else "operations"
+def spread_inputs(shape, dtype, seed):
+    """A binary plane at firing rate 0.3 and the four spread parameters."""
+    c = shape[-1]
+    r = rand_fn(seed)
+    args = ((r(*shape) < 0.3).float(), (r(3, 3, 1, c) - 0.5) * 0.4,
+            (r(c) - 0.5) * 0.2, (r(1, 1, c, c) - 0.5) * 0.2, (r(c) - 0.5) * 0.2)
+    return [a.to(dtype) for a in args]
 
 
-def phase_kernels(K, cfg_cls, log):
+def phase_k1(K, cfg_cls, sites: Counter, log) -> Agg:
     """K1 against its plain version at every res10 site shape, N=8, T=4."""
-    agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-           "by": {"bytes": 0.0, "operations": 0.0}}
+    agg = Agg()
     cfg = cfg_cls(time_window=T)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
-        for i, ((h, w, c), count) in enumerate(SITES):
+        for i, ((h, w, c), count) in enumerate(sorted(sites.items(), reverse=True)):
             shape = (T, N, h, w, c)
             args = site_inputs(shape, dtype, seed=i)
             got = K.ecs_lif_fused(*args, cfg)
@@ -103,15 +174,17 @@ def phase_kernels(K, cfg_cls, log):
             torch.cuda.synchronize()
             diff = (got.float() - want.float()).abs()
             share = float((diff > 0).float().mean())
-            reps = max(3, min(20, int(2e9 // (math.prod(shape) * c))))
+            reps = max(3, min(10, int(1e9 // (math.prod(shape) * c))))
             ms = cuda_ms(lambda: K.ecs_lif_fused(*args, cfg), reps)
             plain_ms = cuda_ms(lambda: K.ecs_lif_reference(*args, cfg), reps)
-            bms, by = bound_ms(shape, dtype)
+            item = itemsize(dtype)
+            # x read once, spikes written once, weights; the spread's FLOPs
+            # (1x1 product + 3x3 taps) over T-1 steps
+            bms, by = bound((2 * math.prod(shape) + 11 * c + c * c) * item,
+                            (T - 1) * N * h * w * (2 * c * c + 18 * c), dtype)
             rec = {"phase": "kernel_check", "kernel": "ecs_lif_fused",
-                   "dtype": str(dtype).replace("torch.", ""), "act": False,
-                   "shape": list(shape), "sites": count, "rows_per_tile":
-                   K.plan_rows(N, h, T, torch.cuda.get_device_properties(0)
-                               .multi_processor_count),
+                   "dtype": dname(dtype), "act": False, "shape": list(shape),
+                   "sites": count, "rows_per_tile": K.plan_rows(N, h, T, sms),
                    "mismatch_share": share, "bound_share": SPIKE_BOUND[dtype],
                    "max_abs_err": float(diff.max()),
                    "firing_rate": float(want.float().mean()),
@@ -121,11 +194,8 @@ def phase_kernels(K, cfg_cls, log):
             if share > SPIKE_BOUND[dtype]:
                 raise AssertionError(f"ecs_lif_fused disagrees at {rec}")
             if dtype == torch.bfloat16:      # the served dtype: one forward
-                agg["ms"] += count * ms
-                agg["plain_ms"] += count * plain_ms
-                agg["bound_ms"] += count * bms
-                agg["by"][by] += count * bms
-            agg["max_abs_err"] = max(agg["max_abs_err"], float(diff.max()))
+                agg.add(rec, count)
+            agg.max_abs_err = max(agg.max_abs_err, float(diff.max()))
             del args, got, want, diff
     # act=True (SiLU) at one small shape, float32
     shape = (T, 2, 40, 40, 64)
@@ -140,6 +210,102 @@ def phase_kernels(K, cfg_cls, log):
     return agg
 
 
+def check_spread(name, got, want, dtype) -> dict:
+    """The stated bound of a spread kernel against its plain version."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    out = {"max_abs_err": float(diff.max()),
+           "differing_share": float((diff > 0).float().mean())}
+    if dtype == torch.float32:
+        out["worst_vs_bound"] = float((diff / (SPREAD_RTOL_F32 * (1 + w.abs()))).max())
+        ok = out["worst_vs_bound"] <= 1.0
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - 7)
+        ulp = torch.maximum(ulp, SPREAD_RTOL_F32 * (1 + w.abs()))
+        out["max_ulps"] = float((diff / ulp).max())
+        ok = (out["max_ulps"] <= 1.0
+              and out["differing_share"] <= SPREAD_ULP_SHARE_BF16)
+    if not ok or not torch.isfinite(g).all():
+        raise AssertionError(f"{name} disagrees with its plain version: {out}")
+    return out
+
+
+def phase_spread(S, plain_kernels, sites: Counter, log) -> dict:
+    """K4 at the C >= 128 site shapes, K5 at the C <= 64 ones, N=8, against
+    the plain versions; one library call timed beside each."""
+    import torch.nn.functional as F
+
+    aggs = {"binary_dw3_conv": Agg(), "packed_spread": Agg()}
+    for dtype in (torch.float32, torch.bfloat16):
+        item = itemsize(dtype)
+        for i, ((h, w, c), count) in enumerate(sorted(sites.items(), reverse=True)):
+            shape = (N, h, w, c)
+            pos = math.prod(shape)
+            s, dw, dwb, pw, pwb = spread_inputs(shape, dtype, seed=100 + i)
+            s_n = s.permute(0, 3, 1, 2)                 # channels_last view
+            if S.spread_route(c, w) == "gemm":
+                name, args = "packed_spread", (s, dw, dwb, pw, pwb)
+                fn = S.packed_spread
+                m, const = S.compose_m(dw, dwb, pw, pwb)
+                kc = m.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                cb = const.to(dtype)
+                lib = lambda: F.conv2d(s_n, kc, cb, padding=1)
+                bms, by = bound(pos * (1 + item) + 9 * c * c * item + 4 * c,
+                                2 * 9 * c * c * N * h * w, dtype)
+            else:
+                name, args = "binary_dw3_conv", (s, dw, dwb)
+                fn = S.binary_dw3_conv
+                kd = dw.permute(3, 2, 0, 1).contiguous()
+                lib = lambda: F.conv2d(s_n, kd, dwb, padding=1, groups=c)
+                bms, by = bound(pos * (1 + item) + 10 * c * item, 18 * pos, dtype)
+            with torch.no_grad():
+                got = fn(*args)
+                with plain_kernels():
+                    want = fn(*args)
+                    torch.cuda.synchronize()
+                    reps = max(3, min(10, int(4e8 // pos)))
+                    plain_ms = cuda_ms(lambda: fn(*args), reps)
+                ms = cuda_ms(lambda: fn(*args), reps)
+                library_ms = cuda_ms(lib, reps)
+            rec = {"phase": "kernel_check", "kernel": name, "dtype": dname(dtype),
+                   "shape": list(shape), "sites": count,
+                   "firing_rate": float(s.float().mean()),
+                   **check_spread(name, got, want, dtype),
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "bound_by": by, "library_ms": library_ms}
+            emit(rec, log)
+            agg = aggs[name]
+            if dtype == torch.bfloat16:      # the trained dtype: one forward
+                agg.add(rec, count * (T - 1))
+            agg.max_abs_err = max(agg.max_abs_err, rec["max_abs_err"])
+            del s, s_n, got, want, args
+    return aggs
+
+
+def phase_spread_grads(S, log) -> None:
+    """Each spread kernel's autograd.Function against autograd through its
+    plain version, float32, one main-path shape each."""
+    for name, fn, ref, shape, nparam in (
+            ("binary_dw3_conv", S.binary_dw3_conv, S.binary_dw3_conv_reference,
+             (N, 40, 40, 256), 2),
+            ("packed_spread", S.packed_spread, S.packed_spread_reference,
+             (N, 160, 160, 64), 4)):
+        args = spread_inputs(shape, torch.float32, seed=7)[:1 + nparam]
+        gy = rand_fn(8)(*shape) - 0.5
+        worst = {}
+        grads = []
+        for f in (fn, ref):
+            leaves = [a.clone().requires_grad_(True) for a in args]
+            grads.append(torch.autograd.grad(f(*leaves), leaves, gy))
+        for gname, a, b in zip(("ds", "dw", "dwb", "dpw", "dpwb"), *grads):
+            worst[gname] = float(((a - b).abs() / (GRAD_RTOL * (b.abs().max() + b.abs()))).max())
+        emit({"phase": "kernel_grad", "kernel": name, "shape": list(shape),
+              "dtype": "float32", "rtol": GRAD_RTOL, "worst_vs_bound": worst}, log)
+        if max(worst.values()) > 1.0 or len(worst) != 1 + nparam:
+            raise AssertionError(f"{name}: gradients disagree: {worst}")
+
+
 def write_images(d: Path, seed: int = 0):
     from PIL import Image
 
@@ -151,6 +317,154 @@ def write_images(d: Path, seed: int = 0):
             im[y0:y0 + rng.randint(20, h // 2), x0:x0 + rng.randint(20, w // 2)] \
                 = rng.randint(0, 255, 3)
         Image.fromarray(im).save(d / f"synthetic_{i}.png")
+
+
+def train_batch(seed: int):
+    """Images [N,640,640,3] in 0-1 with a few flat boxes, targets [N,M,5]
+    (cls, x, y, w, h normalised) for those boxes, and their mask."""
+    rng = np.random.RandomState(seed)
+    ims = rng.rand(N, IMGSZ, IMGSZ, 3).astype(np.float32) * 0.4 + 0.2
+    targets = np.zeros((N, TRAIN_BOXES, 5), np.float32)
+    for n in range(N):
+        for j in range(TRAIN_BOXES):
+            bw, bh = rng.rand(2) * 0.3 + 0.04
+            cx, cy = rng.rand() * (1 - bw) + bw / 2, rng.rand() * (1 - bh) + bh / 2
+            x0, x1 = int((cx - bw / 2) * IMGSZ), int((cx + bw / 2) * IMGSZ)
+            y0, y1 = int((cy - bh / 2) * IMGSZ), int((cy + bh / 2) * IMGSZ)
+            ims[n, y0:y1, x0:x1] = rng.rand(3)
+            targets[n, j] = [rng.randint(0, NC), cx, cy, bw, bh]
+    mask = np.ones((N, TRAIN_BOXES), bool)
+    return (torch.from_numpy(ims).cuda(), torch.from_numpy(targets).cuda(),
+            torch.from_numpy(mask).cuda())
+
+
+def hooked_sites(sites, run):
+    """Run ``run()`` with every site's input and output (as uint8) kept."""
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: seen.append((m, i[0].detach(), o.detach().to(torch.uint8))))
+        for m in sites]
+    try:
+        out = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, seen
+
+
+def phase_train(log) -> dict:
+    """The training main path: res10 full width, 640 px, T=4, batch 8."""
+    from ecs_yolo_tpu_torch.data.hyps import HYP_SCRATCH
+    from ecs_yolo_tpu_torch.models.yolo import build_model
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate
+    from ecs_yolo_tpu_torch.snn import ecs_lif as K1
+    from ecs_yolo_tpu_torch.snn import spread as S
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.train.optim import build_optimizer
+    from ecs_yolo_tpu_torch.train.trainer import (create_train_state,
+                                                  make_grad_fn, make_train_step)
+
+    model = build_model("resnet10.yaml", nc=NC,
+                        generator=torch.Generator().manual_seed(1))
+    sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+    hyp = HYP_SCRATCH
+    names = dict(model.named_parameters())
+    tx = build_optimizer(
+        names, name="SGD", lr0=hyp["lr0"], lrf=hyp["lrf"],
+        momentum=hyp["momentum"], weight_decay=hyp["weight_decay"], epochs=300,
+        steps_per_epoch=1000, warmup_epochs=hyp["warmup_epochs"],
+        warmup_momentum=hyp["warmup_momentum"],
+        warmup_bias_lr=hyp["warmup_bias_lr"])
+    state = create_train_state(model, tx)
+    batch = train_batch(seed=2)
+    counters = (K1.ecs_lif_fused, S.binary_dw3_conv, S.packed_spread)
+
+    # one float32 step's loss and gradients: kernel route against plain route,
+    # from the same state (the BN running statistics are put back between).
+    # Each site is held to its plain version on its own real input; end to
+    # end one flipped spike near a threshold spreads through the 3x3
+    # convolutions and batch statistics behind it, so the share of spikes
+    # that differ between the two whole runs is recorded, not bounded.
+    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+    grad_fn = make_grad_fn(model, hyp)
+    (loss_k, _, grads_k), seen_k = hooked_sites(
+        sites, lambda: grad_fn(state, *batch))
+    flips = []
+    with plain_kernels(), torch.no_grad():
+        for m, xin, spikes in seen_k:
+            flips.append(float((m(xin).to(torch.uint8) != spikes).float().mean()))
+    for k, v in stats0.items():
+        state.batch_stats[k].copy_(v)
+    with plain_kernels():
+        (loss_p, _, grads_p), seen_p = hooked_sites(
+            sites, lambda: grad_fn(state, *batch))
+    for k, v in stats0.items():
+        state.batch_stats[k].copy_(v)
+    cascade = [float((a[2] != b[2]).float().mean()) for a, b in zip(seen_k, seen_p)]
+    rates = [float(a[2].float().mean()) for a in seen_k]
+    del seen_k, seen_p
+    norm = lambda g: float(torch.sqrt(sum((v.double() ** 2).sum() for v in g.values())))
+    rec = {"phase": "train_step_fp32", "batch": N, "loss_kernel": float(loss_k),
+           "loss_plain": float(loss_p),
+           "loss_rel_err": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+           "worst_site_mismatch_share": max(flips),
+           "site_mismatch_shares_whole_run": cascade,
+           "site_firing_rates": rates,
+           "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
+           "grad_norm_kernel": norm(grads_k), "grad_norm_plain": norm(grads_p)}
+    rec["grad_norm_rel_err"] = (abs(rec["grad_norm_kernel"] - rec["grad_norm_plain"])
+                                / rec["grad_norm_plain"])
+    emit(rec, log)
+    if (len(flips) != len(sites) or rec["loss_rel_err"] > 1e-3
+            or rec["worst_site_mismatch_share"] > SPIKE_BOUND[torch.float32]
+            or not rec["grads_finite"] or rec["grad_norm_rel_err"] > 1e-2):
+        raise AssertionError(f"float32 train step: kernel route disagrees: {rec}")
+    del grads_k, grads_p
+
+    # the main path: bf16 compute on float32 masters, a few SGD steps
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    step = make_train_step(model, tx, hyp, compute_dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters:
+        f.launches = 0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    losses = []
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        state, metrics = step(state, *batch)
+        events[i + 1].record()
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = [f.launches for f in counters]
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(TRAIN_STEPS)]
+    ms = sum(step_ms[-3:]) / 3
+    losses = [float(v) for v in losses]
+    sd = model.state_dict()
+    moved = lambda k, now: float((now.float() - before[k].float()).abs().max()) > 0
+    groups_moved = {g: any(moved(k, sd[k]) for k, lab in tx.labels.items() if lab == g)
+                    for g in sorted(set(tx.labels.values()))}
+    applied = int(state.opt_state.count)
+    prof = profile_step(lambda: step(state, *batch))
+    rec = {"phase": "train_step", "batch": N, "imgsz": IMGSZ, "T": T,
+           "dtype": "bfloat16", "steps": TRAIN_STEPS, "losses": losses,
+           "step_ms": step_ms, "ms_per_step": ms, "images_per_s": N / ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_per_step": {"ecs_lif_fused": launches[0] / TRAIN_STEPS,
+                                 "binary_dw3_conv": launches[1] / TRAIN_STEPS,
+                                 "packed_spread": launches[2] / TRAIN_STEPS},
+           "groups_moved": groups_moved,
+           "ema_moved": any(moved(k, e) for k, e in state.ema_params.items()),
+           "bn_stats_moved": all(moved(k, sd[k]) for k in state.batch_stats
+                                 if sd[k].is_floating_point()),
+           "applied_steps": applied,
+           "site_firing_rates": [float(m.firing_rate) for m in sites], **prof}
+    emit(rec, log)
+    if (not all(math.isfinite(v) for v in losses) or not all(groups_moved.values())
+            or len(groups_moved) != 3 or not rec["ema_moved"]
+            or not rec["bn_stats_moved"] or rec["applied_steps"] != TRAIN_STEPS
+            or launches != [0, 57 * TRAIN_STEPS, 15 * TRAIN_STEPS]):
+        raise AssertionError(f"bf16 train steps failed their checks: {rec}")
+    return {"binary_dw3_conv": launches[1], "packed_spread": launches[2]}
 
 
 def main(argv=None) -> int:
@@ -171,6 +485,8 @@ def main(argv=None) -> int:
     from ecs_yolo_tpu_torch.models.yolo import build_model, cast_params
     from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
     from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import spread as S
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
 
     log: dict = {}
     card = smi()
@@ -185,33 +501,42 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    _build.load("ecs_lif")
-    nvcc_s, nvcc_log = _build.build_info.get("ecs_lif", (None, ""))
-    emit({"phase": "build", "kernel": "ecs_lif", "seconds":
-          time.perf_counter() - t0, "nvcc_seconds": nvcc_s, "ptxas": [
-              ln.split("info    : ")[-1] for ln in nvcc_log.splitlines()
-              if "registers" in ln or "spill" in ln]}, log)
+    sources = ["ecs_lif", "spread_dw3", "spread_gemm"]
+    _build.build(sources)            # one nvcc per source, all started together
+    for name in sources:
+        _build.load(name)
+        nvcc_s, nvcc_log = _build.build_info.get(name, (None, ""))
+        emit({"phase": "build", "kernel": name, "seconds":
+              time.perf_counter() - t0, "nvcc_seconds": nvcc_s, "ptxas": [
+                  ln.split("info    : ")[-1] for ln in nvcc_log.splitlines()
+                  if "registers" in ln or "spill" in ln]}, log)
 
-    agg = phase_kernels(K, SNNConfig, log)
-
-    # --- the detect path at full width ------------------------------------
+    # --- the model, and its neuron sites ---------------------------------------
     gen = torch.Generator().manual_seed(0)
     model = build_model("resnet10.yaml", nc=NC, generator=gen)
     sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
-    if len(sites) != 24:
-        raise AssertionError(f"res10 has {len(sites)} neuron sites, want 24")
     with tempfile.TemporaryDirectory() as tmp:
         write_images(Path(tmp))
         ims = [im for _, im, _ in LoadImages(tmp, IMGSZ)]
         x1 = torch.from_numpy(ims[0]).cuda()
+        shapes = site_shapes(model, MemUpdate, x1)
+        emit({"phase": "sites", "count": len(sites), "shapes":
+              [[list(k), v] for k, v in sorted(shapes.items(), reverse=True)]}, log)
+        if len(sites) != 24:
+            raise AssertionError(f"res10 has {len(sites)} neuron sites, want 24")
+
+        agg1 = phase_k1(K, SNNConfig, shapes, log)
+        aggs = phase_spread(S, plain_kernels, shapes, log)
+        phase_spread_grads(S, log)
+
+        # --- the detect path at full width -------------------------------------
         calibrate_bn(model, torch.from_numpy(np.concatenate(ims)).cuda(), _BN)
 
-        # end to end in float32: kernel route (eval, no autograd) against
-        # the plain route (autograd on takes the eager loop at every site)
+        # end to end in float32: kernel route against the plain route
         with torch.no_grad():
             z_k = model(x1)[0].float()
-        with torch.enable_grad():
-            z_p = model(x1)[0].detach().float()
+            with plain_kernels():
+                z_p = model(x1)[0].float()
         d = (z_k - z_p).abs()
         rel = float((d > 1e-3 * (1 + z_p.abs())).float().mean())
         emit({"phase": "model_fp32", "shape": list(z_k.shape),
@@ -241,45 +566,61 @@ def main(argv=None) -> int:
         if worst > SPIKE_BOUND[torch.bfloat16]:
             raise AssertionError(f"a site disagrees: share {worst}")
 
-        # the main path: detect.run over the images, counts read around it
+        # the serving main path: detect.run over the images, counts read around it
         K.ecs_lif_fused.launches = 0
         t0 = time.perf_counter()
         results = detect_mod.run(model, tmp, imgsz=IMGSZ)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = K.ecs_lif_fused.launches
+        k1_launches = K.ecs_lif_fused.launches
         for path, dets in results:
             emit({"phase": "detect", "image": Path(path).name,
                   "detections": int(len(dets)),
                   "finite": bool(np.isfinite(dets).all())}, log)
         emit({"phase": "detect_run", "images": len(results), "seconds": wall,
-              "ecs_lif_launches": launches}, log)
-        if launches != 24 * len(results) or len(results) != 4:
-            raise AssertionError(f"{launches} K1 launches for {len(results)} "
-                                 "forwards, want 24 each")
+              "ecs_lif_launches": k1_launches}, log)
+        if k1_launches != len(sites) * len(results) or len(results) != 4:
+            raise AssertionError(f"{k1_launches} K1 launches for {len(results)} "
+                                 f"forwards, want {len(sites)} each")
 
-        # --- throughput: batched bf16 forward, N=8 ------------------------
+        # --- throughput: batched bf16 forward, N=8 -----------------------------
         xb = torch.from_numpy(np.concatenate(ims * 2)).cuda()
         with torch.no_grad():
             ms = cuda_ms(lambda: model(xb), reps=10)
-            prof = profile_forward(model, xb)
+            prof = profile_step(lambda: model(xb))
     emit({"phase": "throughput", "batch": int(xb.shape[0]), "imgsz": IMGSZ,
           "T": T, "dtype": "bfloat16", "ms_per_forward": ms,
           "images_per_s": xb.shape[0] / ms * 1e3, **prof}, log)
+    del model, xb, x1
 
-    kernels = {"kernels": [{
-        "name": "ecs_lif_fused", "route": "cuda",
-        "source": "ecs_yolo_tpu_torch/csrc/ecs_lif.cu",
-        "replaces": "ecs_yolo_tpu/snn/pallas_ecs_v3.py:172",
-        "launches": launches, "max_abs_err": agg["max_abs_err"],
-        "ms": agg["ms"], "plain_ms": agg["plain_ms"],
-        "bound_ms": agg["bound_ms"],
-        "bound_by": max(agg["by"], key=agg["by"].get),
-        "library_ms": None,
-        "work": "the 24 neuron sites of one res10@640 forward, N=8, T=4, bf16",
-        "library_note": "no single PyTorch call computes the ECS-LIF "
-                        "recurrence",
-    }]}
+    # --- the training main path ------------------------------------------------
+    spread_launches = phase_train(log)
+
+    csrc = "ecs_yolo_tpu_torch/csrc/"
+    fwd = f"one res10@640 training forward, N={N}, T={T}, bf16"
+    kernels = {"kernels": [
+        agg1.entry(
+            name="ecs_lif_fused", route="cuda", source=csrc + "ecs_lif.cu",
+            replaces="ecs_yolo_tpu/snn/pallas_ecs_v3.py:172", launches=k1_launches,
+            work=f"the 24 neuron sites of one res10@640 forward, N={N}, T={T}, "
+                 "bf16; launches over the 4 detect forwards",
+            library_note="no single PyTorch call computes the ECS-LIF recurrence"),
+        aggs["binary_dw3_conv"].entry(
+            name="binary_dw3_conv", route="cuda", source=csrc + "spread_dw3.cu",
+            replaces="ecs_yolo_tpu/snn/pallas_dw.py:73",
+            launches=spread_launches["binary_dw3_conv"],
+            work=f"the 57 launches (19 sites x {T - 1} steps) of {fwd}; launches "
+                 f"over the {TRAIN_STEPS} train steps",
+            library_note="F.conv2d(groups=C) with bias, channels_last"),
+        aggs["packed_spread"].entry(
+            name="packed_spread", route="cuda", source=csrc + "spread_gemm.cu",
+            replaces="ecs_yolo_tpu/snn/pallas_dw.py:218",
+            launches=spread_launches["packed_spread"],
+            work=f"the 15 launches (5 sites x {T - 1} steps) of {fwd}; launches "
+                 f"over the {TRAIN_STEPS} train steps",
+            library_note="dense F.conv2d with the composed [C,C,3,3] kernel and "
+                         "bias const, channels_last"),
+    ]}
     if out_path is not None:
         out_path.parent.mkdir(parents=True, exist_ok=True)
         out_path.write_text(json.dumps({"log": log, **kernels}, indent=1))
@@ -307,15 +648,15 @@ def calibrate_bn(model, x, bn_cls) -> None:
         b.momentum = 0.1
 
 
-def profile_forward(model, xb) -> dict:
-    """Device time by kernel over one forward (torch.profiler)."""
+def profile_step(run) -> dict:
+    """Device time by kernel over one call of ``run`` (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    model(xb)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
-        model(xb)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []   # kernels only: an operator's row repeats its kernels' time
@@ -326,11 +667,15 @@ def profile_forward(model, xb) -> dict:
         return {"profile": "not measured: no device time in the trace"}
     total = sum(r[0] for r in rows)
     rows.sort(reverse=True)
-    k1 = sum(r[0] for r in rows if "ecs_lif_kernel" in r[1])
+    own = {name: sum(r[0] for r in rows if tag in r[1]) for name, tag in (
+        ("ecs_lif_device_ms", "ecs_lif_kernel"),
+        ("spread_dw3_device_ms", "spread_dw3_kernel"),
+        ("spread_gemm_device_ms", "spread_gemm_"))}
     return {"profiled_wall_ms": wall_ms, "device_ms": total,
-            "ecs_lif_device_ms": k1, "idle_share": max(0.0, 1 - total / wall_ms),
+            "kernel_calls": sum(r[2] for r in rows), **own,
+            "idle_share": max(0.0, 1 - total / wall_ms),
             "top_kernels": [{"name": k[:90], "ms": ms, "calls": c}
-                            for ms, k, c in rows[:8]]}
+                            for ms, k, c in rows[:12]]}
 
 
 if __name__ == "__main__":

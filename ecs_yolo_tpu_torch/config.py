@@ -29,14 +29,20 @@ class SNNConfig:
       ecs_tau: ECS field time constant.
       fused_inference: kept for configuration parity.  In the port, eval
         (``torch.no_grad()``, module in eval mode) on a CUDA tensor always
-        takes the fused ECS-LIF kernel (``snn/ecs_lif.py``); on the CPU it
-        takes the plain scan.  The flag is not read.
+        takes the fused ECS-LIF kernel (``snn/ecs_lif.py``).  Training mode
+        or autograd on takes the T-loop, whose spread on a CUDA tensor runs
+        on the spread kernels (``snn/spread.py``): the fused dw+pw product at
+        C <= 64 sites, the binary depthwise kernel plus a library 1x1
+        product at wider ones.  On the CPU every wrapper takes its plain
+        version.  The flag is not read.
       stem_dedup: run the T-invariant stem once at T=1 for a static image and
         broadcast the result over T (exact; see ``models/yolo.py``).
       packed_spread, packed_c64, bn_custom_vjp, int8_spike_transport,
       int8_reset_gate, pallas_dw_spread, pallas_packed_spread, remat_neuron:
         TPU layout, residual and kernel switches of the JAX package.
-        Accepted and ignored: the port runs the canonical layout.
+        Accepted and ignored: the port runs the canonical layout, chooses
+        its spread kernel by the site's width, and always saves the
+        surrogate window and the spread's spikes as bool/int8.
     """
 
     thresh: float = 0.5

@@ -13,12 +13,18 @@ running_var.
 Every leaf of the JAX tree is mapped or the conversion raises, and
 ``load_state_dict(strict=True)`` on the port's model checks the other
 direction.
+
+Any tree with the parameters' structure converts the same way (gradients,
+updated parameters, an EMA copy: pass it as ``params`` with ``batch_stats``
+None), so both sides can be compared under the torch names.
+``convert_labels`` carries a tree of per-leaf labels (the optimizer groups)
+across without touching the leaves.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -47,14 +53,14 @@ _LEAVES = {
 }
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
     out = {}
     for k, v in tree.items():
         path = f"{prefix}{k}"
         if isinstance(v, Mapping):
             out.update(_flatten(v, path + "/"))
         else:
-            out[path] = np.asarray(v)
+            out[path] = v
     return out
 
 
@@ -83,21 +89,29 @@ def _layout(block: str, path: str, w: np.ndarray) -> np.ndarray:
     return w
 
 
-def convert_block(block: str, params: Mapping,
-                  batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
+def _to_tensor(block: str, path: str, w) -> torch.Tensor:
+    return torch.from_numpy(np.array(_layout(block, path, np.asarray(w))))
+
+
+def convert_block(block: str, params: Mapping, batch_stats: Mapping = None,
+                  leaf=_to_tensor) -> Dict[str, Any]:
     """State dict (names relative to the block) of one JAX block's
-    ``params`` and ``batch_stats``."""
+    ``params`` and ``batch_stats``; ``leaf(block, path, value)`` makes each
+    entry (by default the tensor in the torch layout)."""
     flat = _flatten(params)
     flat.update(_flatten(batch_stats or {}))
-    sd = {}
-    for path, w in flat.items():
-        sd[_torch_name(block, path)] = torch.from_numpy(
-            np.array(_layout(block, path, w)))
-    return sd
+    return {_torch_name(block, path): leaf(block, path, w)
+            for path, w in flat.items()}
 
 
-def convert(params: Mapping, batch_stats: Mapping,
-            spec: Tuple) -> Dict[str, torch.Tensor]:
+def convert_labels(labels: Mapping, spec: Tuple) -> Dict[str, Any]:
+    """A tree of per-leaf labels with the parameters' structure (e.g. the JAX
+    optimizer's group of each leaf) under the torch names."""
+    return convert(labels, None, spec, leaf=lambda block, path, v: v)
+
+
+def convert(params: Mapping, batch_stats: Mapping, spec: Tuple,
+            leaf=_to_tensor) -> Dict[str, Any]:
     """The port's ``state_dict`` for the JAX ``variables`` of a model built
     from ``spec`` (``layers_{i}`` -> ``model.{i}``; a repeated row's copies
     ``layers_{i}/{j}`` -> ``model.{i}.{j}``)."""
@@ -110,9 +124,9 @@ def convert(params: Mapping, batch_stats: Mapping,
         p, s = params.get(f"layers_{i}", {}), stats.get(f"layers_{i}", {})
         if n > 1:
             for j in range(n):
-                for k, v in convert_block(name, p[str(j)], s.get(str(j))).items():
+                for k, v in convert_block(name, p[str(j)], s.get(str(j)), leaf).items():
                     sd[f"model.{i}.{j}.{k}"] = v
         else:
-            for k, v in convert_block(name, p, s).items():
+            for k, v in convert_block(name, p, s, leaf).items():
                 sd[f"model.{i}.{k}"] = v
     return sd

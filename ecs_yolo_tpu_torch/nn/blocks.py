@@ -23,7 +23,8 @@ from torch import nn
 
 from ..config import DEFAULT_SNN, SNNConfig, autopad
 from ..snn.ecs_lif import ecs_lif_fused, ecs_lif_reference
-from ..snn.neuron import lif_scan
+from ..snn.neuron import ecs_lif_scan, firing_rate, lif_scan, make_spread
+from ..snn.spread import make_kernel_spread
 
 
 def fold_t(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -115,13 +116,22 @@ class MemUpdate(nn.Module):
     recurrence over T, owning the spread's depthwise 3x3 (``spread.0``) and
     pointwise 1x1 (``spread.1``) convolutions, both with bias.
 
-    Eval without autograd on a CUDA tensor takes the fused kernel
-    (``snn/ecs_lif.py``); everything else takes the plain loop.
+    Eval without autograd takes the fused forward kernel
+    (``snn/ecs_lif.py``).  Training mode, or autograd on, takes the T-loop
+    ``ecs_lif_scan`` whose spread runs on the spread kernels
+    (``snn/spread.py``; an ``act=True`` site's SiLU output is not binary, so
+    its spread is the library's convolutions).  On a CPU tensor every
+    wrapper takes its plain version.
+
+    In training mode an ``act=False`` site keeps its mean spike density in
+    ``firing_rate``, a 0-d tensor on the device that costs no host sync until
+    it is read.
     """
 
     def __init__(self, c: int, act: bool = False, snn: SNNConfig = DEFAULT_SNN):
         super().__init__()
         self.act, self.snn = act, snn
+        self.firing_rate: Optional[torch.Tensor] = None
         # plain LIF (snn.ecs False) has no spread, as in the JAX module
         self.spread = nn.ModuleList([
             nn.Conv2d(c, c, 3, 1, 1, groups=c),
@@ -138,9 +148,17 @@ class MemUpdate(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.snn.ecs:
             return lif_scan(x, self.snn, self.act)
-        if x.is_cuda and not self.training and not torch.is_grad_enabled():
-            return ecs_lif_fused(x, *self.spread_params(), self.snn, self.act)
-        return ecs_lif_reference(x, *self.spread_params(), self.snn, self.act)
+        if not self.training and not torch.is_grad_enabled():
+            # the build's shape probe runs on the meta device, which no
+            # kernel wrapper takes
+            fwd = ecs_lif_reference if x.device.type == "meta" else ecs_lif_fused
+            return fwd(x, *self.spread_params(), self.snn, self.act)
+        params = [p.to(x.dtype) for p in self.spread_params()]
+        spread = make_spread(*params) if self.act else make_kernel_spread(*params)
+        spikes = ecs_lif_scan(x, spread, self.snn, self.act)
+        if self.training and not self.act:
+            self.firing_rate = firing_rate(spikes)
+        return spikes
 
 
 def max_pool_t(x: torch.Tensor, s: int) -> torch.Tensor:

@@ -6,8 +6,9 @@ whole T-step ECS-LIF recurrence of one site, the depthwise-3x3 + pointwise
 kernel (``nn/blocks.MemUpdate``).
 
 The wrapper takes the plain loop (``snn/neuron.ecs_lif_scan``) for a tensor
-on the CPU, and only then.  For a CUDA tensor it launches the kernel or
-raises.  ``ecs_lif_fused.launches`` counts the launches.
+on the CPU or inside ``route.plain_kernels()``, and only then.  For a CUDA
+tensor it launches the kernel or raises.  ``ecs_lif_fused.launches`` counts
+the launches.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ..config import SNNConfig
 from .neuron import ecs_lif_scan, make_spread
+from .route import use_kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: blocks resident on one SM (``__launch_bounds__(kThreads, 2)`` in the source)
@@ -90,12 +92,9 @@ def ecs_lif_fused(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
     ``dw_bias`` ``[C]``, ``pw_kernel`` ``[1, 1, C, C]``, ``pw_bias`` ``[C]``;
     they are cast to x's dtype.  x's T axis may be a broadcast (stride 0).
     """
-    if x.device.type == "cpu":
+    if not use_kernel(x):
         return ecs_lif_reference(x, dw_kernel, dw_bias, pw_kernel, pw_bias,
                                  cfg, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"ecs_lif_fused runs on CUDA or CPU tensors, not "
-                         f"{x.device}")
     _check(x, dw_kernel, dw_bias, pw_kernel, pw_bias)
     from .. import _build
 
