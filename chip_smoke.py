@@ -2,12 +2,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the checkout (``ecs_yolo_tpu_torch/
+Builds the port's five CUDA kernels from the checkout (``ecs_yolo_tpu_torch/
 csrc/``: the fused ECS-LIF forward, the binary depthwise 3x3, the fused dw+pw
-spread product), takes the EMS-ResNet10@640 neuron-site shapes from the model
+spread product, the fused plain-LIF forward, the general-shape fused ECS-LIF
+forward), takes the EMS-ResNet10@640 neuron-site shapes from the model
 itself, holds every kernel against its plain PyTorch version at those shapes
 (and the two spread kernels' gradients against autograd through the plain
-version), and drives the port's two main paths at full width with random
+version), and drives the port's three main paths at full width with random
 weights from a seed:
 
 * serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
@@ -15,7 +16,13 @@ weights from a seed:
   a timed batched forward;
 * training: one float32 step on the kernel route against the same step under
   ``plain_kernels()``, then a few bf16 steps of
-  ``ecs_yolo_tpu_torch.train.trainer.make_train_step`` with SGD.
+  ``ecs_yolo_tpu_torch.train.trainer.make_train_step`` with SGD;
+* validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
+  images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
+  model on its default route, the same model with ``fused_inference=True``,
+  and the plain-LIF model (``ecs=False``); the first and the last again under
+  ``plain_kernels()``, which must give the same detections and metrics; and
+  the metric half alone on a perfect detector.
 
 The launch counters are set to 0 just before each main path and read just
 after.  Each phase prints one JSON line (``--out PATH`` also writes them all
@@ -53,6 +60,14 @@ SILU_ATOL = 2e-4           # act=True (SiLU) sites, float32
 SPREAD_RTOL_F32 = 1e-5
 SPREAD_ULP_SHARE_BF16 = 1e-2
 GRAD_RTOL = 1e-4           # spread gradients against autograd, float32
+# the plain-LIF kernel repeats the plain loop's roundings one by one, so its
+# spikes must be equal; its SiLU goes through expf: float32 atol, bf16 ulps
+LIF_SILU_ATOL_F32, LIF_SILU_ULPS_BF16 = 2e-4, 2.0
+# the general-shape ECS-LIF kernel against the tensor-core one (another
+# rounding of the spread): recorded, with the JAX test's 2 % as the ceiling
+ROWS_VS_TENSOR_CORE_CEILING = 0.02
+VAL_IMAGES = 32
+VAL_SIZES = [(480, 640), (375, 500), (640, 640), (720, 1280)]
 # H100 SXM: HBM 3.35 TB/s; dense fp32 (CUDA cores) 67 TFLOP/s, bf16 989
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -119,12 +134,18 @@ class Agg:
                 "library_ms": self.library_ms or None}
 
 
-def site_shapes(model, memupdate_cls, x1) -> Counter:
-    """[H, W, C] of every neuron site, counted, from one hooked forward."""
+def site_shapes(model, memupdate_cls, x1, broadcast: set = None) -> Counter:
+    """[H, W, C] of every neuron site, counted, from one hooked forward;
+    the shapes whose input is a broadcast over T are added to ``broadcast``."""
     sites = [m for m in model.modules() if isinstance(m, memupdate_cls)]
     seen = []
-    hooks = [m.register_forward_hook(
-        lambda m, i, o: seen.append(tuple(i[0].shape[2:]))) for m in sites]
+
+    def hook(m, i, o):
+        seen.append(tuple(i[0].shape[2:]))
+        if broadcast is not None and i[0].stride(0) == 0:
+            broadcast.add(tuple(i[0].shape[2:]))
+
+    hooks = [m.register_forward_hook(hook) for m in sites]
     with torch.no_grad():
         model(x1)
     for h in hooks:
@@ -306,6 +327,345 @@ def phase_spread_grads(S, log) -> None:
             raise AssertionError(f"{name}: gradients disagree: {worst}")
 
 
+def phase_k6(FZ, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
+    """The plain-LIF kernel against its plain version at every res10 site
+    shape, N=8, T=4, x dense and x a broadcast over T, plus one ragged shape
+    (odd element count: the scalar variant)."""
+    agg = Agg()
+    cfg = cfg_cls(time_window=T, ecs=False)
+    shapes = [((T, N, h, w, c), n) for (h, w, c), n in sorted(sites.items(), reverse=True)]
+    shapes.append(((4, 3, 5, 7, 3), 0))
+    for dtype in (torch.float32, torch.bfloat16):
+        item = itemsize(dtype)
+        for i, (shape, count) in enumerate(shapes):
+            dense = (rand_fn(200 + i)(*shape) * 3 - 1).to(dtype)
+            for bcast in (False, True):
+                x = dense[:1].expand(*shape) if bcast else dense
+                got, want = FZ.lif_fused(x, cfg), FZ.lif_reference(x, cfg)
+                silu = (FZ.lif_fused(x, cfg, True).float()
+                        - FZ.lif_reference(x, cfg, True).float()).abs()
+                ref = FZ.lif_reference(x, cfg, True).float().abs()
+                torch.cuda.synchronize()
+                share = float((got != want).float().mean())
+                if dtype == torch.float32:
+                    silu_err, silu_ok = float(silu.max()), float(silu.max()) <= LIF_SILU_ATOL_F32
+                else:
+                    ulp = torch.exp2(torch.floor(torch.log2(ref.clamp(min=1e-30))) - 7)
+                    silu_err = float((silu / ulp).max())
+                    silu_ok = silu_err <= LIF_SILU_ULPS_BF16
+                m = math.prod(shape[1:])
+                reps = max(3, min(10, int(4e8 // math.prod(shape))))
+                ms = cuda_ms(lambda: FZ.lif_fused(x, cfg), reps)
+                plain_ms = cuda_ms(lambda: FZ.lif_reference(x, cfg), reps)
+                # x read once (one plane when it is a broadcast), spikes
+                # written once; five operations an element and step
+                bms, by = bound(((1 if bcast else shape[0]) + shape[0]) * m * item,
+                                5 * math.prod(shape), torch.float32)
+                rec = {"phase": "kernel_check", "kernel": "lif_fused",
+                       "dtype": dname(dtype), "shape": list(shape), "sites": count,
+                       "x_broadcast_over_t": bcast, "mismatch_share": share,
+                       "bound_share": 0.0, "max_abs_err": float((got.float() - want.float()).abs().max()),
+                       "silu_err": silu_err, "silu_err_unit":
+                       "abs" if dtype == torch.float32 else "bf16 ulps",
+                       "firing_rate": float(want.float().mean()), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": None}
+                emit(rec, log)
+                if share > 0.0 or not silu_ok:
+                    raise AssertionError(f"lif_fused disagrees at {rec}")
+                # one val forward: the site behind the stem reads a broadcast
+                if dtype == torch.bfloat16 and count and bcast == (shape[2:] in broadcast):
+                    agg.add(rec, count)
+                agg.max_abs_err = max(agg.max_abs_err, rec["max_abs_err"])
+            del dense, x, got, want, silu, ref
+    return agg
+
+
+def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
+    """The general-shape ECS-LIF kernel against its own plain version at every
+    res10 site shape (x dense, and x a broadcast over T where the model hands
+    the site one) and at two shapes the tensor-core kernel refuses; beside
+    it the tensor-core kernel on the same inputs (another rounding of the
+    spread: recorded, ceiling 2 %)."""
+    agg = Agg()
+    cfg = cfg_cls(time_window=T)
+    shapes = [((T, N, h, w, c), n) for (h, w, c), n in sorted(sites.items(), reverse=True)]
+    shapes += [((T, 2, 29, 6, 4), 0), ((T, 2, 20, 20, 12), 0)]
+    for dtype in (torch.float32, torch.bfloat16):
+        item = itemsize(dtype)
+        for i, (shape, count) in enumerate(shapes):
+            _, n, h, w, c = shape
+            dense, *params = site_inputs(shape, dtype, seed=300 + i)
+            for bcast in (False, True) if shape[2:] in broadcast else (False,):
+                args = [dense[:1].expand(*shape) if bcast else dense, *params]
+                got = FZ.ecs_lif_fused_rows(*args, cfg)
+                want = FZ.ecs_lif_rows_reference(*args, cfg)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                share = float((diff > 0).float().mean())
+                reps = 3
+                ms = cuda_ms(lambda: FZ.ecs_lif_fused_rows(*args, cfg), reps)
+                plain_ms = cuda_ms(lambda: FZ.ecs_lif_rows_reference(*args, cfg), 1)
+                # the function's bound, not this version's: x read once (one
+                # plane when it is a broadcast), spikes written once, weights;
+                # the spread's operations over T-1 steps against the peak for
+                # x's dtype, as for the tensor-core kernel
+                planes = (1 if bcast else T) + T
+                bms, by = bound((planes * n * h * w * c + 11 * c + c * c) * item,
+                                (T - 1) * n * h * w * (2 * c * c + 18 * c), dtype)
+                rec = {"phase": "kernel_check", "kernel": "ecs_lif_fused_rows",
+                       "dtype": dname(dtype), "act": False, "shape": list(shape),
+                       "sites": count, "x_broadcast_over_t": bcast,
+                       "mismatch_share": share,
+                       "bound_share": SPIKE_BOUND[dtype], "max_abs_err": float(diff.max()),
+                       "firing_rate": float(want.float().mean()), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": None}
+                if K.layout_refusal(args[0]) is None:
+                    k1 = K.ecs_lif_fused(*args, cfg)
+                    rec["share_differing_from_tensor_core_kernel"] = float(
+                        (k1 != got).float().mean())
+                    rec["tensor_core_kernel_ms"] = cuda_ms(
+                        lambda: K.ecs_lif_fused(*args, cfg), reps)
+                else:
+                    rec["tensor_core_kernel_refuses"] = K.layout_refusal(args[0])
+                emit(rec, log)
+                if (share > SPIKE_BOUND[dtype] or rec.get(
+                        "share_differing_from_tensor_core_kernel", 0.0) > ROWS_VS_TENSOR_CORE_CEILING):
+                    raise AssertionError(f"ecs_lif_fused_rows disagrees at {rec}")
+                # one val forward: the site behind the stem reads a broadcast
+                if dtype == torch.bfloat16 and count and bcast == (shape[2:] in broadcast):
+                    agg.add(rec, count)
+                agg.max_abs_err = max(agg.max_abs_err, float(diff.max()))
+                del args, got, want, diff
+            del dense, params
+    # act=True (SiLU) at one small shape K1 refuses, float32; strided inputs
+    shape = (T, 2, 29, 6, 12)
+    args = site_inputs(shape, torch.float32, seed=98)
+    err = float((FZ.ecs_lif_fused_rows(*args, cfg, True)
+                 - FZ.ecs_lif_rows_reference(*args, cfg, True)).abs().max())
+    xt = args[0].transpose(2, 3)
+    strided = float((FZ.ecs_lif_fused_rows(xt, *args[1:], cfg)
+                     != FZ.ecs_lif_rows_reference(xt.contiguous(), *args[1:], cfg)
+                     ).float().mean())
+    emit({"phase": "kernel_check", "kernel": "ecs_lif_fused_rows", "dtype":
+          "float32", "act": True, "shape": list(shape), "max_abs_err": err,
+          "atol": SILU_ATOL, "transposed_input_mismatch_share": strided}, log)
+    if err > SILU_ATOL or strided > SPIKE_BOUND[torch.float32]:
+        raise AssertionError(f"ecs_lif_fused_rows(act=True) max abs err {err}, "
+                             f"transposed input share {strided}")
+    return agg
+
+
+def write_val_set(root: Path, seed: int) -> Path:
+    """A synthetic val split from ``seed``: ``VAL_IMAGES`` images of mixed
+    native sizes (noise with flat boxes), 1-12 labelled boxes of ``NC``
+    classes each, numeric file stems.  Returns the image directory."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir(parents=True)
+    for i in range(VAL_IMAGES):
+        h, w = VAL_SIZES[i % len(VAL_SIZES)]
+        im = (rng.rand(h, w, 3) * 96 + 64).astype(np.uint8)
+        rows = []
+        for _ in range(rng.randint(1, 13)):
+            bw, bh = rng.uniform(0.05, 0.4, 2)
+            cx, cy = rng.uniform(bw / 2, 1 - bw / 2), rng.uniform(bh / 2, 1 - bh / 2)
+            x0, x1 = int((cx - bw / 2) * w), int((cx + bw / 2) * w)
+            y0, y1 = int((cy - bh / 2) * h), int((cy + bh / 2) * h)
+            im[y0:y1, x0:x1] = rng.randint(0, 255, 3)
+            rows.append(f"{rng.randint(0, NC)} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}")
+        Image.fromarray(im).save(root / "images" / f"{1000 + i}.jpg", quality=90)
+        (root / "labels" / f"{1000 + i}.txt").write_text("\n".join(rows) + "\n")
+    return root / "images"
+
+
+def recorded_nms(val_mod, run):
+    """``run()`` with every NMS output of ``val_mod`` kept (the padded
+    ``[B, max_det, 6]`` tensors and their masks, on the host)."""
+    real, outs = val_mod.non_max_suppression, []
+
+    def nms(*a, **k):
+        out, valid = real(*a, **k)
+        outs.append((out.cpu(), valid.cpu()))
+        return out, valid
+
+    val_mod.non_max_suppression = nms
+    try:
+        return run(), outs
+    finally:
+        val_mod.non_max_suppression = real
+
+
+def phase_val(seed: int, log) -> dict:
+    """The validation main path: res10 full width, nc 13, 640 px, T=4, batch
+    8, bf16, over the synthetic split; ECS-LIF on its default route, ECS-LIF
+    with ``fused_inference``, and plain LIF."""
+    from ecs_yolo_tpu_torch import val as val_mod
+    from ecs_yolo_tpu_torch.config import SNNConfig
+    from ecs_yolo_tpu_torch.data.dataset import Dataset
+    from ecs_yolo_tpu_torch.models.yolo import build_model, cast_params
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
+    from ecs_yolo_tpu_torch.ops.cocoeval import dataset_to_coco_gt, evaluate_json
+    from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import fused as FZ
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+
+    counters = {"ecs_lif_fused": K.ecs_lif_fused, "ecs_lif_fused_rows":
+                FZ.ecs_lif_fused_rows, "lif_fused": FZ.lif_fused}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        src = write_val_set(tmp / "val", seed)
+        ds = Dataset(src, img_size=IMGSZ, augment=False, uint8_out=True)
+        anno = tmp / "gt.json"
+        anno.write_text(json.dumps(dataset_to_coco_gt(
+            ds, class_names=[str(c) for c in range(NC)])))
+        t1 = time.perf_counter()
+        items = [ds[i] for i in range(len(ds))]
+        decode_ms = (time.perf_counter() - t1) * 1e3 / len(ds)
+        t2 = time.perf_counter()
+        for _ in ds.batches(N, drop_last=False, yield_idx=True, workers=4):
+            pass
+        emit({"phase": "val_set", "images": len(ds), "labels":
+              int(sum(len(lb) for lb in ds.labels)), "classes": NC,
+              "native_sizes": [list(s) for s in VAL_SIZES],
+              "write_seconds": t1 - t0,
+              "host_decode_letterbox_ms_per_image_one_thread": decode_ms,
+              "loader_alone_seconds_4_threads": time.perf_counter() - t2}, log)
+
+        # the metric half on a perfect detector: the labels, through the
+        # letterbox to the canvas, handed in as detections
+        acc = val_mod.MetricAccumulator(ds)
+        for i, (_, labels, mask) in enumerate(items):
+            gt = labels[mask]
+            h, w = ds.meta(i)["canvas_hw"]
+            boxes = val_mod.xywh2xyxy_np(gt[:, 1:5]) * [w, h, w, h]
+            acc.add(i, labels, mask, np.concatenate(
+                [boxes, np.full((len(gt), 1), 0.9), gt[:, :1]], 1).astype(np.float32))
+        sane = acc.summary([0.0, 0.0, 0.0])
+        emit({"phase": "val_sanity", "seen": acc.seen, "map50": sane["map50"],
+              "map": sane["map"], "mp": sane["mp"], "mr": sane["mr"]}, log)
+        if acc.seen != VAL_IMAGES or sane["map50"] < 0.99:
+            raise AssertionError(f"val_sanity: a perfect detector scores {sane}")
+
+        calib = torch.from_numpy(np.stack([it[0] for it in items[:N]])).cuda().float() / 255.0
+        del items
+
+        def make(snn, state=None):
+            model = build_model("resnet10.yaml", nc=NC, snn=snn,
+                                generator=torch.Generator().manual_seed(seed + 3))
+            if state is None:
+                calibrate_bn(model, calib, _BN)
+            else:
+                model.load_state_dict(state, strict=True)
+            return model
+
+        def one_pass(model, name):
+            return val_mod.run(model, str(src), imgsz=IMGSZ, batch_size=N,
+                               dataset=ds, save_json=str(tmp / f"{name}.json"),
+                               anno_json=str(anno))
+
+        def val_pass(name, model, want_kernel, check_plain, ref_fn):
+            sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+            for f in counters.values():
+                f.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res, outs = recorded_nms(val_mod, lambda: one_pass(model, name))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {k: f.launches for k, f in counters.items()}
+            forwards = len(outs)
+            t0 = time.perf_counter()
+            evaluate_json(str(anno), str(tmp / f"{name}.json"))
+            coco_seconds = time.perf_counter() - t0
+            rec = {"phase": "val", "variant": name, "batch": N, "imgsz": IMGSZ,
+                   "T": T, "dtype": "bfloat16", "forwards": forwards,
+                   **{k: res[k] for k in ("mp", "mr", "map50", "map", "fitness")},
+                   "speed_ms_per_image_pre_inference_nms": list(res["speed"]),
+                   "seen": res["seen"],
+                   "wall_seconds": wall, "images_per_s": VAL_IMAGES / wall,
+                   "of_which_cocoeval_seconds": coco_seconds,
+                   "launches": counts, "launches_per_forward":
+                   {k: v / forwards for k, v in counts.items()},
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "detections": len(json.loads((tmp / f"{name}.json").read_text())),
+                   "coco": res.get("coco")}
+            launches[want_kernel] = counts[want_kernel]
+            ok = (forwards == VAL_IMAGES // N and res["seen"] == VAL_IMAGES
+                  and all(counts[k] == (len(sites) * forwards if k == want_kernel else 0)
+                          for k in counts)
+                  and all(math.isfinite(res[k]) and 0 <= res[k] <= 1
+                          for k in ("mp", "mr", "map50", "map", "fitness"))
+                  and all(math.isfinite(v) for v in res["coco"].values()))
+            if check_plain:
+                with plain_kernels():
+                    res_p, outs_p = recorded_nms(val_mod, lambda: one_pass(model, name + "_plain"))
+                rows = sum(o.shape[0] * o.shape[1] for o, _ in outs)
+                worst, off, masks_equal = 0.0, 0, True
+                for (o, v), (op, vp) in zip(outs, outs_p):
+                    d = (o - op).abs().amax(-1)
+                    worst, off = max(worst, float(d.max())), off + int((d > 0).sum())
+                    masks_equal &= bool((v == vp).all())
+                metric_diff = max(abs(res[k] - res_p[k])
+                                  for k in ("mp", "mr", "map50", "map", "fitness"))
+                rec.update(nms_output_max_abs_diff_vs_plain_kernels=worst,
+                           nms_rows_differing_share=off / rows,
+                           nms_valid_masks_equal=masks_equal,
+                           metrics_max_abs_diff_vs_plain_kernels=metric_diff)
+                ok &= (worst <= 1e-3 and off / rows <= 1e-3 and metric_diff <= 1e-6
+                       and (masks_equal or off > 0) and sum(
+                           f.launches for f in counters.values()) == sum(counts.values()))
+            # every real neuron site of one batch against the plain version
+            # of its kernel, on the site's own input
+            x = torch.from_numpy(np.stack([ds[i][0] for i in range(N)])).cuda().float() / 255.0
+            with torch.inference_mode():
+                _, seen = hooked_sites(sites, lambda: model(x))
+                shares = [float((ref_fn(m, xin).to(torch.uint8) != spikes).float().mean())
+                          for m, xin, spikes in seen]
+            del seen
+            rec["worst_site_mismatch_share"] = max(shares)
+            rec["site_firing_rates_checked"] = len(shares)
+            ok &= len(shares) == len(sites) and max(shares) <= (
+                0.0 if want_kernel == "lif_fused" else SPIKE_BOUND[torch.bfloat16])
+            rec.update(profile_step(lambda: one_pass(model, name + "_prof")))
+            emit(rec, log)
+            if not ok:
+                raise AssertionError(f"val pass {name} failed its checks: {rec}")
+            return res, outs
+
+        ecs_ref = lambda fn: lambda m, xin: fn(xin, *m.spread_params(), m.snn, m.act)
+        model = cast_params(make(SNNConfig(time_window=T)), torch.bfloat16)
+        res_a, outs_a = val_pass("ecs_lif", model, "ecs_lif_fused", True,
+                         ecs_ref(K.ecs_lif_reference))
+        state = model.state_dict()
+        del model
+        model = cast_params(make(SNNConfig(time_window=T, fused_inference=True), state),
+                            torch.bfloat16)
+        res_b, outs_b = val_pass("ecs_lif_fused_inference", model, "ecs_lif_fused_rows",
+                         False, ecs_ref(FZ.ecs_lif_rows_reference))
+        del model, state
+        rows_differing = sum(int(((a - b).abs().amax(-1) > 0).sum())
+                             for (a, _), (b, _) in zip(outs_a, outs_b))
+        emit({"phase": "val_routes", "what": "fused_inference against the default "
+              "route, same weights (another rounding of the spread; recorded only)",
+              "nms_rows_differing_share": rows_differing / sum(
+                  a.shape[0] * a.shape[1] for a, _ in outs_a),
+              "nms_output_max_abs_diff": max(
+                  float((a - b).abs().max()) for (a, _), (b, _) in zip(outs_a, outs_b)),
+              **{f"{k}_abs_diff": abs(res_a[k] - res_b[k])
+                 for k in ("mp", "mr", "map50", "map", "fitness")}}, log)
+        model = cast_params(make(SNNConfig(time_window=T, ecs=False)), torch.bfloat16)
+        val_pass("plain_lif", model, "lif_fused", True,
+                 lambda m, xin: FZ.lif_reference(xin, m.snn, m.act))
+        del model
+    return launches
+
+
 def write_images(d: Path, seed: int = 0):
     from PIL import Image
 
@@ -473,7 +833,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="port smoke test on one card")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write every phase's record to this JSON file")
-    out_path = ap.parse_args(argv).out
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the synthetic val split and the val models")
+    opt = ap.parse_args(argv)
+    out_path = opt.out
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -485,6 +848,7 @@ def main(argv=None) -> int:
     from ecs_yolo_tpu_torch.models.yolo import build_model, cast_params
     from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
     from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import fused as FZ
     from ecs_yolo_tpu_torch.snn import spread as S
     from ecs_yolo_tpu_torch.snn.route import plain_kernels
 
@@ -501,7 +865,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = ["ecs_lif", "spread_dw3", "spread_gemm"]
+    sources = ["ecs_lif", "spread_dw3", "spread_gemm", "lif_fused", "ecs_lif_rows"]
     _build.build(sources)            # one nvcc per source, all started together
     for name in sources:
         _build.load(name)
@@ -519,15 +883,19 @@ def main(argv=None) -> int:
         write_images(Path(tmp))
         ims = [im for _, im, _ in LoadImages(tmp, IMGSZ)]
         x1 = torch.from_numpy(ims[0]).cuda()
-        shapes = site_shapes(model, MemUpdate, x1)
+        broadcast: set = set()
+        shapes = site_shapes(model, MemUpdate, x1, broadcast)
         emit({"phase": "sites", "count": len(sites), "shapes":
-              [[list(k), v] for k, v in sorted(shapes.items(), reverse=True)]}, log)
+              [[list(k), v] for k, v in sorted(shapes.items(), reverse=True)],
+              "input_broadcast_over_t": sorted(map(list, broadcast))}, log)
         if len(sites) != 24:
             raise AssertionError(f"res10 has {len(sites)} neuron sites, want 24")
 
         agg1 = phase_k1(K, SNNConfig, shapes, log)
         aggs = phase_spread(S, plain_kernels, shapes, log)
         phase_spread_grads(S, log)
+        agg6 = phase_k6(FZ, SNNConfig, shapes, broadcast, log)
+        agg2 = phase_k2(FZ, K, SNNConfig, shapes, broadcast, log)
 
         # --- the detect path at full width -------------------------------------
         calibrate_bn(model, torch.from_numpy(np.concatenate(ims)).cuda(), _BN)
@@ -596,6 +964,9 @@ def main(argv=None) -> int:
     # --- the training main path ------------------------------------------------
     spread_launches = phase_train(log)
 
+    # --- the validation main path ----------------------------------------------
+    val_launches = phase_val(opt.seed, log)
+
     csrc = "ecs_yolo_tpu_torch/csrc/"
     fwd = f"one res10@640 training forward, N={N}, T={T}, bf16"
     kernels = {"kernels": [
@@ -603,7 +974,8 @@ def main(argv=None) -> int:
             name="ecs_lif_fused", route="cuda", source=csrc + "ecs_lif.cu",
             replaces="ecs_yolo_tpu/snn/pallas_ecs_v3.py:172", launches=k1_launches,
             work=f"the 24 neuron sites of one res10@640 forward, N={N}, T={T}, "
-                 "bf16; launches over the 4 detect forwards",
+                 "bf16; launches over the 4 detect forwards (the val pass on "
+                 f"the default route adds {val_launches['ecs_lif_fused']})",
             library_note="no single PyTorch call computes the ECS-LIF recurrence"),
         aggs["binary_dw3_conv"].entry(
             name="binary_dw3_conv", route="cuda", source=csrc + "spread_dw3.cu",
@@ -620,6 +992,25 @@ def main(argv=None) -> int:
                  f"over the {TRAIN_STEPS} train steps",
             library_note="dense F.conv2d with the composed [C,C,3,3] kernel and "
                          "bias const, channels_last"),
+        agg6.entry(
+            name="lif_fused", route="cuda", source=csrc + "lif_fused.cu",
+            replaces="ecs_yolo_tpu/snn/pallas_kernels.py:57",
+            launches=val_launches["lif_fused"],
+            work=f"the 24 neuron sites of one plain-LIF res10@640 forward, N={N}, "
+                 f"T={T}, bf16 (the site behind the stem reads a broadcast x); "
+                 f"launches over the {VAL_IMAGES // N} forwards of the val pass",
+            library_note="no single PyTorch call computes the LIF recurrence"),
+        agg2.entry(
+            name="ecs_lif_fused_rows", route="cuda", source=csrc + "ecs_lif_rows.cu",
+            replaces="ecs_yolo_tpu/snn/pallas_kernels.py:326",
+            launches=val_launches["ecs_lif_fused_rows"],
+            work=f"the 24 neuron sites of one res10@640 forward under "
+                 f"fused_inference, N={N}, T={T}, bf16 (the site behind the stem "
+                 "reads a broadcast x); launches over the "
+                 f"{VAL_IMAGES // N} forwards of the val pass",
+            note="this version runs the 1x1 product on CUDA cores; the bound "
+                 "is the function's, against the peak for x's dtype",
+            library_note="no single PyTorch call computes the ECS-LIF recurrence"),
     ]}
     if out_path is not None:
         out_path.parent.mkdir(parents=True, exist_ok=True)
@@ -669,6 +1060,8 @@ def profile_step(run) -> dict:
     rows.sort(reverse=True)
     own = {name: sum(r[0] for r in rows if tag in r[1]) for name, tag in (
         ("ecs_lif_device_ms", "ecs_lif_kernel"),
+        ("ecs_lif_rows_device_ms", "ecs_lif_rows_kernel"),
+        ("lif_fused_device_ms", "lif_fused_"),
         ("spread_dw3_device_ms", "spread_dw3_kernel"),
         ("spread_gemm_device_ms", "spread_gemm_"))}
     return {"profiled_wall_ms": wall_ms, "device_ms": total,

@@ -27,14 +27,21 @@ class SNNConfig:
       alpha: ECS spread gain.
       beta: ECS feedback gain (through tanh).
       ecs_tau: ECS field time constant.
-      fused_inference: kept for configuration parity.  In the port, eval
-        (``torch.no_grad()``, module in eval mode) on a CUDA tensor always
-        takes the fused ECS-LIF kernel (``snn/ecs_lif.py``).  Training mode
-        or autograd on takes the T-loop, whose spread on a CUDA tensor runs
-        on the spread kernels (``snn/spread.py``): the fused dw+pw product at
-        C <= 64 sites, the binary depthwise kernel plus a library 1x1
-        product at wider ones.  On the CPU every wrapper takes its plain
-        version.  The flag is not read.
+      fused_inference: which fused kernel an ECS-LIF site takes in eval
+        (``torch.no_grad()``, module in eval mode) on a CUDA tensor.  False:
+        the tensor-core kernel of ``snn/ecs_lif.py``, and the general-shape
+        kernel of ``snn/fused.py`` (``ecs_lif_fused_rows``) only for a site
+        whose layout the first refuses (``C % 8 != 0``, a non-dense or
+        unaligned input).  True: ``ecs_lif_fused_rows`` at every site, the
+        counterpart of the JAX ``pallas_kernels.ecs_lif_fused`` this flag
+        was reserved for; its spread rounds tap by tap, so its spikes may
+        differ from the default route's near the threshold.  With
+        ``ecs=False`` every eval site takes ``snn/fused.lif_fused``.
+        Training mode or autograd on takes the T-loop, whose spread on a
+        CUDA tensor runs on the spread kernels (``snn/spread.py``): the
+        fused dw+pw product at C <= 64 sites, the binary depthwise kernel
+        plus a library 1x1 product at wider ones.  On the CPU every wrapper
+        takes its plain version.
       stem_dedup: run the T-invariant stem once at T=1 for a static image and
         broadcast the result over T (exact; see ``models/yolo.py``).
       packed_spread, packed_c64, bn_custom_vjp, int8_spike_transport,

@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import DEFAULT_SNN, SNNConfig, autopad
-from ..snn.ecs_lif import ecs_lif_fused, ecs_lif_reference
+from ..snn.ecs_lif import ecs_lif_fused, ecs_lif_reference, layout_refusal
+from ..snn.fused import ecs_lif_fused_rows, lif_fused, lif_reference
 from ..snn.neuron import ecs_lif_scan, firing_rate, lif_scan, make_spread
 from ..snn.spread import make_kernel_spread
 
@@ -114,18 +115,27 @@ class TBatchNorm(nn.Module):
 class MemUpdate(nn.Module):
     """The neuron activation (reference ``mem_update``): the ECS-LIF
     recurrence over T, owning the spread's depthwise 3x3 (``spread.0``) and
-    pointwise 1x1 (``spread.1``) convolutions, both with bias.
+    pointwise 1x1 (``spread.1``) convolutions, both with bias; or, with
+    ``snn.ecs=False``, the plain LIF recurrence without parameters.
 
-    Eval without autograd takes the fused forward kernel
-    (``snn/ecs_lif.py``).  Training mode, or autograd on, takes the T-loop
-    ``ecs_lif_scan`` whose spread runs on the spread kernels
+    Eval without autograd takes one fused forward kernel per site:
+
+    * ``snn.ecs=False``: ``snn/fused.lif_fused``;
+    * ``snn.ecs=True``: ``snn/ecs_lif.ecs_lif_fused`` (tensor cores; wants
+      ``C % 8 == 0`` and a dense, 16-byte aligned input), or
+      ``snn/fused.ecs_lif_fused_rows`` (any shape and strides) when
+      ``snn.fused_inference`` is set or the first refuses the input's layout
+      (``snn/ecs_lif.layout_refusal``).
+
+    Training mode, or autograd on, takes the T-loops of ``snn/neuron.py``:
+    ``lif_scan``, or ``ecs_lif_scan`` whose spread runs on the spread kernels
     (``snn/spread.py``; an ``act=True`` site's SiLU output is not binary, so
-    its spread is the library's convolutions).  On a CPU tensor every
-    wrapper takes its plain version.
+    its spread is the library's convolutions).  No fused kernel has a
+    backward.  On a CPU tensor every wrapper takes its plain version.
 
-    In training mode an ``act=False`` site keeps its mean spike density in
-    ``firing_rate``, a 0-d tensor on the device that costs no host sync until
-    it is read.
+    In training mode an ``act=False`` ECS-LIF site keeps its mean spike
+    density in ``firing_rate``, a 0-d tensor on the device that costs no
+    host sync until it is read.
     """
 
     def __init__(self, c: int, act: bool = False, snn: SNNConfig = DEFAULT_SNN):
@@ -145,14 +155,25 @@ class MemUpdate(nn.Module):
         return (dw.weight.permute(2, 3, 1, 0), dw.bias,
                 pw.weight.permute(2, 3, 1, 0), pw.bias)
 
+    def _eval_forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the build's shape probe runs on the meta device, which no kernel
+        # wrapper takes
+        meta = x.device.type == "meta"
+        if not self.snn.ecs:
+            return (lif_reference if meta else lif_fused)(x, self.snn, self.act)
+        if meta:
+            fwd = ecs_lif_reference
+        elif self.snn.fused_inference or layout_refusal(x) is not None:
+            fwd = ecs_lif_fused_rows
+        else:
+            fwd = ecs_lif_fused
+        return fwd(x, *self.spread_params(), self.snn, self.act)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training and not torch.is_grad_enabled():
+            return self._eval_forward(x)
         if not self.snn.ecs:
             return lif_scan(x, self.snn, self.act)
-        if not self.training and not torch.is_grad_enabled():
-            # the build's shape probe runs on the meta device, which no
-            # kernel wrapper takes
-            fwd = ecs_lif_reference if x.device.type == "meta" else ecs_lif_fused
-            return fwd(x, *self.spread_params(), self.snn, self.act)
         params = [p.to(x.dtype) for p in self.spread_params()]
         spread = make_spread(*params) if self.act else make_kernel_spread(*params)
         spikes = ecs_lif_scan(x, spread, self.snn, self.act)

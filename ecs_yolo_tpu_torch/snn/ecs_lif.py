@@ -2,8 +2,11 @@
 
 Counterpart of ``ecs_yolo_tpu/snn/pallas_ecs_v3.py:ecs_lif_pallas``: the
 whole T-step ECS-LIF recurrence of one site, the depthwise-3x3 + pointwise
-1x1 spread included, in one launch.  Eval on a CUDA tensor always takes this
-kernel (``nn/blocks.MemUpdate``).
+1x1 spread included, in one launch.  Eval of an ECS-LIF site on a CUDA tensor
+takes this kernel by default (``nn/blocks.MemUpdate``); a site whose layout
+it refuses (:func:`layout_refusal`), or any site under
+``SNNConfig.fused_inference``, takes the general-shape kernel of
+``snn/fused.py`` instead.
 
 The wrapper takes the plain loop (``snn/neuron.ecs_lif_scan``) for a tensor
 on the CPU or inside ``route.plain_kernels()``, and only then.  For a CUDA
@@ -15,13 +18,16 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
+
 import torch
 
 from ..config import SNNConfig
 from .neuron import ecs_lif_scan, make_spread
 from .route import use_kernel
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype codes of the kernels' C interfaces
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: blocks resident on one SM (``__launch_bounds__(kThreads, 2)`` in the source)
 BLOCKS_PER_SM = 2
 
@@ -57,11 +63,15 @@ def ecs_lif_reference(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
     return ecs_lif_scan(x, spread, cfg, act)
 
 
-def _check(x, dw_kernel, dw_bias, pw_kernel, pw_bias):
+def check_params(x, dw_kernel, dw_bias, pw_kernel, pw_bias,
+                 who: str = "ecs_lif_fused") -> None:
+    """What every fused ECS-LIF kernel demands: x ``[T, N, H, W, C]`` of a
+    dtype it takes, the spread parameters in the JAX shapes on x's device,
+    and one image small enough for 32-bit offsets."""
     if x.dim() != 5:
         raise ValueError(f"x must be [T, N, H, W, C], got {tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"ecs_lif_fused takes float32 or bfloat16, not {x.dtype}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{who} takes float32 or bfloat16, not {x.dtype}")
     t, n, h, w, c = x.shape
     want = {"dw_kernel": (3, 3, 1, c), "dw_bias": (c,),
             "pw_kernel": (1, 1, c, c), "pw_bias": (c,)}
@@ -70,18 +80,33 @@ def _check(x, dw_kernel, dw_bias, pw_kernel, pw_bias):
             raise ValueError(f"{name} must be {want[name]}, got {tuple(p.shape)}")
         if p.device != x.device:
             raise ValueError(f"{name} is on {p.device}, x on {x.device}")
-    # the four inner dims dense; T dense or broadcast (stride 0)
-    if tuple(x.stride()[1:]) != (h * w * c, w * c, c, 1):
-        raise ValueError(f"x's [N, H, W, C] dims must be contiguous, strides "
-                         f"{x.stride()}")
-    if t > 1 and x.stride(0) not in (0, n * h * w * c):
-        raise ValueError(f"x's T stride must be 0 or N*H*W*C, got {x.stride(0)}")
     if h * w * c >= 2 ** 31:
         raise ValueError("one image of x must hold fewer than 2^31 elements")
+
+
+def layout_refusal(x: torch.Tensor) -> Optional[str]:
+    """Why this kernel does not take the layout of ``x`` ``[T, N, H, W, C]``,
+    or None when it does.  It reads 16-byte groups of eight channels, so it
+    wants the four inner dims dense, T dense or a broadcast (stride 0),
+    ``C % 8 == 0`` and a 16-byte aligned start.  ``nn/blocks.MemUpdate``
+    sends a refused site to the general-shape kernel (``snn/fused.py``)."""
+    t, n, h, w, c = x.shape
+    if tuple(x.stride()[1:]) != (h * w * c, w * c, c, 1):
+        return f"x's [N, H, W, C] dims must be contiguous, strides {x.stride()}"
+    if t > 1 and x.stride(0) not in (0, n * h * w * c):
+        return f"x's T stride must be 0 or N*H*W*C, got {x.stride(0)}"
     if c % 8:
-        raise ValueError(f"the kernel takes C % 8 == 0, got C={c}")
-    if x.data_ptr() % 16:
-        raise ValueError("x must start on a 16-byte boundary")
+        return f"the kernel takes C % 8 == 0, got C={c}"
+    if x.device.type == "cuda" and x.data_ptr() % 16:
+        return "x must start on a 16-byte boundary"
+    return None
+
+
+def _check(x, dw_kernel, dw_bias, pw_kernel, pw_bias):
+    check_params(x, dw_kernel, dw_bias, pw_kernel, pw_bias)
+    reason = layout_refusal(x)
+    if reason:
+        raise ValueError(reason)
 
 
 def ecs_lif_fused(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
@@ -125,7 +150,7 @@ def ecs_lif_fused(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
         return float(torch.tensor(v, dtype=dt))
 
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(_DTYPES[dt], x.data_ptr(), x.stride(0), out.data_ptr(),
+    err = fn(DTYPE_CODES[dt], x.data_ptr(), x.stride(0), out.data_ptr(),
              dw.data_ptr(), dwb.data_ptr(), pwt.data_ptr(), pwb.data_ptr(),
              ws.data_ptr(), ws_cap, t, n, h, w, c, rb, halo,
              float(cfg.thresh), rounded(cfg.decay), rounded(cfg.alpha),

@@ -237,11 +237,127 @@ def test_nms_matches_jax_on_clustered_boxes():
         np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=1e-4)
 
 
-def test_nms_unported_options_raise():
+def _random_pred(rng, a=200, nc=7, batch=2):
+    """Random v1 predictions [B, A, 5+nc], as tests/test_nms.py:random_pred."""
+    xy = rng.rand(batch, a, 2) * 600 + 20
+    wh = rng.rand(batch, a, 2) * 100 + 5
+    obj = rng.rand(batch, a, 1)
+    cls = rng.rand(batch, a, nc)
+    return np.concatenate([xy, wh, obj, cls], -1).astype(np.float32)
+
+
+def _clustered_pred(seed, n=300, nc=3):
+    """Boxes scattered round a few centres, so that many overlap."""
+    rng = np.random.RandomState(seed)
+    centers = rng.rand(12, 2) * 300 + 40
+    xy = centers[rng.randint(0, 12, n)] + rng.randn(n, 2) * 5
+    wh = 30 + rng.rand(n, 2) * 20
+    return np.concatenate([xy, wh, rng.rand(n, 1), rng.rand(n, nc)],
+                          -1)[None].astype(np.float32)
+
+
+def _zero_area_pred():
+    pred = np.zeros((1, 3, 5 + 2), dtype=np.float32)
+    pred[0, 0, :4] = [100, 100, 0, 0]
+    pred[0, 0, 4:6] = [1.0, 0.95]
+    pred[0, 1, :4] = [300, 300, 40, 40]
+    pred[0, 1, 4], pred[0, 1, 6] = 1.0, 0.9
+    return pred
+
+
+def _twin_boxes_pred():
+    pred = np.zeros((1, 2, 5 + 3), dtype=np.float32)
+    pred[0, :, :4] = [100, 100, 50, 50]
+    pred[0, :, 4] = 1.0
+    pred[0, 0, 5], pred[0, 1, 6] = 0.9, 0.8
+    return pred
+
+
+def _dfl_pred():
+    rng = np.random.RandomState(2)
+    return np.concatenate([rng.rand(1, 2, 100) * 600 + 20,
+                           rng.rand(1, 2, 100) * 80 + 5,
+                           rng.rand(1, 4, 100)], axis=1).astype(np.float32)
+
+
+# the inputs and options of tests/test_nms.py:TestNMS, and the val settings
+NMS_CASES = {
+    "single_label": (lambda: _random_pred(np.random.RandomState(0)),
+                     dict(conf_thres=0.25, iou_thres=0.45, max_det=20)),
+    "multi_label": (lambda: _random_pred(np.random.RandomState(0)),
+                    dict(conf_thres=0.25, iou_thres=0.45, max_det=20,
+                         multi_label=True)),
+    "multi_label_val_settings": (
+        lambda: _random_pred(np.random.RandomState(6), a=300, nc=5),
+        dict(conf_thres=0.001, iou_thres=0.6, max_det=300, multi_label=True)),
+    "multi_label_pool_cut": (
+        lambda: _random_pred(np.random.RandomState(7), a=150, nc=4),
+        dict(conf_thres=0.01, iou_thres=0.6, max_det=30, multi_label=True,
+             max_nms=200)),
+    "multi_label_agnostic": (
+        lambda: _random_pred(np.random.RandomState(8), a=150, nc=4),
+        dict(conf_thres=0.2, iou_thres=0.5, max_det=30, multi_label=True,
+             agnostic=True)),
+    "multi_label_one_class": (
+        lambda: _random_pred(np.random.RandomState(9), a=150, nc=1),
+        dict(conf_thres=0.2, iou_thres=0.5, max_det=30, multi_label=True)),
+    "padded_rows": (lambda: _random_pred(np.random.RandomState(1), a=50),
+                    dict(conf_thres=0.9, max_det=20)),
+    "zero_area": (_zero_area_pred, dict(max_det=20)),
+    "zero_area_multi_label": (_zero_area_pred,
+                              dict(max_det=20, multi_label=True)),
+    "merge": (lambda: _clustered_pred(3),
+              dict(conf_thres=0.25, iou_thres=0.5, max_det=20, merge=True)),
+    "merge_sparse_boxes_all_dropped": (
+        lambda: _random_pred(np.random.RandomState(3), a=120, nc=3),
+        dict(conf_thres=0.25, iou_thres=0.5, max_det=20, merge=True)),
+    "merge_not_redundant": (
+        lambda: _random_pred(np.random.RandomState(3), a=120, nc=3),
+        dict(conf_thres=0.25, iou_thres=0.5, max_det=20, merge=True,
+             redundant=False)),
+    "merge_multi_label": (
+        lambda: _clustered_pred(4),
+        dict(conf_thres=0.25, iou_thres=0.5, max_det=20, merge=True,
+             multi_label=True)),
+    "twin_boxes": (_twin_boxes_pred, dict(agnostic=False, max_det=20)),
+    "twin_boxes_agnostic": (_twin_boxes_pred, dict(agnostic=True, max_det=20)),
+    "dfl_layout": (_dfl_pred, dict(has_obj=False, conf_thres=0.5, max_det=20)),
+    "dfl_layout_multi_label": (_dfl_pred, dict(has_obj=False, conf_thres=0.5,
+                                               max_det=20, multi_label=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NMS_CASES))
+def test_nms_options_match_jax(case):
+    """``valid`` equal and ``out`` to atol 1e-4 (float32: the merged boxes'
+    weighted sums run in another order)."""
+    make, kw = NMS_CASES[case]
+    pred = make()
+    jo, jv = jax_nms(jnp.asarray(pred), **kw)
+    po, pv = port_nms(torch.from_numpy(pred), **kw)
+    jo, jv = np.asarray(jo), np.asarray(jv)
+    assert po.dtype == torch.float32 and tuple(po.shape) == jo.shape
+    np.testing.assert_array_equal(pv.numpy(), jv)
+    np.testing.assert_allclose(po.numpy(), jo, atol=1e-4, rtol=1e-5)
+    assert (po.numpy()[~pv.numpy()] == 0).all()
+    if case not in ("padded_rows", "merge_sparse_boxes_all_dropped"):
+        assert jv.sum() > 0
+    if case == "twin_boxes":
+        assert int(pv.sum()) == 2
+    if case == "twin_boxes_agnostic":
+        assert int(pv.sum()) == 1
+    if case.startswith("zero_area"):
+        assert int(pv.sum()) == 2
+
+
+def test_nms_all_zero_prediction_has_no_valid_rows():
+    """An all-zero prediction passes no confidence threshold under
+    ``multi_label``, ``merge`` and ``redundant``: no valid row, all-zero out."""
     pred = torch.zeros(1, 4, 7)
-    for kw in ({"multi_label": True}, {"merge": True}):
-        with pytest.raises(NotImplementedError):
-            port_nms(pred, **kw)
+    for kw in ({"multi_label": True}, {"merge": True},
+               {"merge": True, "redundant": False}):
+        out, valid = port_nms(pred, **kw)
+        assert not valid.any() and not out.any()
 
 
 def test_build_model_needs_a_card_unless_cpu_is_asked(monkeypatch):
