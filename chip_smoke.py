@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from the checkout (``ecs_yolo_tpu_torch/
-csrc/``: the fused ECS-LIF forward, the binary depthwise 3x3, the fused dw+pw
-spread product, the fused plain-LIF forward, the general-shape fused ECS-LIF
-forward), takes the EMS-ResNet10@640 neuron-site shapes from the model
-itself, holds every kernel against its plain PyTorch version at those shapes
-(and the two spread kernels' gradients against autograd through the plain
-version), and drives the port's three main paths at full width with random
-weights from a seed:
+Builds the port's seven CUDA kernel sources from the checkout
+(``ecs_yolo_tpu_torch/csrc/``: the fused ECS-LIF forward, the binary depthwise
+3x3, the fused dw+pw spread product, the fused plain-LIF forward, the
+general-shape fused ECS-LIF forward, the ECS-LIF forward with its state in
+shared memory, the dense 3x3 product), which serve eight functions (the
+depthwise kernel also serves the bench's ``pallas_dw3``), takes the
+EMS-ResNet10@640 neuron-site shapes from the model itself, holds every kernel
+against its plain PyTorch version at those shapes (and the two spread
+kernels' gradients against autograd through the plain version), and drives
+the port's paths at full width with random weights from a seed:
 
 * serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
   every neuron site checked against the plain version on its real input, and
@@ -22,7 +24,16 @@ weights from a seed:
   model on its default route, the same model with ``fused_inference=True``,
   and the plain-LIF model (``ecs=False``); the first and the last again under
   ``plain_kernels()``, which must give the same detections and metrics; and
-  the metric half alone on a perfect detector.
+  the metric half alone on a perfect detector;
+* the shared-memory ECS-LIF kernel's own entry point,
+  ``snn.fused.ecs_lif_fused_v2``, at the 24 site shapes of one res10@640
+  forward (bf16, N=8), after its checks at every site shape against the
+  general-shape kernel's plain version, beside the other two ECS-LIF
+  kernels, and its tilings held equal bit for bit;
+* the kernel benches: ``ecs_yolo_tpu_torch.scripts.bench_pallas_dw`` at its
+  b16 sites (``pallas_dw3``, ``pallas_dense3``, each first checked against
+  its plain version in both output dtypes) and one call each of its
+  ``bench_phase_spread`` and of ``scripts.bench_pallas_v3.compare``.
 
 The launch counters are set to 0 just before each main path and read just
 after.  Each phase prints one JSON line (``--out PATH`` also writes them all
@@ -71,6 +82,8 @@ VAL_SIZES = [(480, 640), (375, 500), (640, 640), (720, 1280)]
 # H100 SXM: HBM 3.35 TB/s; dense fp32 (CUDA cores) 67 TFLOP/s, bf16 989
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+SMS = 132                  # streaming multiprocessors of the H100 SXM (read in main)
+BENCH_ITERS, V3_ITERS = 20, 4   # timed calls a site of the two kernel benches
 
 
 def emit(record: dict, log: dict) -> None:
@@ -181,43 +194,51 @@ def spread_inputs(shape, dtype, seed):
     return [a.to(dtype) for a in args]
 
 
-def phase_k1(K, cfg_cls, sites: Counter, log) -> Agg:
-    """K1 against its plain version at every res10 site shape, N=8, T=4."""
+def phase_k1(K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
+    """K1 against its plain version at every res10 site shape, N=8, T=4, x
+    dense, and x a broadcast over T where the model hands the site one."""
     agg = Agg()
     cfg = cfg_cls(time_window=T)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         for i, ((h, w, c), count) in enumerate(sorted(sites.items(), reverse=True)):
             shape = (T, N, h, w, c)
-            args = site_inputs(shape, dtype, seed=i)
-            got = K.ecs_lif_fused(*args, cfg)
-            want = K.ecs_lif_reference(*args, cfg)
-            torch.cuda.synchronize()
-            diff = (got.float() - want.float()).abs()
-            share = float((diff > 0).float().mean())
-            reps = max(3, min(10, int(1e9 // (math.prod(shape) * c))))
-            ms = cuda_ms(lambda: K.ecs_lif_fused(*args, cfg), reps)
-            plain_ms = cuda_ms(lambda: K.ecs_lif_reference(*args, cfg), reps)
-            item = itemsize(dtype)
-            # x read once, spikes written once, weights; the spread's FLOPs
-            # (1x1 product + 3x3 taps) over T-1 steps
-            bms, by = bound((2 * math.prod(shape) + 11 * c + c * c) * item,
-                            (T - 1) * N * h * w * (2 * c * c + 18 * c), dtype)
-            rec = {"phase": "kernel_check", "kernel": "ecs_lif_fused",
-                   "dtype": dname(dtype), "act": False, "shape": list(shape),
-                   "sites": count, "rows_per_tile": K.plan_rows(N, h, T, sms),
-                   "mismatch_share": share, "bound_share": SPIKE_BOUND[dtype],
-                   "max_abs_err": float(diff.max()),
-                   "firing_rate": float(want.float().mean()),
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                   "bound_by": by, "library_ms": None}
-            emit(rec, log)
-            if share > SPIKE_BOUND[dtype]:
-                raise AssertionError(f"ecs_lif_fused disagrees at {rec}")
-            if dtype == torch.bfloat16:      # the served dtype: one forward
-                agg.add(rec, count)
-            agg.max_abs_err = max(agg.max_abs_err, float(diff.max()))
-            del args, got, want, diff
+            dense, *params = site_inputs(shape, dtype, seed=i)
+            for bcast in (False, True) if (h, w, c) in broadcast else (False,):
+                args = [dense[:1].expand(*shape) if bcast else dense, *params]
+                got = K.ecs_lif_fused(*args, cfg)
+                want = K.ecs_lif_reference(*args, cfg)
+                torch.cuda.synchronize()
+                diff = (got.float() - want.float()).abs()
+                share = float((diff > 0).float().mean())
+                reps = max(3, min(10, int(1e9 // (math.prod(shape) * c))))
+                ms = cuda_ms(lambda: K.ecs_lif_fused(*args, cfg), reps)
+                plain_ms = cuda_ms(lambda: K.ecs_lif_reference(*args, cfg), reps)
+                item = itemsize(dtype)
+                # x read once (one plane when it is a broadcast), spikes
+                # written once, weights; the spread's FLOPs (1x1 product + 3x3
+                # taps) over T-1 steps
+                planes = (1 if bcast else T) + T
+                bms, by = bound((planes * N * h * w * c + 11 * c + c * c) * item,
+                                (T - 1) * N * h * w * (2 * c * c + 18 * c), dtype)
+                rec = {"phase": "kernel_check", "kernel": "ecs_lif_fused",
+                       "dtype": dname(dtype), "act": False, "shape": list(shape),
+                       "sites": count, "x_broadcast_over_t": bcast,
+                       "rows_per_tile": K.plan_rows(N, h, T, sms),
+                       "mismatch_share": share, "bound_share": SPIKE_BOUND[dtype],
+                       "max_abs_err": float(diff.max()),
+                       "firing_rate": float(want.float().mean()),
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": None}
+                emit(rec, log)
+                if share > SPIKE_BOUND[dtype]:
+                    raise AssertionError(f"ecs_lif_fused disagrees at {rec}")
+                # one served forward: the site behind the stem reads a broadcast
+                if dtype == torch.bfloat16 and bcast == ((h, w, c) in broadcast):
+                    agg.add(rec, count)
+                agg.max_abs_err = max(agg.max_abs_err, float(diff.max()))
+                del args, got, want, diff
+            del dense, params
     # act=True (SiLU) at one small shape, float32
     shape = (T, 2, 40, 40, 64)
     args = site_inputs(shape, torch.float32, seed=99)
@@ -381,13 +402,15 @@ def phase_k6(FZ, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
     return agg
 
 
-def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
-    """The general-shape ECS-LIF kernel against its own plain version at every
-    res10 site shape (x dense, and x a broadcast over T where the model hands
-    the site one) and at two shapes the tensor-core kernel refuses; beside
-    it the tensor-core kernel on the same inputs (another rounding of the
-    spread: recorded, ceiling 2 %)."""
-    agg = Agg()
+def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> tuple:
+    """The general-shape ECS-LIF kernel (K2) against its own plain version at
+    every res10 site shape (x dense, and x a broadcast over T where the model
+    hands the site one) and at two shapes the tensor-core kernel (K1)
+    refuses; beside it K1 on the same inputs (another rounding of the
+    spread: recorded, ceiling 2 %).  On the same inputs the shared-memory
+    kernel (K3), held to the same plain output with K1's gates, timed beside
+    K1 and K2.  Returns the Aggs of K2 and K3."""
+    agg, agg3 = Agg(), Agg()
     cfg = cfg_cls(time_window=T)
     shapes = [((T, N, h, w, c), n) for (h, w, c), n in sorted(sites.items(), reverse=True)]
     shapes += [((T, 2, 29, 6, 4), 0), ((T, 2, 20, 20, 12), 0)]
@@ -433,28 +456,189 @@ def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
                 if (share > SPIKE_BOUND[dtype] or rec.get(
                         "share_differing_from_tensor_core_kernel", 0.0) > ROWS_VS_TENSOR_CORE_CEILING):
                     raise AssertionError(f"ecs_lif_fused_rows disagrees at {rec}")
+                # K3 against the same plain output
+                got3 = FZ.ecs_lif_fused_v2(*args, cfg)
+                torch.cuda.synchronize()
+                diff3 = (got3.float() - want.float()).abs()
+                cs, cl, _, br, bc = FZ.plan_v2(tuple(shape), item, 0, SMS)
+                rec3 = {**rec, "kernel": "ecs_lif_fused_v2",
+                        "mismatch_share": float((diff3 > 0).float().mean()),
+                        "max_abs_err": float(diff3.max()),
+                        "share_differing_from_ecs_lif_fused_rows": float((got3 != got).float().mean()),
+                        "ms": cuda_ms(lambda: FZ.ecs_lif_fused_v2(*args, cfg), reps),
+                        "ecs_lif_fused_rows_ms": ms, "cluster": cs, "channels_per_block": cl,
+                        "tile_rows": br, "tile_cols": bc}
+                rec3.pop("share_differing_from_tensor_core_kernel", None)
+                emit(rec3, log)
+                if rec3["mismatch_share"] > SPIKE_BOUND[dtype]:
+                    raise AssertionError(f"ecs_lif_fused_v2 disagrees at {rec3}")
                 # one val forward: the site behind the stem reads a broadcast
                 if dtype == torch.bfloat16 and count and bcast == (shape[2:] in broadcast):
                     agg.add(rec, count)
+                    agg3.add(rec3, count)
                 agg.max_abs_err = max(agg.max_abs_err, float(diff.max()))
-                del args, got, want, diff
+                agg3.max_abs_err = max(agg3.max_abs_err, rec3["max_abs_err"])
+                del args, got, want, diff, got3, diff3
             del dense, params
     # act=True (SiLU) at one small shape K1 refuses, float32; strided inputs
     shape = (T, 2, 29, 6, 12)
     args = site_inputs(shape, torch.float32, seed=98)
-    err = float((FZ.ecs_lif_fused_rows(*args, cfg, True)
-                 - FZ.ecs_lif_rows_reference(*args, cfg, True)).abs().max())
+    want = FZ.ecs_lif_rows_reference(*args, cfg, True)
     xt = args[0].transpose(2, 3)
-    strided = float((FZ.ecs_lif_fused_rows(xt, *args[1:], cfg)
-                     != FZ.ecs_lif_rows_reference(xt.contiguous(), *args[1:], cfg)
-                     ).float().mean())
-    emit({"phase": "kernel_check", "kernel": "ecs_lif_fused_rows", "dtype":
-          "float32", "act": True, "shape": list(shape), "max_abs_err": err,
-          "atol": SILU_ATOL, "transposed_input_mismatch_share": strided}, log)
-    if err > SILU_ATOL or strided > SPIKE_BOUND[torch.float32]:
-        raise AssertionError(f"ecs_lif_fused_rows(act=True) max abs err {err}, "
-                             f"transposed input share {strided}")
-    return agg
+    want_t = FZ.ecs_lif_rows_reference(xt.contiguous(), *args[1:], cfg)
+    for name in ("ecs_lif_fused_rows", "ecs_lif_fused_v2"):
+        fn = getattr(FZ, name)
+        err = float((fn(*args, cfg, True) - want).abs().max())
+        strided = float((fn(xt, *args[1:], cfg) != want_t).float().mean())
+        emit({"phase": "kernel_check", "kernel": name, "dtype": "float32",
+              "act": True, "shape": list(shape), "max_abs_err": err,
+              "atol": SILU_ATOL, "transposed_input_mismatch_share": strided}, log)
+        if err > SILU_ATOL or strided > SPIKE_BOUND[torch.float32]:
+            raise AssertionError(f"{name}(act=True) max abs err {err}, "
+                                 f"transposed input share {strided}")
+    return agg, agg3
+
+
+def phase_k3_tilings(FZ, cfg_cls, log) -> None:
+    """K3's result does not depend on its tiling: at one site shape of each
+    regime of the channel split (no cluster, a cluster of 8 blocks with 48
+    and with 128 channels each), both dtypes, ``block_rows`` = 0 (the
+    wrapper's plan), 7 (no divisor of H) and the largest that fits, bit for
+    bit; one more row than the largest raises, naming it."""
+    cfg = cfg_cls(time_window=T)
+    for dtype in (torch.bfloat16, torch.float32):
+        item = itemsize(dtype)
+        for i, (h, w, c) in enumerate(((160, 160, 64), (40, 40, 384), (20, 20, 1024))):
+            shape = (T, N, h, w, c)
+            args = site_inputs(shape, dtype, seed=400 + i)
+            most = FZ.max_block_rows(shape, item)
+            outs = {b: FZ.ecs_lif_fused_v2(*args, cfg, block_rows=b) for b in (0, 7, most)}
+            equal = all(torch.equal(outs[0], o) for o in outs.values())
+            named = None
+            if most < h:
+                try:
+                    FZ.ecs_lif_fused_v2(*args, cfg, block_rows=most + 1)
+                except ValueError as e:
+                    named = str(e).endswith(f"fits is {most}")
+            emit({"phase": "k3_tilings", "dtype": dname(dtype), "shape": list(shape),
+                  "cluster": FZ.split_channels(c, item)[0],
+                  "block_rows": sorted(outs), "plans": {
+                      b: list(FZ.plan_v2(shape, item, b, SMS)) for b in sorted(outs)},
+                  "bit_equal": equal, "one_more_row_raises_naming_the_largest": named},
+                 log)
+            if not equal or named is False:
+                raise AssertionError(f"ecs_lif_fused_v2 tilings disagree at {shape} {dtype}")
+            del args, outs
+
+
+def phase_k3_path(FZ, cfg_cls, sites: Counter, broadcast: set, counters: dict,
+                  log) -> int:
+    """K3's main path, its own entry point: ``ecs_lif_fused_v2`` at the 24
+    site shapes of one res10@640 forward, N=8, T=4, bf16 (the site behind
+    the stem on a broadcast x), counts set to 0 just before and read after."""
+    cfg = cfg_cls(time_window=T)
+    inputs = []
+    for i, ((h, w, c), count) in enumerate(sorted(sites.items(), reverse=True)):
+        x, *params = site_inputs((T, N, h, w, c), torch.bfloat16, seed=500 + i)
+        if (h, w, c) in broadcast:
+            x = x[:1].expand(T, -1, -1, -1, -1)
+        inputs.append((count, [x, *params]))
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    rates = []
+    for count, args in inputs:
+        for _ in range(count):
+            y = FZ.ecs_lif_fused_v2(*args, cfg)
+        rates.append(float(y.float().mean()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in counters.items()}
+    rec = {"phase": "k3_path", "what": "ecs_lif_fused_v2 at the 24 site shapes of one "
+           f"res10@640 forward, N={N}, T={T}, bf16", "wall_seconds": wall,
+           "launches": counts, "firing_rates": rates}
+    emit(rec, log)
+    if (counts["ecs_lif_fused_v2"] != sum(sites.values()) or any(
+            v for k, v in counts.items() if k != "ecs_lif_fused_v2")
+            or not all(0.0 < r < 1.0 for r in rates)):
+        raise AssertionError(f"K3 path failed its checks: {rec}")
+    del inputs
+    return counts["ecs_lif_fused_v2"]
+
+
+def phase_k7_k8(BD, log) -> dict:
+    """The bench kernels against their plain versions at the bench's b16
+    sites (``BD.SITES``), both output dtypes, the bench's bf16 weights; the
+    plane is int8 0/1 at rate 0.3, and -2..2 at c128.  Gates: K4's for
+    ``pallas_dw3`` (the same kernel), K5's for ``pallas_dense3``; one library
+    convolution timed beside each."""
+    aggs = {"pallas_dw3": Agg(), "pallas_dense3": Agg()}
+    for name, shape in BD.SITES.items():
+        dense = name.startswith("act")
+        kname = "pallas_dense3" if dense else "pallas_dw3"
+        s8, k, b = BD.site_inputs(shape, dense, "cuda")
+        if name == "c128":
+            s8 = torch.from_numpy(np.random.RandomState(600).randint(
+                -2, 3, shape).astype(np.int8)).to(s8.device)
+        c = shape[-1]
+        kk = k.reshape(9 * c, c) if dense else k.reshape(3, 3, c)
+        kernel = BD.pallas_dense3 if dense else BD.pallas_dw3
+        plain = BD.pallas_dense3_reference if dense else BD.pallas_dw3_reference
+        pos = math.prod(shape)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            fn = lambda: kernel(s8, kk, b, out_dtype)
+            with torch.no_grad():
+                got, want = fn(), plain(s8, kk, b, out_dtype)
+                torch.cuda.synchronize()
+                res = check_spread(kname, got, want, out_dtype)
+                reps = max(3, min(10, int(4e8 // pos)))
+                ms = cuda_ms(fn, reps)
+                plain_ms = cuda_ms(lambda: plain(s8, kk, b, out_dtype), reps)
+                library_ms = cuda_ms(BD.library_call(dense, s8, k, b, out_dtype), reps)
+            bms, by = BD.bound_ms(dense, shape, out_dtype)
+            rec = {"phase": "kernel_check", "kernel": kname, "site": name,
+                   "shape": list(shape), "out_dtype": dname(out_dtype),
+                   "weight_dtype": "bfloat16", "int8_values": sorted(
+                       int(v) for v in torch.unique(s8).tolist()), **res,
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "library_ms": library_ms}
+            emit(rec, log)
+            if out_dtype == torch.bfloat16:        # the bench's dtype: one call a site
+                aggs[kname].add(rec, 1)
+            aggs[kname].max_abs_err = max(aggs[kname].max_abs_err, rec["max_abs_err"])
+            del got, want
+        del s8, k, b, kk
+    return aggs
+
+
+def phase_bench_path(BD, BV3, counters: dict, log) -> dict:
+    """The kernel benches' main path: ``bench_pallas_dw.bench`` at every
+    b16 site, one ``bench_phase_spread`` (K5 against the composite dense
+    convolution) and one ``bench_pallas_v3.compare`` (K1 against the eager
+    scan), counts set to 0 just before and read after."""
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    sites = [BD.bench(shape, name, "cuda", BENCH_ITERS) for name, shape in BD.SITES.items()]
+    spread = BD.bench_phase_spread(BD.PHASE_SITES["spread_act1"], "spread_act1", "cuda",
+                                   BENCH_ITERS)
+    v3 = BV3.compare(BV3.SHAPE, "cuda", V3_ITERS)
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in counters.items()}
+    rec = {"phase": "bench_path", "iters": BENCH_ITERS, "sites": sites,
+           "phase_spread": spread, "v3": v3, "launches": counts,
+           "wall_seconds": time.perf_counter() - t0}
+    emit(rec, log)
+    calls = BENCH_ITERS + 1                  # the warm-up and the timed calls
+    dense = sum(1 for name in BD.SITES if name.startswith("act"))
+    want = {"pallas_dw3": (len(BD.SITES) - dense) * calls, "pallas_dense3": dense * calls,
+            "packed_spread": calls, "ecs_lif_fused": V3_ITERS + 2}
+    if (any(counts[k] != want.get(k, 0) for k in counts)
+            or v3["spike_mismatch"] > SPIKE_BOUND[torch.bfloat16]
+            or not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in sites)):
+        raise AssertionError(f"bench path failed its checks: {rec}, want launches {want}")
+    return counts
 
 
 def write_val_set(root: Path, seed: int) -> Path:
@@ -851,7 +1035,16 @@ def main(argv=None) -> int:
     from ecs_yolo_tpu_torch.snn import fused as FZ
     from ecs_yolo_tpu_torch.snn import spread as S
     from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.scripts import bench_pallas_dw as BD
+    from ecs_yolo_tpu_torch.scripts import bench_pallas_v3 as BV3
 
+    global SMS
+    SMS = torch.cuda.get_device_properties(0).multi_processor_count
+    every_kernel = {"ecs_lif_fused": K.ecs_lif_fused, "binary_dw3_conv": S.binary_dw3_conv,
+                    "packed_spread": S.packed_spread, "lif_fused": FZ.lif_fused,
+                    "ecs_lif_fused_rows": FZ.ecs_lif_fused_rows,
+                    "ecs_lif_fused_v2": FZ.ecs_lif_fused_v2,
+                    "pallas_dw3": BD.pallas_dw3, "pallas_dense3": BD.pallas_dense3}
     log: dict = {}
     card = smi()
     emit({"phase": "environment", "nvidia_smi": card,
@@ -865,7 +1058,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    sources = ["ecs_lif", "spread_dw3", "spread_gemm", "lif_fused", "ecs_lif_rows"]
+    sources = ["ecs_lif", "spread_dw3", "spread_gemm", "lif_fused", "ecs_lif_rows",
+               "ecs_lif_v2", "dense3"]
     _build.build(sources)            # one nvcc per source, all started together
     for name in sources:
         _build.load(name)
@@ -891,11 +1085,12 @@ def main(argv=None) -> int:
         if len(sites) != 24:
             raise AssertionError(f"res10 has {len(sites)} neuron sites, want 24")
 
-        agg1 = phase_k1(K, SNNConfig, shapes, log)
+        agg1 = phase_k1(K, SNNConfig, shapes, broadcast, log)
         aggs = phase_spread(S, plain_kernels, shapes, log)
         phase_spread_grads(S, log)
         agg6 = phase_k6(FZ, SNNConfig, shapes, broadcast, log)
-        agg2 = phase_k2(FZ, K, SNNConfig, shapes, broadcast, log)
+        agg2, agg3 = phase_k2(FZ, K, SNNConfig, shapes, broadcast, log)
+        phase_k3_tilings(FZ, SNNConfig, log)
 
         # --- the detect path at full width -------------------------------------
         calibrate_bn(model, torch.from_numpy(np.concatenate(ims)).cuda(), _BN)
@@ -967,6 +1162,11 @@ def main(argv=None) -> int:
     # --- the validation main path ----------------------------------------------
     val_launches = phase_val(opt.seed, log)
 
+    # --- K3's entry point, and the kernel benches ------------------------------
+    k3_launches = phase_k3_path(FZ, SNNConfig, shapes, broadcast, every_kernel, log)
+    aggs78 = phase_k7_k8(BD, log)
+    bench_launches = phase_bench_path(BD, BV3, every_kernel, log)
+
     csrc = "ecs_yolo_tpu_torch/csrc/"
     fwd = f"one res10@640 training forward, N={N}, T={T}, bf16"
     kernels = {"kernels": [
@@ -1011,6 +1211,31 @@ def main(argv=None) -> int:
             note="this version runs the 1x1 product on CUDA cores; the bound "
                  "is the function's, against the peak for x's dtype",
             library_note="no single PyTorch call computes the ECS-LIF recurrence"),
+        agg3.entry(
+            name="ecs_lif_fused_v2", route="cuda", source=csrc + "ecs_lif_v2.cu",
+            replaces="ecs_yolo_tpu/snn/pallas_kernels.py:243", launches=k3_launches,
+            work=f"its own entry point at the 24 neuron-site shapes of one res10@640 "
+                 f"forward, N={N}, T={T}, bf16 (the site behind the stem on a "
+                 "broadcast x); no model route takes it, as in the JAX package",
+            note="state in shared memory, tiles in rows and width, C split "
+                 "over a cluster of up to 8 blocks; the bound is K2's",
+            library_note="no single PyTorch call computes the ECS-LIF recurrence"),
+        aggs78["pallas_dw3"].entry(
+            name="pallas_dw3", route="cuda", source=csrc + "spread_dw3.cu",
+            replaces="scripts/bench_pallas_dw.py:72",
+            launches=bench_launches["pallas_dw3"],
+            work="ecs_yolo_tpu_torch.scripts.bench_pallas_dw at its three "
+                 "depthwise b16 sites, bf16 out, one call each; launches over "
+                 f"the bench's warm-up and {BENCH_ITERS} timed calls a site",
+            library_note="F.conv2d(groups=C) with bias, channels_last"),
+        aggs78["pallas_dense3"].entry(
+            name="pallas_dense3", route="cuda", source=csrc + "dense3.cu",
+            replaces="scripts/bench_pallas_dw.py:127",
+            launches=bench_launches["pallas_dense3"],
+            work="ecs_yolo_tpu_torch.scripts.bench_pallas_dw at its two dense "
+                 "b16 sites, bf16 out, one call each; launches over the bench's "
+                 f"warm-up and {BENCH_ITERS} timed calls a site",
+            library_note="dense F.conv2d with bias, channels_last"),
     ]}
     if out_path is not None:
         out_path.parent.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,10 @@ features are ``[T, N, H, W, C]``, images ``[N, H, W, 3]``.  Entry points run
 on the CUDA device unless the caller passes ``device="cpu"``.
 
 Every neuron site runs on one of five hand-written CUDA kernels (listed in
-``snn/__init__.py``), built from ``csrc/`` at first use.
+``snn/__init__.py``, with the sixth, which computes the same function as one
+of them with its state in shared memory), built from ``csrc/`` at first use.
+Seven sources there serve eight functions: the other two are the kernel
+benches of ``scripts/``.
 
 The port imports ``torch`` only: nothing of JAX and nothing of the JAX
 package.

@@ -3,8 +3,14 @@
 // Replaces ecs_yolo_tpu/snn/pallas_dw.py:binary_dw3_conv (the TPU kernel
 // `_dw3_kernel`): the spike plane s [N, H, W, C] holds 0 or 1 and is read as
 // int8; per output element the sum starts from the bias in f32, adds the up
-// to nine taps k[dy, dx, c] whose neighbour spiked (zero outside the image),
+// to nine taps s * k[dy, dx, c] in row-major order (zero outside the image),
 // and is rounded once to the output dtype.
+//
+// The same kernel serves scripts/bench_pallas_dw.py:pallas_dw3 (the bench
+// prototype of that TPU kernel), which takes any int8 plane (the taps are
+// multiplied, not selected) and sets its output dtype apart from the
+// weights': weights f32 or bf16, widened to f32, output f32 or bf16.  The
+// training path (snn/spread.py) writes the weights' dtype.
 //
 // What bounds it: bytes.  It reads one byte and writes one element per
 // position and does 18 operations for them, far below the card's ratio of
@@ -53,11 +59,12 @@ __device__ __forceinline__ void store8(bf16* p, const float v[8]) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// k is [9, C] (the [3, 3, 1, C] kernel, contiguous), b is [C]
-template <typename T>
+// k is [9, C] (the [3, 3, 1, C] kernel, contiguous), b is [C], both of the
+// parameter dtype P; out has the output dtype O
+template <typename P, typename O>
 __global__ void __launch_bounds__(kThreads)
-spread_dw3_kernel(const int8_t* __restrict__ s, const T* __restrict__ k,
-                  const T* __restrict__ b, T* __restrict__ out,
+spread_dw3_kernel(const int8_t* __restrict__ s, const P* __restrict__ k,
+                  const P* __restrict__ b, O* __restrict__ out,
                   long long groups, int H, int W, int C) {
   const int gpp = C / 8;  // channel groups per pixel
   for (long long g = (long long)blockIdx.x * kThreads + threadIdx.x; g < groups;
@@ -89,16 +96,16 @@ spread_dw3_kernel(const int8_t* __restrict__ s, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename P, typename O>
 cudaError_t launch(const void* s, const void* k, const void* b, void* out, int N,
                    int H, int W, int C, cudaStream_t stream) {
   const long long groups = (long long)N * H * W * (C / 8);
   if (groups == 0) return cudaSuccess;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > (1LL << 30)) blocks = 1LL << 30;
-  spread_dw3_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(s), static_cast<const T*>(k),
-      static_cast<const T*>(b), static_cast<T*>(out), groups, H, W, C);
+  spread_dw3_kernel<P, O><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(s), static_cast<const P*>(k),
+      static_cast<const P*>(b), static_cast<O*>(out), groups, H, W, C);
   return cudaGetLastError();
 }
 
@@ -106,13 +113,16 @@ cudaError_t launch(const void* s, const void* k, const void* b, void* out, int N
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (of k, b and out).  s is int8 [N, H, W, C],
-// contiguous, 16-byte aligned; C % 8 == 0.  Returns the launch's cudaError_t.
-int spread_dw3_fwd(int dtype, const void* s, const void* k, const void* b, void* out,
-                   int N, int H, int W, int C, void* stream) {
+// dtype (of k and b) and out_dtype (of out): 0 = float32, 1 = bfloat16.  s is
+// int8 [N, H, W, C], contiguous, 16-byte aligned; C % 8 == 0.  Returns the
+// launch's cudaError_t.
+int spread_dw3_fwd(int dtype, int out_dtype, const void* s, const void* k, const void* b,
+                   void* out, int N, int H, int W, int C, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(s, k, b, out, N, H, W, C, st);
-  if (dtype == 1) return (int)launch<bf16>(s, k, b, out, N, H, W, C, st);
+  if (dtype == 0 && out_dtype == 0) return (int)launch<float, float>(s, k, b, out, N, H, W, C, st);
+  if (dtype == 0 && out_dtype == 1) return (int)launch<float, bf16>(s, k, b, out, N, H, W, C, st);
+  if (dtype == 1 && out_dtype == 0) return (int)launch<bf16, float>(s, k, b, out, N, H, W, C, st);
+  if (dtype == 1 && out_dtype == 1) return (int)launch<bf16, bf16>(s, k, b, out, N, H, W, C, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -119,9 +119,9 @@ def _dw3_forward(s8: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Te
     k, b = k.contiguous(), b.contiguous()
     out = torch.empty((n, h, w, c), dtype=k.dtype, device=s8.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    _launch("spread_dw3", "spread_dw3_fwd", [ci, vp, vp, vp, vp, ci, ci, ci, ci, vp],
-            (_DTYPES[k.dtype], s8.data_ptr(), k.data_ptr(), b.data_ptr(),
-             out.data_ptr(), n, h, w, c,
+    _launch("spread_dw3", "spread_dw3_fwd", [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp],
+            (_DTYPES[k.dtype], _DTYPES[k.dtype], s8.data_ptr(), k.data_ptr(),
+             b.data_ptr(), out.data_ptr(), n, h, w, c,
              torch.cuda.current_stream(s8.device).cuda_stream))
     binary_dw3_conv.launches += 1
     return out

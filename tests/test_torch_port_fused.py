@@ -144,7 +144,7 @@ def test_ecs_rows_wrapper_on_cpu_is_its_plain_version():
     assert FZ.ecs_lif_fused_rows.launches == before
 
 
-@pytest.mark.parametrize("name", ["lif_fused", "ecs_lif_fused_rows"])
+@pytest.mark.parametrize("name", ["lif_fused", "ecs_lif_fused_rows", "ecs_lif_fused_v2"])
 def test_wrappers_refuse_other_devices(name):
     ts = [torch.from_numpy(a).to("meta") for a in _ecs_inputs("single_block")]
     args = ts[:1] if name == "lif_fused" else ts
@@ -152,7 +152,7 @@ def test_wrappers_refuse_other_devices(name):
         getattr(FZ, name)(*args, CFG)
 
 
-@pytest.mark.parametrize("name", ["lif_fused", "ecs_lif_fused_rows"])
+@pytest.mark.parametrize("name", ["lif_fused", "ecs_lif_fused_rows", "ecs_lif_fused_v2"])
 def test_a_kernel_that_cannot_build_raises_and_nothing_falls_back(name, monkeypatch):
     """On the kernel route a wrapper checks its input and builds its kernel:
     where no CUDA compiler exists that raises, it never takes the plain
@@ -182,7 +182,17 @@ def test_a_kernel_that_cannot_build_raises_and_nothing_falls_back(name, monkeypa
             FZ.lif_fused(ts[0][::2], CFG)
     else:
         with pytest.raises(ValueError, match="pw_kernel"):
-            FZ.ecs_lif_fused_rows(*ts[:3], ts[3][..., :2], ts[4], CFG)
+            getattr(FZ, name)(*ts[:3], ts[3][..., :2], ts[4], CFG)
+    if name == "ecs_lif_fused_v2":
+        # a tile that cannot fit a block's shared memory, before any build
+        def site(h, w, c):
+            return (torch.zeros(4, 1, h, w, c), torch.zeros(3, 3, 1, c), torch.zeros(c),
+                    torch.zeros(1, 1, c, c), torch.zeros(c))
+
+        with pytest.raises(ValueError, match="no tile"):
+            FZ.ecs_lif_fused_v2(*site(8, 8, 408), CFG)
+        with pytest.raises(ValueError, match="largest block_rows that fits is 14$"):
+            FZ.ecs_lif_fused_v2(*site(30, 8, 1024), CFG, block_rows=15)
 
 
 # --- MemUpdate's dispatch ----------------------------------------------------------

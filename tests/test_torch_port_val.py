@@ -403,7 +403,8 @@ def test_plain_lif_tree_converts_without_spread_parameters():
     sd = pm.state_dict()
     assert sd and not any("spread" in k for k in sd)
     assert len(sd) == len(flat) + len(jax.tree_util.tree_leaves(v["batch_stats"]))
-    _, _, ecs_model = _model_pair(ecs=True, seed=5)
+    ecs_model = port_yolo.build_model(_narrow_res10(), nc=3, snn=SNNConfig(time_window=T),
+                                      device="cpu")
     assert any("spread" in k for k in ecs_model.state_dict())
 
 
