@@ -10,7 +10,10 @@ shared memory, the dense 3x3 product), which serve eight functions (the
 depthwise kernel also serves the bench's ``pallas_dw3``), takes the
 EMS-ResNet10@640 neuron-site shapes from the model itself, holds every kernel
 against its plain PyTorch version at those shapes (and the two spread
-kernels' gradients against autograd through the plain version), and drives
+kernels' gradients against autograd through the plain version; the fused
+spread product timed alone and as the train path calls it; the
+``-Xptxas -v`` report of every source, with no spill allowed in the fused
+spread product), and drives
 the port's paths at full width with random weights from a seed:
 
 * serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
@@ -129,6 +132,7 @@ class Agg:
 
     def __init__(self):
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
+        self.wrapper_ms = 0.0
         self.max_abs_err = 0.0
         self.by = {"bytes": 0.0, "operations": 0.0}
 
@@ -139,12 +143,14 @@ class Agg:
         self.by[rec["bound_by"]] += weight * rec["bound_ms"]
         if rec.get("library_ms") is not None:
             self.library_ms += weight * rec["library_ms"]
+        self.wrapper_ms += weight * rec.get("wrapper_ms", 0.0)
 
     def entry(self, **kw) -> dict:
+        extra = {"wrapper_ms": self.wrapper_ms} if self.wrapper_ms else {}
         return {**kw, "max_abs_err": self.max_abs_err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                 "bound_by": max(self.by, key=self.by.get),
-                "library_ms": self.library_ms or None}
+                "library_ms": self.library_ms or None, **extra}
 
 
 def site_shapes(model, memupdate_cls, x1, broadcast: set = None) -> Counter:
@@ -274,7 +280,11 @@ def check_spread(name, got, want, dtype) -> dict:
 
 def phase_spread(S, plain_kernels, sites: Counter, log) -> dict:
     """K4 at the C >= 128 site shapes, K5 at the C <= 64 ones, N=8, against
-    the plain versions; one library call timed beside each."""
+    the plain versions; one library call timed beside each.  K5's ``ms`` is
+    the kernel alone (``_gemm_forward`` on the int8 plane, ``M`` composed
+    once), as the library call is timed; ``wrapper_ms`` is the
+    ``autograd.Function`` as the train path calls it (the int8 cast and the
+    kernel; the path composes ``M`` once a forward)."""
     import torch.nn.functional as F
 
     aggs = {"binary_dw3_conv": Agg(), "packed_spread": Agg()}
@@ -289,6 +299,9 @@ def phase_spread(S, plain_kernels, sites: Counter, log) -> dict:
                 name, args = "packed_spread", (s, dw, dwb, pw, pwb)
                 fn = S.packed_spread
                 m, const = S.compose_m(dw, dwb, pw, pwb)
+                s8 = s.to(torch.int8)
+                kernel = lambda: S._gemm_forward(s8, m, const)
+                wrapper = lambda: S._PackedSpread.apply(s, m, const)
                 kc = m.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
                     memory_format=torch.channels_last)
                 cb = const.to(dtype)
@@ -298,6 +311,7 @@ def phase_spread(S, plain_kernels, sites: Counter, log) -> dict:
             else:
                 name, args = "binary_dw3_conv", (s, dw, dwb)
                 fn = S.binary_dw3_conv
+                kernel = wrapper = None
                 kd = dw.permute(3, 2, 0, 1).contiguous()
                 lib = lambda: F.conv2d(s_n, kd, dwb, padding=1, groups=c)
                 bms, by = bound(pos * (1 + item) + 10 * c * item, 18 * pos, dtype)
@@ -308,20 +322,24 @@ def phase_spread(S, plain_kernels, sites: Counter, log) -> dict:
                     torch.cuda.synchronize()
                     reps = max(3, min(10, int(4e8 // pos)))
                     plain_ms = cuda_ms(lambda: fn(*args), reps)
-                ms = cuda_ms(lambda: fn(*args), reps)
+                if kernel is None:
+                    ms, timed = cuda_ms(lambda: fn(*args), reps), {}
+                else:
+                    ms = cuda_ms(kernel, reps)
+                    timed = {"wrapper_ms": cuda_ms(wrapper, reps)}
                 library_ms = cuda_ms(lib, reps)
             rec = {"phase": "kernel_check", "kernel": name, "dtype": dname(dtype),
                    "shape": list(shape), "sites": count,
                    "firing_rate": float(s.float().mean()),
                    **check_spread(name, got, want, dtype),
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                   "ms": ms, **timed, "plain_ms": plain_ms, "bound_ms": bms,
                    "bound_by": by, "library_ms": library_ms}
             emit(rec, log)
             agg = aggs[name]
             if dtype == torch.bfloat16:      # the trained dtype: one forward
                 agg.add(rec, count * (T - 1))
             agg.max_abs_err = max(agg.max_abs_err, rec["max_abs_err"])
-            del s, s_n, got, want, args
+            del s, s_n, got, want, args, kernel, wrapper
     return aggs
 
 
@@ -1063,11 +1081,18 @@ def main(argv=None) -> int:
     _build.build(sources)            # one nvcc per source, all started together
     for name in sources:
         _build.load(name)
-        nvcc_s, nvcc_log = _build.build_info.get(name, (None, ""))
+        nvcc_s = _build.build_info.get(name, (None, ""))[0]   # None: built earlier
+        ptxas = [ln.split("info    : ")[-1].strip()
+                 for ln in _build.nvcc_log(name).splitlines()
+                 if any(k in ln for k in ("registers", "spill", "Compiling entry",
+                                          "arning"))]
         emit({"phase": "build", "kernel": name, "seconds":
-              time.perf_counter() - t0, "nvcc_seconds": nvcc_s, "ptxas": [
-                  ln.split("info    : ")[-1] for ln in nvcc_log.splitlines()
-                  if "registers" in ln or "spill" in ln]}, log)
+              time.perf_counter() - t0, "nvcc_seconds": nvcc_s, "ptxas": ptxas}, log)
+        spill = [ln for ln in ptxas if "spill" in ln]
+        if name == "spread_gemm" and (not spill or any(
+                not ln.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                                  "spill loads") for ln in spill)):
+            raise AssertionError(f"spread_gemm: spills, or no -Xptxas -v report: {ptxas}")
 
     # --- the model, and its neuron sites ---------------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -1189,7 +1214,8 @@ def main(argv=None) -> int:
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:218",
             launches=spread_launches["packed_spread"],
             work=f"the 15 launches (5 sites x {T - 1} steps) of {fwd}; launches "
-                 f"over the {TRAIN_STEPS} train steps",
+                 f"over the {TRAIN_STEPS} train steps; ms is the kernel alone, "
+                 "wrapper_ms the autograd.Function as the train path calls it",
             library_note="dense F.conv2d with the composed [C,C,3,3] kernel and "
                          "bias const, channels_last"),
         agg6.entry(

@@ -28,7 +28,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: per kernel source: (seconds its nvcc took, nvcc's output incl. -Xptxas -v)
+#: per kernel source built by this process: (seconds its nvcc took, nvcc's
+#: output incl. -Xptxas -v)
 build_info: Dict[str, Tuple[float, str]] = {}
 
 
@@ -73,9 +74,19 @@ def build(names: Iterable[str]) -> None:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+
+
+def nvcc_log(name: str) -> str:
+    """nvcc's output (``-Xptxas -v`` included) for the current library of
+    ``csrc/<name>.cu``, kept beside it when it was built."""
+    if name in build_info:
+        return build_info[name][1]
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

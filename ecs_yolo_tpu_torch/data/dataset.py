@@ -64,13 +64,16 @@ def find_images(path) -> List[str]:
 
 
 def _paths_hash(paths: Sequence[str]) -> str:
+    """A key over the files' names, sizes and modification times (a missing
+    file keys as missing), so that an edited file changes the key."""
     h = hashlib.md5()
     for p in paths:
         h.update(p.encode())
         try:
-            h.update(str(os.path.getsize(p)).encode())
+            st = os.stat(p)
+            h.update(f"{st.st_size}:{st.st_mtime_ns}".encode())
         except OSError:
-            pass
+            h.update(b"-")
     return h.hexdigest()
 
 
@@ -158,23 +161,33 @@ class Dataset:
 
     def _load_labels(self, cache_dir):
         """The label arrays, through a hash-keyed ``.npz`` cache when
-        ``cache_dir`` is given (plain arrays only: nothing is unpickled)."""
+        ``cache_dir`` is given (plain arrays only: nothing is unpickled).
+
+        The key covers the label files as well as the images, and the cache
+        holds the rows as read, before ``single_cls`` zeroes the classes.
+        The JAX package's ``LoadImagesAndLabels._load_labels`` keys on the
+        images alone and caches after ``single_cls``, so there a
+        ``single_cls`` run poisons a later multi-class one and an edited
+        label file is never re-read; the port deviates to repair that.
+        """
+        labels = None
         cache_path = None
-        key = _paths_hash(self.img_files)
+        key = _paths_hash(self.img_files + self.label_files)
         if cache_dir:
             cache_path = Path(cache_dir) / f"labels_{key}.npz"
             if cache_path.exists():
                 z = np.load(cache_path)
                 if str(z["hash"]) == key:
-                    return np.split(z["rows"], np.cumsum(z["counts"])[:-1])
-        labels = [load_label_file(p) for p in self.label_files]
+                    labels = np.split(z["rows"], np.cumsum(z["counts"])[:-1])
+        if labels is None:
+            labels = [load_label_file(p) for p in self.label_files]
+            if cache_path:
+                cache_path.parent.mkdir(parents=True, exist_ok=True)
+                np.savez(cache_path, hash=key, rows=np.concatenate(labels),
+                         counts=np.array([len(lb) for lb in labels]))
         if self.single_cls:
             for lb in labels:
                 lb[:, 0] = 0
-        if cache_path:
-            cache_path.parent.mkdir(parents=True, exist_ok=True)
-            np.savez(cache_path, hash=key, rows=np.concatenate(labels),
-                     counts=np.array([len(lb) for lb in labels]))
         return labels
 
     # -- image access ---------------------------------------------------------

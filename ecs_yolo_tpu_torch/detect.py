@@ -105,8 +105,11 @@ def run(
 def parse_opt(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--weights", default=None,
-                   help="torch state_dict (.pt) written by the port; a "
-                        "seeded random init when omitted")
+                   help="checkpoint written by the port's "
+                        "utils/checkpoint.save_checkpoint; a seeded random "
+                        "init when omitted")
+    p.add_argument("--no-ema", dest="use_ema", action="store_false",
+                   help="the raw parameters, not the EMA ones")
     p.add_argument("--cfg", default="resnet10.yaml")
     p.add_argument("--source", required=True, help="image file/dir/glob")
     p.add_argument("--data", default=None, help="dataset yaml (class names)")
@@ -129,6 +132,7 @@ def main(opt):
     import yaml
 
     from .models.yolo import build_model, cast_params
+    from .utils.checkpoint import eval_state_dict, load_checkpoint
 
     names, nc = None, opt.nc
     if opt.data:
@@ -138,8 +142,8 @@ def main(opt):
     model = build_model(opt.cfg, nc=nc, device=opt.device,
                         generator=torch.Generator().manual_seed(opt.seed))
     if opt.weights:
-        sd = torch.load(opt.weights, map_location="cpu", weights_only=True)
-        model.load_state_dict(sd, strict=True)
+        tree, _ = load_checkpoint(opt.weights)
+        model.load_state_dict(eval_state_dict(tree, opt.use_ema), strict=True)
     cast_params(model, DTYPES[opt.dtype])
     results = run(model, opt.source, imgsz=opt.imgsz,
                   conf_thres=opt.conf_thres, iou_thres=opt.iou_thres,

@@ -11,7 +11,10 @@ plain versions and gradients (counterpart of ``ecs_yolo_tpu/snn/pallas_dw.py``).
   ``const`` composed outside the kernel (``compose_m``).  Kernel
   ``csrc/spread_gemm.cu``.  The TPU kernel works on a width-packed
   ``[N, H, W/2, 2C]`` layout with two width phases; here the layout is the
-  canonical one and the phases collapse into one product.
+  canonical one and the phases collapse into one product.  The bf16 kernel
+  is planned in Python (``plan_gemm``: tile shape, ring of windows, grid of
+  persistent blocks, shared memory), so that the CPU tests reach the plan;
+  ``gemm_tile_walk_reference`` walks the plan in plain PyTorch.
 
 Each wrapper is a ``torch.autograd.Function``: the forward launches the
 kernel on a CUDA tensor (or raises) and takes the plain version on a CPU
@@ -25,7 +28,9 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Tuple
+import functools
+import math
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +41,13 @@ from .route import use_kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: widest site the fused dw+pw product takes (the C=64 stage of the EMS nets)
 GEMM_MAX_C = 64
+#: H100 SXM: shared memory of one SM, the most one block may take, and what
+#: the card reserves beside each block
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
+#: output pixels of a tile of the bf16 kernel: two warpgroups of 64 rows
+GEMM_TILE_PX = 128
+#: blocks an SM should hold at once (the grid's size is this times the SMs)
+GEMM_BLOCKS_PER_SM = 2
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -205,6 +217,89 @@ def packed_spread_reference(s, dw, dwb, pw, pwb) -> torch.Tensor:
     return _gemm_reference(s, m, const)
 
 
+class GemmPlan(NamedTuple):
+    """A launch of the bf16 kernel: tiles of ``th x tw`` output pixels of
+    one image, read through a window of ``(th+2) x (tw+2)`` pixels, a ring
+    of ``stages`` windows, ``grid`` persistent blocks that take every
+    ``grid``-th of ``tiles`` tiles, and ``smem`` bytes of shared memory a
+    block."""
+    th: int
+    tw: int
+    stages: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def gemm_smem(c: int, th: int, tw: int, stages: int) -> int:
+    """Shared memory of a block: 1024 bytes of slack to align ``M`` to the
+    swizzle's 1024-byte atom, ``M`` (9 taps x C rows of 128 bytes), the ring
+    of int8 windows, ``const`` in f32 and two mbarriers a stage."""
+    return 1024 + 9 * c * 128 + stages * (th + 2) * (tw + 2) * c + 4 * c + 16 * stages
+
+
+@functools.lru_cache(maxsize=64)
+def plan_gemm(n: int, h: int, w: int, c: int, sms: int = 132) -> GemmPlan:
+    """The tile plan of the bf16 kernel for an ``[n, h, w, c]`` plane on a
+    card of ``sms`` SMs.
+
+    A tile is 128 pixels, ``tw`` of 16, 32 or 64 columns by ``128 / tw``
+    rows, so that each warp's 16 rows lie in one image row.  The plan takes
+    the shape that computes the fewest pixels (ragged edges are masked, so
+    they cost compute), then the smallest window: each spike byte crosses
+    from memory ``(th+2)(tw+2) / (th tw)`` times.  Three stages when two
+    blocks of that size still fit an SM, else two.
+    """
+    if c % 16 or not 0 < c <= GEMM_MAX_C:
+        raise ValueError(f"plan_gemm: C must be 16, 32, 48 or 64, got {c}")
+    best = None
+    for tw in (16, 32, 64):
+        th = GEMM_TILE_PX // tw
+        key = (math.ceil(h / th) * th * math.ceil(w / tw) * tw, (th + 2) * (tw + 2))
+        if best is None or key < best[0]:
+            best = key, th, tw
+    _, th, tw = best
+    fits = lambda st: GEMM_BLOCKS_PER_SM * (gemm_smem(c, th, tw, st)
+                                            + SMEM_RESERVED) <= SMEM_PER_SM
+    stages = 3 if fits(3) else 2
+    tiles = n * math.ceil(h / th) * math.ceil(w / tw)
+    return GemmPlan(th, tw, stages, tiles, max(1, min(tiles, GEMM_BLOCKS_PER_SM * sms)),
+                    gemm_smem(c, th, tw, stages))
+
+
+def gemm_tile_origin(plan: GemmPlan, h: int, w: int, t):
+    """``(n, h0, w0)`` of tile ``t`` (an int or an array of them), in the
+    kernel's order: columns fastest, then rows, then images."""
+    wb, hb = math.ceil(w / plan.tw), math.ceil(h / plan.th)
+    return t // (wb * hb), (t // wb) % hb * plan.th, t % wb * plan.tw
+
+
+def gemm_tile_walk_reference(s: torch.Tensor, m: torch.Tensor, const: torch.Tensor,
+                             plan: GemmPlan) -> torch.Tensor:
+    """The bf16 kernel's walk in plain PyTorch: each block takes every
+    ``grid``-th tile; each tile reads its window (zeros outside the image),
+    multiplies its nine shifted ``[th, tw, C]`` slices with ``M`` in
+    ``const``'s dtype, adds ``const``, rounds once and writes the pixels
+    that lie in the image (the rest of ``out`` stays NaN).  For the CPU
+    tests of the plan."""
+    n, h, w, c = s.shape
+    th, tw = plan.th, plan.tw
+    acc = const.dtype
+    hp, wp = math.ceil(h / th) * th, math.ceil(w / tw) * tw
+    sp = F.pad(s.to(acc), (0, 0, 1, 1 + wp - w, 1, 1 + hp - h))
+    ma = m.to(acc)
+    out = torch.full((n, h, w, c), float("nan"), dtype=m.dtype)
+    for block in range(plan.grid):
+        for t in range(block, plan.tiles, plan.grid):
+            i, h0, w0 = gemm_tile_origin(plan, h, w, t)
+            win = sp[i, h0:h0 + th + 2, w0:w0 + tw + 2]
+            y = torch.cat([win[dy:dy + th, dx:dx + tw] for dy in range(3)
+                           for dx in range(3)], -1) @ ma + const
+            y = y.to(m.dtype)[:h - h0, :w - w0]
+            out[i, h0:h0 + y.shape[0], w0:w0 + y.shape[1]] = y
+    return out
+
+
 def _gemm_forward(s8: torch.Tensor, m: torch.Tensor, const: torch.Tensor) -> torch.Tensor:
     """int8 spikes, ``M [9C, C]``, float32 ``const`` -> ``m.dtype`` output."""
     if not use_kernel(s8):
@@ -216,15 +311,17 @@ def _gemm_forward(s8: torch.Tensor, m: torch.Tensor, const: torch.Tensor) -> tor
     if m.dtype not in _DTYPES or const.dtype != torch.float32:
         raise TypeError(f"packed_spread takes float32 or bfloat16 M and float32 "
                         f"const, not {m.dtype}/{const.dtype}")
-    if m.dtype == torch.bfloat16:
-        # tensor-core B operand: per tap [Cout, Cin]
-        m = m.reshape(9, c, c).transpose(1, 2)
     m, const = m.contiguous(), const.contiguous()
+    if m.data_ptr() % 16:                             # read in 16-byte pieces
+        m = m.clone()
+    # the bf16 kernel's plan; the f32 kernel ignores it
+    plan = plan_gemm(n, h, w, c,
+                     torch.cuda.get_device_properties(s8.device).multi_processor_count)
     out = torch.empty((n, h, w, c), dtype=m.dtype, device=s8.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    _launch("spread_gemm", "spread_gemm_fwd", [ci, vp, vp, vp, vp, ci, ci, ci, ci, vp],
+    _launch("spread_gemm", "spread_gemm_fwd", [ci, vp, vp, vp, vp] + [ci] * 10 + [vp],
             (_DTYPES[m.dtype], s8.data_ptr(), m.data_ptr(), const.data_ptr(),
-             out.data_ptr(), n, h, w, c,
+             out.data_ptr(), n, h, w, c, *plan,
              torch.cuda.current_stream(s8.device).cuda_stream))
     packed_spread.launches += 1
     return out

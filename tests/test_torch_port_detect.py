@@ -32,6 +32,7 @@ from ecs_yolo_tpu_torch.data.loaders import LoadImages
 from ecs_yolo_tpu_torch.models import convert as CV
 from ecs_yolo_tpu_torch.models import yolo as port_yolo
 from ecs_yolo_tpu_torch.ops import boxes as PBX
+from ecs_yolo_tpu_torch.utils.checkpoint import save_checkpoint
 from tests.test_torch_port_model import _random_variables
 
 torch.set_num_threads(2)
@@ -124,7 +125,7 @@ def test_cli_runs_with_saved_weights(tmp_path, capsys):
     weights = tmp_path / "w.pt"
     pm = port_yolo.build_model(cfg, nc=2, device="cpu",
                                generator=torch.Generator().manual_seed(1))
-    torch.save(pm.state_dict(), weights)
+    save_checkpoint(weights, pm.state_dict())
     src = _images(tmp_path, [(64, 64)], seed=5)
     opt = port_detect.parse_opt([
         "--cfg", str(cfg), "--nc", "2", "--source", str(src), "--imgsz", "64",

@@ -184,3 +184,55 @@ def test_res10_sites_and_launch_counts_come_from_the_model():
     for (h, w, c), n in sites.items():
         by_route[S.spread_route(c, w)] += n * steps
     assert by_route == {"gemm": 15, "dw3": 57}
+
+
+# --- the bf16 kernel's tile plan ----------------------------------------------
+
+PLAN_SHAPES = [(8, 320, 320, 64), (8, 160, 160, 64)] + [
+    (2, hw[0], hw[1], c) for hw in ((5, 160), (5, 6)) for c in (16, 32, 48, 64)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plan_gemm_covers_every_output_pixel_once(shape):
+    n, h, w, c = shape
+    plan = S.plan_gemm(n, h, w, c)
+    assert plan.th * plan.tw == S.GEMM_TILE_PX and plan.tw in (16, 32, 64)
+    assert plan.stages >= 2 and plan.smem <= S.SMEM_PER_BLOCK
+    assert S.GEMM_BLOCKS_PER_SM * (plan.smem + S.SMEM_RESERVED) <= S.SMEM_PER_SM
+    assert plan.grid <= S.GEMM_BLOCKS_PER_SM * 132
+    # every block's tiles, in the kernel's walk; every pixel of the plane once
+    walk = np.concatenate([np.arange(b, plan.tiles, plan.grid) for b in range(plan.grid)])
+    assert np.array_equal(np.sort(walk), np.arange(plan.tiles))
+    i, h0, w0 = S.gemm_tile_origin(plan, h, w, walk)
+    hits = np.zeros((n, h + plan.th, w + plan.tw), np.int64)
+    for dy in range(plan.th):
+        for dx in range(plan.tw):
+            np.add.at(hits, (i, h0 + dy, w0 + dx), 1)
+    assert (hits[:, :h, :w] == 1).all()
+    if h % 8 == 0 and w % 16 == 0:              # the site shapes: no ragged edge
+        assert (plan.th, plan.tw) == (8, 16) and hits.sum() == n * h * w
+
+
+def _dyadic_inputs(n, h, w, c, seed):
+    """Spikes and parameters that are multiples of 1/8 in [-1, 1]: every
+    product of ``M`` is exact in bfloat16 and every sum exact in float32, so
+    any order of summation gives the same bits."""
+    rng = np.random.RandomState(seed)
+    q = lambda *s: torch.from_numpy(rng.randint(-8, 9, s).astype(np.float32) / 8)
+    s = torch.from_numpy((rng.rand(n, h, w, c) < 0.3).astype(np.float32))
+    return s, q(3, 3, 1, c), q(c), q(1, 1, c, c), q(c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c", [16, 32, 48, 64])
+@pytest.mark.parametrize("nhw,sms", [((2, 5, 6), 132), ((3, 1, 6), 1)],
+                         ids=["2x5x6", "3x1x6-walk"])
+def test_tile_walk_reference_is_the_plain_version_bit_for_bit(nhw, sms, c, dtype):
+    s, dw, dwb, pw, pwb = (a.to(dtype) for a in _dyadic_inputs(*nhw, c, seed=c))
+    plan = S.plan_gemm(*nhw, c, sms=sms)
+    assert plan.tiles > plan.grid or sms != 1      # the walk case: tiles > blocks
+    m, const = S.compose_m(dw, dwb, pw, pwb)
+    got = S.gemm_tile_walk_reference(s.to(torch.int8), m, const, plan)
+    want = S.packed_spread_reference(s, dw, dwb, pw, pwb)
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(got, want)
