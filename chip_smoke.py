@@ -11,9 +11,9 @@ depthwise kernel also serves the bench's ``pallas_dw3``), takes the
 EMS-ResNet10@640 neuron-site shapes from the model itself, holds every kernel
 against its plain PyTorch version at those shapes (and the two spread
 kernels' gradients against autograd through the plain version; the fused
-spread product timed alone and as the train path calls it; the
-``-Xptxas -v`` report of every source, with no spill allowed in the fused
-spread product), and drives
+spread product and the dense 3x3 product timed alone and as their callers
+call them; the ``-Xptxas -v`` report of every source, with no spill allowed
+in the two ``wgmma`` sources, ``spread_gemm`` and ``dense3``), and drives
 the port's paths at full width with random weights from a seed:
 
 * serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
@@ -35,7 +35,9 @@ the port's paths at full width with random weights from a seed:
   kernels, and its tilings held equal bit for bit;
 * the kernel benches: ``ecs_yolo_tpu_torch.scripts.bench_pallas_dw`` at its
   b16 sites (``pallas_dw3``, ``pallas_dense3``, each first checked against
-  its plain version in both output dtypes) and one call each of its
+  its plain version in both output dtypes; ``pallas_dense3`` also at six
+  more shapes on both of its routes, full-range int8 planes with dyadic
+  weights held bit for bit) and one call each of its
   ``bench_phase_spread`` and of ``scripts.bench_pallas_v3.compare``.
 
 The launch counters are set to 0 just before each main path and read just
@@ -87,6 +89,8 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 SMS = 132                  # streaming multiprocessors of the H100 SXM (read in main)
 BENCH_ITERS, V3_ITERS = 20, 4   # timed calls a site of the two kernel benches
+#: sources whose -Xptxas -v report must show no spill (the wgmma kernels)
+NO_SPILL = ("spread_gemm", "dense3")
 
 
 def emit(record: dict, log: dict) -> None:
@@ -590,7 +594,10 @@ def phase_k7_k8(BD, log) -> dict:
     sites (``BD.SITES``), both output dtypes, the bench's bf16 weights; the
     plane is int8 0/1 at rate 0.3, and -2..2 at c128.  Gates: K4's for
     ``pallas_dw3`` (the same kernel), K5's for ``pallas_dense3``; one library
-    convolution timed beside each."""
+    convolution timed beside each.  K8's ``ms`` is the kernel alone
+    (``dense3_launch`` on its plan), ``wrapper_ms`` ``pallas_dense3`` as the
+    bench calls it, ``mma_route_ms`` the flattened ``mma.sync`` kernel (the
+    "mma" route, PR 4's design) on the same inputs."""
     aggs = {"pallas_dw3": Agg(), "pallas_dense3": Agg()}
     for name, shape in BD.SITES.items():
         dense = name.startswith("act")
@@ -611,7 +618,17 @@ def phase_k7_k8(BD, log) -> dict:
                 torch.cuda.synchronize()
                 res = check_spread(kname, got, want, out_dtype)
                 reps = max(3, min(10, int(4e8 // pos)))
-                ms = cuda_ms(fn, reps)
+                timed = {}
+                if dense:
+                    plan = BD.plan_dense3(*shape, SMS)
+                    out = torch.empty_like(got)
+                    ms = cuda_ms(lambda: BD.dense3_launch(s8, kk, b, out, plan), reps)
+                    timed = {"wrapper_ms": cuda_ms(fn, reps), "mma_route_ms": cuda_ms(
+                        lambda: BD.dense3_launch(s8, kk, b, out, BD.plan_dense3_mma(*shape)),
+                        reps), "plan": plan._asdict()}
+                    del out
+                else:
+                    ms = cuda_ms(fn, reps)
                 plain_ms = cuda_ms(lambda: plain(s8, kk, b, out_dtype), reps)
                 library_ms = cuda_ms(BD.library_call(dense, s8, k, b, out_dtype), reps)
             bms, by = BD.bound_ms(dense, shape, out_dtype)
@@ -619,7 +636,7 @@ def phase_k7_k8(BD, log) -> dict:
                    "shape": list(shape), "out_dtype": dname(out_dtype),
                    "weight_dtype": "bfloat16", "int8_values": sorted(
                        int(v) for v in torch.unique(s8).tolist()), **res,
-                   "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "ms": ms, **timed, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                    "library_ms": library_ms}
             emit(rec, log)
             if out_dtype == torch.bfloat16:        # the bench's dtype: one call a site
@@ -630,6 +647,60 @@ def phase_k7_k8(BD, log) -> dict:
     return aggs
 
 
+# K8 beyond the bench sites: (shape, bh, plane, weights) on both routes -- a
+# ragged 128-channel plane, C = 48 (one slice), C = 256 (16-channel slices),
+# and the "mma" route at C = 512 and C = 80.  "full": int8 -128..127 with
+# dyadic weights and bias (multiples of 1/64, |k| <= 1/4), so every sum is
+# exact in float32 and kernel and plain version must agree bit for bit;
+# "binary": a 0/1 plane at rate 0.3 with float32 weights and bias, which the
+# kernel rounds to bf16 itself.
+K8_SHAPES = [((2, 36, 44, 128), 4, "full"), ((2, 36, 44, 128), 4, "binary"),
+             ((1, 16, 24, 48), 16, "full"), ((1, 8, 40, 256), 8, "full"),
+             ((2, 20, 24, 512), 4, "full"), ((1, 16, 16, 80), 16, "full")]
+
+
+def phase_k8_shapes(BD, log) -> None:
+    """K8 against its plain version at ``K8_SHAPES``, both output dtypes
+    and, on the full-range planes, both weight dtypes; K5's gates, and bit
+    equality on the exact (dyadic) data.  The "mma" shapes must launch that
+    route."""
+    for i, (shape, bh, kind) in enumerate(K8_SHAPES):
+        c = shape[-1]
+        rng = np.random.RandomState(700 + i)
+        if kind == "full":
+            s8 = rng.randint(-128, 128, shape).astype(np.int8)
+            k = rng.randint(-16, 17, (9 * c, c)).astype(np.float32) / 64
+            b = rng.randint(-64, 65, c).astype(np.float32) / 64
+            wdts = (torch.float32, torch.bfloat16)
+        else:
+            s8 = (rng.rand(*shape) > 0.7).astype(np.int8)
+            k = ((rng.rand(9 * c, c) - 0.5) * 0.05).astype(np.float32)
+            b = ((rng.rand(c) - 0.5) * 0.1).astype(np.float32)
+            wdts = (torch.float32,)
+        s8, k, b = (torch.from_numpy(a).cuda() for a in (s8, k, b))
+        plan = BD.plan_dense3(*shape, SMS)
+        for wdt in wdts:
+            for out_dtype in (torch.bfloat16, torch.float32):
+                before = BD.pallas_dense3.mma_launches
+                with torch.no_grad():
+                    got = BD.pallas_dense3(s8, k.to(wdt), b.to(wdt), out_dtype, bh=bh)
+                    want = BD.pallas_dense3_reference(s8, k.to(wdt), b.to(wdt), out_dtype)
+                    torch.cuda.synchronize()
+                res = check_spread("pallas_dense3", got, want, out_dtype)
+                rec = {"phase": "k8_shape", "shape": list(shape), "bh": bh, "data": kind,
+                       "route": plan.route, "plan": plan._asdict(),
+                       "weight_dtype": dname(wdt), "out_dtype": dname(out_dtype),
+                       "int8_range": [int(s8.min()), int(s8.max())],
+                       "bit_equal": bool(torch.equal(got, want)), **res}
+                emit(rec, log)
+                mma = BD.pallas_dense3.mma_launches - before
+                if ((kind == "full" and not rec["bit_equal"])
+                        or mma != (plan.route == "mma")):
+                    raise AssertionError(f"pallas_dense3 failed at {shape}: {rec}, "
+                                         f"{mma} mma launches")
+        del s8, k, b, got, want
+
+
 def phase_bench_path(BD, BV3, counters: dict, log) -> dict:
     """The kernel benches' main path: ``bench_pallas_dw.bench`` at every
     b16 site, one ``bench_phase_spread`` (K5 against the composite dense
@@ -637,6 +708,7 @@ def phase_bench_path(BD, BV3, counters: dict, log) -> dict:
     scan), counts set to 0 just before and read after."""
     for f in counters.values():
         f.launches = 0
+    BD.pallas_dense3.mma_launches = 0
     t0 = time.perf_counter()
     sites = [BD.bench(shape, name, "cuda", BENCH_ITERS) for name, shape in BD.SITES.items()]
     spread = BD.bench_phase_spread(BD.PHASE_SITES["spread_act1"], "spread_act1", "cuda",
@@ -644,15 +716,16 @@ def phase_bench_path(BD, BV3, counters: dict, log) -> dict:
     v3 = BV3.compare(BV3.SHAPE, "cuda", V3_ITERS)
     torch.cuda.synchronize()
     counts = {k: f.launches for k, f in counters.items()}
+    mma = BD.pallas_dense3.mma_launches         # the bench sites take the wgmma route
     rec = {"phase": "bench_path", "iters": BENCH_ITERS, "sites": sites,
            "phase_spread": spread, "v3": v3, "launches": counts,
-           "wall_seconds": time.perf_counter() - t0}
+           "pallas_dense3_mma_launches": mma, "wall_seconds": time.perf_counter() - t0}
     emit(rec, log)
     calls = BENCH_ITERS + 1                  # the warm-up and the timed calls
     dense = sum(1 for name in BD.SITES if name.startswith("act"))
     want = {"pallas_dw3": (len(BD.SITES) - dense) * calls, "pallas_dense3": dense * calls,
             "packed_spread": calls, "ecs_lif_fused": V3_ITERS + 2}
-    if (any(counts[k] != want.get(k, 0) for k in counts)
+    if (any(counts[k] != want.get(k, 0) for k in counts) or mma
             or v3["spike_mismatch"] > SPIKE_BOUND[torch.bfloat16]
             or not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in sites)):
         raise AssertionError(f"bench path failed its checks: {rec}, want launches {want}")
@@ -1089,10 +1162,10 @@ def main(argv=None) -> int:
         emit({"phase": "build", "kernel": name, "seconds":
               time.perf_counter() - t0, "nvcc_seconds": nvcc_s, "ptxas": ptxas}, log)
         spill = [ln for ln in ptxas if "spill" in ln]
-        if name == "spread_gemm" and (not spill or any(
+        if name in NO_SPILL and (not spill or any(
                 not ln.startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
                                   "spill loads") for ln in spill)):
-            raise AssertionError(f"spread_gemm: spills, or no -Xptxas -v report: {ptxas}")
+            raise AssertionError(f"{name}: spills, or no -Xptxas -v report: {ptxas}")
 
     # --- the model, and its neuron sites ---------------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -1190,6 +1263,7 @@ def main(argv=None) -> int:
     # --- K3's entry point, and the kernel benches ------------------------------
     k3_launches = phase_k3_path(FZ, SNNConfig, shapes, broadcast, every_kernel, log)
     aggs78 = phase_k7_k8(BD, log)
+    phase_k8_shapes(BD, log)
     bench_launches = phase_bench_path(BD, BV3, every_kernel, log)
 
     csrc = "ecs_yolo_tpu_torch/csrc/"
@@ -1260,7 +1334,8 @@ def main(argv=None) -> int:
             launches=bench_launches["pallas_dense3"],
             work="ecs_yolo_tpu_torch.scripts.bench_pallas_dw at its two dense "
                  "b16 sites, bf16 out, one call each; launches over the bench's "
-                 f"warm-up and {BENCH_ITERS} timed calls a site",
+                 f"warm-up and {BENCH_ITERS} timed calls a site; ms is the kernel "
+                 "alone, wrapper_ms pallas_dense3 as the bench calls it",
             library_note="dense F.conv2d with bias, channels_last"),
     ]}
     if out_path is not None:

@@ -11,11 +11,16 @@ Two kernels, each under its JAX name so that a reader finds the counterpart:
   output dtype apart from the weights'.
 * :func:`pallas_dense3`: dense 3x3 SAME convolution over an int8 plane as
   one implicit product ``patches[pos, 9C] @ bf16(k9c)[9C, C]``, f32
-  accumulation, f32 bias, ``out_dtype`` out (``csrc/dense3.cu``).
+  accumulation, f32 bias, ``out_dtype`` out (``csrc/dense3.cu``).  The plan
+  is Python (:func:`plan_dense3`): the persistent ``wgmma`` kernel with a
+  resident weight slice where the slice fits (C <= 64, C = 128, 192, 256),
+  else the flattened ``mma.sync`` kernel; :func:`dense3_tile_walk_reference`
+  walks a plan in plain PyTorch for the CPU tests.
 
 Each takes its plain version for a CPU tensor or inside
 ``route.plain_kernels()``; on a CUDA tensor it launches its kernel or raises.
-``pallas_dw3.launches`` and ``pallas_dense3.launches`` count the launches.
+``pallas_dw3.launches`` and ``pallas_dense3.launches`` count the launches
+(``pallas_dense3.mma_launches`` those of the ``mma.sync`` route).
 :func:`xla_dw3` and :func:`xla_dense3` are the library's convolutions the
 JAX script compared against.
 
@@ -32,8 +37,10 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
+import math
 import sys
-from typing import Callable, Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -136,13 +143,175 @@ def pallas_dense3_reference(s8, k9c, bias, out_dtype=torch.bfloat16) -> torch.Te
     return (acc + bias.float()).to(out_dtype)
 
 
+class Dense3Plan(NamedTuple):
+    """A launch of K8.  Route ``"wgmma"``: ``grid`` persistent blocks, each
+    holding one Cout slice of ``bn`` channels of the weights (in chunks of
+    ``cw`` input channels) and walking every ``grid``-th of ``tiles x
+    slices`` (tile, slice) pairs; a tile is ``th x tw`` output pixels of one
+    image, read through a window of ``(th+2) x (tw+2)`` pixels; ``smem``
+    bytes of shared memory a block.  Route ``"mma"``: one block for each of
+    ``tiles`` runs of 128 flattened pixels and each of ``slices`` 64-channel
+    slices, ``smem`` bytes of static shared memory."""
+    route: str
+    th: int
+    tw: int
+    bn: int
+    cw: int
+    tiles: int
+    slices: int
+    grid: int
+    smem: int
+
+
+#: the "wgmma" route's tile (rows, columns): each warpgroup's 8 x 8 pixels
+#: are 8 core-matrix rows of its A operand
+DENSE3_TILE = (16, 8)
+#: (cw, bn, chunks) of the "wgmma" kernel's instances (csrc/dense3.cu:
+#: dispatch_wgmma): every plan of that route takes one of them
+DENSE3_INSTANCES = frozenset({(16, 16, 1), (32, 32, 1), (48, 48, 1), (64, 64, 1),
+                              (64, 64, 2), (64, 32, 3), (64, 16, 4)})
+#: static shared memory of a block of the "mma" route: a [128][72] and a
+#: [64][72] bf16 tile
+DENSE3_MMA_SMEM = (128 + 64) * 72 * 2
+
+
+def dense3_smem(c: int, bn: int, cw: int) -> int:
+    """Shared memory of a block of the "wgmma" route: 1024 bytes of slack to
+    align the weights to the swizzle's 1024-byte atom, the weight slice (9
+    taps x C / cw chunks of ``bn`` rows of 128 bytes), the window in bf16
+    chunk planes (C / 8 planes of 181 16-byte rows: the window's 180 pixels
+    and one), the int8 window, the slice's bias in f32 and an mbarrier."""
+    th, tw = DENSE3_TILE
+    px = (th + 2) * (tw + 2)
+    return 1024 + 9 * (c // cw) * bn * 128 + (c // 8) * (px | 1) * 16 + px * c + 4 * bn + 8
+
+
+@functools.lru_cache(maxsize=64)
+def plan_dense3(n: int, h: int, w: int, c: int, sms: int = 132) -> Dense3Plan:
+    """K8's plan for an ``[n, h, w, c]`` plane on a card of ``sms`` SMs.
+
+    The "wgmma" route takes every C <= 64 (one slice, ``bn = C``) and every
+    C % 64 == 0 whose slice fits one block beside the windows: ``bn`` the
+    widest of 64, 32, 16 that fits (C = 128, 192, 256).  Its tile is
+    ``DENSE3_TILE``, 16 x 8 pixels; one block an SM; the grid is a multiple
+    of the slice count, so each block keeps its slice.  Every other
+    C % 16 == 0 (C > 64 and not a multiple of 64, or C >= 320) takes the
+    "mma" route, the flattened ``mma.sync`` kernel.
+    """
+    if c <= 0 or c % 16:
+        raise ValueError(f"plan_dense3: C must be a positive multiple of 16, got {c}")
+    cw = min(c, 64)
+    th, tw = DENSE3_TILE
+    tiles = n * math.ceil(h / th) * math.ceil(w / tw)
+    for bn in ((c,) if c <= 64 else (64, 32, 16)):
+        smem = dense3_smem(c, bn, cw)
+        if (c % cw == 0 and (cw, bn, c // cw) in DENSE3_INSTANCES
+                and smem <= S.SMEM_PER_BLOCK):
+            slices = c // bn
+            grid = max(slices, min(tiles * slices, sms) // slices * slices)
+            return Dense3Plan("wgmma", th, tw, bn, cw, tiles, slices, grid, smem)
+    return plan_dense3_mma(n, h, w, c)
+
+
+def plan_dense3_mma(n: int, h: int, w: int, c: int) -> Dense3Plan:
+    """The "mma" route's plan: one block per 128 flattened pixels and 64
+    output channels."""
+    tiles, slices = math.ceil(n * h * w / 128), math.ceil(c / 64)
+    return Dense3Plan("mma", 0, 0, 64, 64, tiles, slices, tiles * slices, DENSE3_MMA_SMEM)
+
+
+def dense3_items(plan: Dense3Plan) -> np.ndarray:
+    """``[block, tile, slice]`` of every item the plan's blocks take, in the
+    order a block walks them: on the "wgmma" route block ``b`` takes items
+    ``b, b + grid, ...`` with item = tile * slices + slice; on the "mma"
+    route block ``tile * slices + slice`` takes that one item."""
+    items = np.arange(plan.tiles * plan.slices)
+    block = items % plan.grid if plan.route == "wgmma" else items
+    order = np.lexsort((items, block))
+    return np.stack([block, items // plan.slices, items % plan.slices], 1)[order]
+
+
+def dense3_tile_walk_reference(s8, k9c, bias, out_dtype, plan: Dense3Plan) -> torch.Tensor:
+    """K8's walk over its plan in plain PyTorch: each item multiplies the
+    patches of its tile (a window of the "wgmma" route, zeros outside the
+    image; a run of flattened pixels of the "mma" route) with its slice of
+    the bf16-rounded weights in float32, adds the bias in float32, rounds
+    once and writes the pixels that exist (the rest of ``out`` stays NaN).
+    For the CPU tests of the plan."""
+    n, h, w, c = s8.shape
+    wk, b = k9c.to(torch.bfloat16).float(), bias.float()
+    out = torch.full((n, h, w, c), float("nan"), dtype=out_dtype)
+    if plan.route == "mma":
+        pat, flat = S._patches(s8.float()).reshape(-1, 9 * c), out.view(-1, c)
+        for _, t, sl in dense3_items(plan):
+            rows, cols = slice(t * 128, (t + 1) * 128), slice(sl * 64, (sl + 1) * 64)
+            flat[rows, cols] = (pat[rows] @ wk[:, cols] + b[cols]).to(out_dtype)
+        return out
+    th, tw = plan.th, plan.tw
+    hp, wp = math.ceil(h / th) * th, math.ceil(w / tw) * tw
+    sp = F.pad(s8.float(), (0, 0, 1, 1 + wp - w, 1, 1 + hp - h))
+    for _, t, sl in dense3_items(plan):
+        i, h0, w0 = S.gemm_tile_origin(plan, h, w, int(t))
+        cols = slice(sl * plan.bn, (sl + 1) * plan.bn)
+        win = sp[i, h0:h0 + th + 2, w0:w0 + tw + 2]
+        y = torch.cat([win[dy:dy + th, dx:dx + tw] for dy in range(3)
+                       for dx in range(3)], -1) @ wk[:, cols] + b[cols]
+        y = y.to(out_dtype)[:h - h0, :w - w0]
+        out[i, h0:h0 + y.shape[0], w0:w0 + y.shape[1], cols] = y
+    return out
+
+
+def _sms(device) -> int:
+    return (torch.cuda.get_device_properties(device).multi_processor_count
+            if torch.device(device).type == "cuda" else 132)
+
+
+def dense3_launch(s8, k9c, bias, out, plan: Dense3Plan) -> None:
+    """Launches K8 on the plan's route, writing ``out``; no checks (that is
+    :func:`pallas_dense3`'s work): the kernel alone, for timing.  The
+    "wgmma" route reads ``k9c`` and ``bias`` in place in float32 or bfloat16;
+    the "mma" route takes the weights transposed to ``[C, 9C]`` bf16 and the
+    bias in float32."""
+    from .. import _build
+
+    lib = _build.load("dense3")
+    n, h, w, c = s8.shape
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream(s8.device).cuda_stream
+    if plan.route == "wgmma":
+        fn = lib.dense3_wgmma_fwd
+        fn.argtypes = [ci, ci, ci, vp, vp, vp, vp] + [ci] * 12 + [vp]
+        args = (_CODES[out.dtype], _CODES[k9c.dtype], _CODES[bias.dtype], s8.data_ptr(),
+                k9c.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h, w, c,
+                *(getattr(plan, f) for f in Dense3Plan._fields[1:]), stream)
+    else:
+        kt = k9c.to(torch.bfloat16).t().contiguous()      # [Cout, 9C]
+        b32 = bias.float().contiguous()
+        fn = lib.dense3_mma_fwd
+        fn.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, vp]
+        args = (_CODES[out.dtype], s8.data_ptr(), kt.data_ptr(), b32.data_ptr(),
+                out.data_ptr(), n, h, w, c, stream)
+    fn.restype = ci
+    err = fn(*args)
+    if err != 0:
+        lib.dense3_error_string.argtypes = [ci]
+        lib.dense3_error_string.restype = ctypes.c_char_p
+        raise RuntimeError(f"dense3 kernel launch failed ({plan.route} route): "
+                           + lib.dense3_error_string(err).decode())
+    pallas_dense3.launches += 1
+    if plan.route == "mma":
+        pallas_dense3.mma_launches += 1
+
+
 def pallas_dense3(s8, k9c, bias, out_dtype=torch.bfloat16, bh: int = 16) -> torch.Tensor:
     """Dense 3x3 SAME convolution: ``s8`` ``[N, H, W, C]`` int8 (any values),
     ``k9c`` ``[9C, C]`` with rows in (dy, dx, ci) order, ``bias`` ``[C]``.
     The weights are rounded to bf16 whatever ``out_dtype`` is, as the TPU
     kernel does; the product accumulates in f32.  ``H % bh`` must be 0, as
     the TPU kernel demands; ``bh`` changes nothing else.  The kernel
-    (``csrc/dense3.cu``) takes C % 16 == 0."""
+    (``csrc/dense3.cu``) takes C % 16 == 0, on the route
+    :func:`plan_dense3` names; float32 and bfloat16 weights and bias are read
+    in place."""
     code = _out_code(out_dtype)
     _check_bh(s8.shape[1], bh)
     if not use_kernel(s8):
@@ -150,28 +319,22 @@ def pallas_dense3(s8, k9c, bias, out_dtype=torch.bfloat16, bh: int = 16) -> torc
     _int8_plane("pallas_dense3", s8)
     n, h, w, c = s8.shape
     S._check("pallas_dense3", s8, 16, k9c=(k9c, (9 * c, c)), bias=(bias, (c,)))
-    kt = k9c.to(torch.bfloat16).t().contiguous()      # [Cout, 9C]
-    b32 = bias.float().contiguous()
+    if k9c.dtype not in _CODES:                   # the one rounding the kernel makes
+        k9c = k9c.to(torch.bfloat16)
+    if bias.dtype not in _CODES:
+        bias = bias.float()
+    k9c, bias = k9c.contiguous(), bias.contiguous()
+    if k9c.data_ptr() % 16:                       # read in 16-byte pieces
+        k9c = k9c.clone()
+    plan = plan_dense3(n, h, w, c, _sms(s8.device))
     out = torch.empty((n, h, w, c), dtype=out_dtype, device=s8.device)
-    from .. import _build
-
-    lib = _build.load("dense3")
-    fn = lib.dense3_fwd
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-    fn.restype = ci
-    err = fn(code, s8.data_ptr(), kt.data_ptr(), b32.data_ptr(), out.data_ptr(),
-             n, h, w, c, torch.cuda.current_stream(s8.device).cuda_stream)
-    if err != 0:
-        lib.dense3_error_string.argtypes = [ci]
-        lib.dense3_error_string.restype = ctypes.c_char_p
-        raise RuntimeError("dense3 kernel launch failed: "
-                           + lib.dense3_error_string(err).decode())
-    pallas_dense3.launches += 1
+    dense3_launch(s8, k9c, bias, out, plan)
     return out
 
 
 pallas_dense3.launches = 0
+#: of them, launches of the "mma" route
+pallas_dense3.mma_launches = 0
 
 
 # --- the library's convolutions ------------------------------------------------------

@@ -115,6 +115,87 @@ def test_pallas_dense3_refuses_h_not_a_multiple_of_bh(bh):
         BD.pallas_dense3(s8, torch.zeros(144, 16), torch.zeros(16), bh=bh)
 
 
+# (shape, route): the two bench sites, the C = 16 case, a ragged H and W, a
+# slice of 16 channels, and two shapes of the "mma" route (C >= 320; C > 64
+# not a multiple of 64)
+PLAN_CASES = {"act1": (BD.SITES["act1"], "wgmma"), "act2": (BD.SITES["act2"], "wgmma"),
+              "c16": ((1, 32, 8, 16), "wgmma"), "ragged_2x13x21x128": ((2, 13, 21, 128), "wgmma"),
+              "c256_bn16": ((1, 8, 16, 256), "wgmma"), "c512": ((2, 20, 24, 512), "mma"),
+              "c80": ((1, 16, 16, 80), "mma")}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_plan_dense3_covers_every_output_once(case):
+    """Over K8's walk every (tile, slice) item is taken once, a block of the
+    "wgmma" route keeps one Cout slice, and the items cover every (output
+    pixel, Cout) pair exactly once."""
+    (n, h, w, c), route = PLAN_CASES[case]
+    plan = BD.plan_dense3(n, h, w, c)
+    assert plan.route == route
+    items = BD.dense3_items(plan)
+    block, tile, sl = items.T
+    assert len(items) == plan.tiles * plan.slices
+    assert len(np.unique(tile * plan.slices + sl)) == len(items)
+    assert set(np.unique(block)) == set(range(plan.grid))
+    if route == "wgmma":
+        assert plan.bn * plan.slices == c and plan.grid % plan.slices == 0
+        assert (sl == block % plan.slices).all()
+        for b in (0, plan.grid - 1):             # a block walks its items in order
+            assert (np.diff(tile[block == b] * plan.slices + sl[block == b]) == plan.grid).all()
+        i, h0, w0 = BD.S.gemm_tile_origin(plan, h, w, tile)
+        dh, dw = np.meshgrid(np.arange(plan.th), np.arange(plan.tw), indexing="ij")
+        cnt = np.zeros((n, h + plan.th, w + plan.tw, plan.slices), np.int32)
+        np.add.at(cnt, (i[:, None, None], h0[:, None, None] + dh, w0[:, None, None] + dw,
+                        sl[:, None, None]), 1)
+        assert (cnt[:, :h, :w] == 1).all()
+    else:
+        assert plan.grid == plan.tiles * plan.slices
+        cnt = np.zeros((plan.tiles * 128, c), np.int32)
+        for t, s_ in zip(tile, sl):
+            cnt[t * 128:(t + 1) * 128, s_ * 64:(s_ + 1) * 64] += 1
+        assert (cnt[:n * h * w] == 1).all()
+
+
+def test_plan_dense3_fits_the_block_and_names_its_route():
+    """Every plan's shared memory fits one block of the H100 (227 KB); the
+    "wgmma" route takes C <= 64 and C = 128, 192, 256 with the widest slice
+    that fits, every other C % 16 the "mma" route; C % 16 != 0 is
+    refused."""
+    for c in range(16, 1025, 16):
+        for n, h, w in ((1, 8, 16), (16, 320, 160), (2, 13, 21)):
+            plan = BD.plan_dense3(n, h, w, c)
+            assert plan.smem <= BD.S.SMEM_PER_BLOCK, (c, plan)
+            resident = c <= 64 or c in (128, 192, 256)
+            assert plan.route == ("wgmma" if resident else "mma"), (c, plan)
+            if resident:
+                assert plan.smem == BD.dense3_smem(c, plan.bn, plan.cw)
+                assert (plan.cw, plan.bn, c // plan.cw) in BD.DENSE3_INSTANCES
+                wider = [b for b in (64, 32, 16) if b > plan.bn and c > 64]
+                assert all(BD.dense3_smem(c, b, 64) > BD.S.SMEM_PER_BLOCK
+                           for b in wider), (c, plan)
+    plan = BD.plan_dense3(*BD.SITES["act1"])
+    assert (plan.th, plan.tw, plan.bn, plan.slices, plan.grid) == (16, 8, 64, 2, 132)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        BD.plan_dense3(1, 8, 8, 40)
+
+
+@pytest.mark.parametrize("shape", [(1, 11, 21, 128), (1, 8, 16, 48), (1, 9, 12, 80)])
+def test_dense3_tile_walk_is_the_plain_version_bit_for_bit(shape):
+    """K8's walk over its plan against the plain version, both output dtypes,
+    on dyadic data with a full-range int8 plane (-128..127): every sum is
+    exact in float32, so any summation order must agree bit for bit."""
+    c = shape[-1]
+    rng = np.random.RandomState(7)
+    s8 = torch.from_numpy(rng.randint(-128, 128, shape).astype(np.int8))
+    k9c = torch.from_numpy(rng.randint(-16, 17, (9 * c, c)).astype(np.float32) / 64)
+    b = torch.from_numpy(rng.randint(-64, 65, c).astype(np.float32) / 64)
+    assert s8.min() == -128 and s8.max() == 127
+    plan = BD.plan_dense3(*shape)
+    for out in (torch.float32, torch.bfloat16):
+        got = BD.dense3_tile_walk_reference(s8, k9c, b, out, plan)
+        assert torch.equal(got, BD.pallas_dense3_reference(s8, k9c, b, out)), (plan, out)
+
+
 @pytest.mark.parametrize("name", ["xla_dw3", "xla_dense3"])
 def test_library_convolutions_match_their_jax_namesakes(name):
     shape = (2, 9, 7, 32)
