@@ -13,7 +13,8 @@ against its plain PyTorch version at those shapes (and the two spread
 kernels' gradients against autograd through the plain version; the fused
 spread product and the dense 3x3 product timed alone and as their callers
 call them; the ``-Xptxas -v`` report of every source, with no spill allowed
-in the two ``wgmma`` sources, ``spread_gemm`` and ``dense3``), and drives
+in the two ``wgmma`` sources, ``spread_gemm`` and ``dense3``, nor in the
+depthwise ``spread_dw3``), and drives
 the port's paths at full width with random weights from a seed:
 
 * serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
@@ -37,8 +38,17 @@ the port's paths at full width with random weights from a seed:
   b16 sites (``pallas_dw3``, ``pallas_dense3``, each first checked against
   its plain version in both output dtypes; ``pallas_dense3`` also at six
   more shapes on both of its routes, full-range int8 planes with dyadic
-  weights held bit for bit) and one call each of its
+  weights held bit for bit; the depthwise kernel at four more shapes in
+  both of its modes, bit for bit, its int8 plane equal to the cast's) and
+  one call each of its
   ``bench_phase_spread`` and of ``scripts.bench_pallas_v3.compare``.
+
+The depthwise kernel (``binary_dw3_conv``, ``pallas_dw3``) is timed alone
+as the device time of calls replayed in a CUDA graph, beside the same calls
+eager (the host's issue rate in them) and the library call both ways; in
+the ``kernels`` line its ``library_ms`` is the library call replayed, as
+its ``ms`` is (``library_eager_ms`` beside it).  The graph and profiler
+timing helpers are ``ecs_yolo_tpu_torch.scripts.bench_spread``'s.
 
 The launch counters are set to 0 just before each main path and read just
 after.  Each phase prints one JSON line (``--out PATH`` also writes them all
@@ -89,8 +99,11 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 SMS = 132                  # streaming multiprocessors of the H100 SXM (read in main)
 BENCH_ITERS, V3_ITERS = 20, 4   # timed calls a site of the two kernel benches
-#: sources whose -Xptxas -v report must show no spill (the wgmma kernels)
-NO_SPILL = ("spread_gemm", "dense3")
+#: sources whose -Xptxas -v report must show no spill (the wgmma kernels and
+#: the depthwise kernel, whose weights live in registers)
+NO_SPILL = ("spread_gemm", "dense3", "spread_dw3")
+#: per-shape keys summed beside ms in the kernels line, where a row has them
+EXTRA_SUMS = ("wrapper_ms", "library_graph_ms")
 
 
 def emit(record: dict, log: dict) -> None:
@@ -136,7 +149,7 @@ class Agg:
 
     def __init__(self):
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = 0.0
-        self.wrapper_ms = 0.0
+        self.extra = {}             # the EXTRA_SUMS keys the rows carry
         self.max_abs_err = 0.0
         self.by = {"bytes": 0.0, "operations": 0.0}
 
@@ -147,14 +160,21 @@ class Agg:
         self.by[rec["bound_by"]] += weight * rec["bound_ms"]
         if rec.get("library_ms") is not None:
             self.library_ms += weight * rec["library_ms"]
-        self.wrapper_ms += weight * rec.get("wrapper_ms", 0.0)
+        for key in EXTRA_SUMS:
+            if key in rec:
+                self.extra[key] = self.extra.get(key, 0.0) + weight * rec[key]
 
-    def entry(self, **kw) -> dict:
-        extra = {"wrapper_ms": self.wrapper_ms} if self.wrapper_ms else {}
+    def entry(self, graph_library: bool = False, **kw) -> dict:
+        """The kernels line's entry; ``graph_library``: ``ms`` is a
+        graph-replayed time, so ``library_ms`` is the library call replayed
+        too and the eager one goes beside it as ``library_eager_ms``."""
+        extra, library = dict(self.extra), {"library_ms": self.library_ms or None}
+        if graph_library:
+            library = {"library_ms": extra.pop("library_graph_ms"),
+                       "library_eager_ms": self.library_ms}
         return {**kw, "max_abs_err": self.max_abs_err, "ms": self.ms,
                 "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": max(self.by, key=self.by.get),
-                "library_ms": self.library_ms or None, **extra}
+                "bound_by": max(self.by, key=self.by.get), **library, **extra}
 
 
 def site_shapes(model, memupdate_cls, x1, broadcast: set = None) -> Counter:
@@ -282,13 +302,20 @@ def check_spread(name, got, want, dtype) -> dict:
     return out
 
 
-def phase_spread(S, plain_kernels, sites: Counter, log) -> dict:
+def phase_spread(S, BS, plain_kernels, sites: Counter, log) -> dict:
     """K4 at the C >= 128 site shapes, K5 at the C <= 64 ones, N=8, against
     the plain versions; one library call timed beside each.  K5's ``ms`` is
     the kernel alone (``_gemm_forward`` on the int8 plane, ``M`` composed
     once), as the library call is timed; ``wrapper_ms`` is the
     ``autograd.Function`` as the train path calls it (the int8 cast and the
-    kernel; the path composes ``M`` once a forward)."""
+    kernel; the path composes ``M`` once a forward).  K4's ``ms`` is the
+    device time of ``binary_dw3_conv`` (one launch a call) from calls
+    replayed in a CUDA graph; ``wrapper_ms`` the same calls eager, back to
+    back (the host's issue rate in it); ``library_ms`` / ``library_graph_ms``
+    the library call eager and replayed; the bound of the float-in
+    function, with the int8-in function's and the old cast-plus-kernel
+    pair's beside it; at 80x80x128 bf16 the profiler's kernel time as a
+    cross-check.  ``BS`` is ``scripts.bench_spread`` (the timing helpers)."""
     import torch.nn.functional as F
 
     aggs = {"binary_dw3_conv": Agg(), "packed_spread": Agg()}
@@ -318,7 +345,9 @@ def phase_spread(S, plain_kernels, sites: Counter, log) -> dict:
                 kernel = wrapper = None
                 kd = dw.permute(3, 2, 0, 1).contiguous()
                 lib = lambda: F.conv2d(s_n, kd, dwb, padding=1, groups=c)
-                bms, by = bound(pos * (1 + item) + 10 * c * item, 18 * pos, dtype)
+                # the float plane read once, the output and the int8 plane
+                # written once, the weights
+                bms, by = bound(pos * (2 * item + 1) + 10 * c * item, 18 * pos, dtype)
             with torch.no_grad():
                 got = fn(*args)
                 with plain_kernels():
@@ -327,7 +356,17 @@ def phase_spread(S, plain_kernels, sites: Counter, log) -> dict:
                     reps = max(3, min(10, int(4e8 // pos)))
                     plain_ms = cuda_ms(lambda: fn(*args), reps)
                 if kernel is None:
-                    ms, timed = cuda_ms(lambda: fn(*args), reps), {}
+                    call = lambda: fn(*args)
+                    ms = BS.graph_ms(call)
+                    timed = {
+                        "wrapper_ms": cuda_ms(call, reps), "library_graph_ms": BS.graph_ms(lib),
+                        "bound_int8_in_ms": bound(pos * (1 + item) + 10 * c * item,
+                                                  18 * pos, dtype)[0],
+                        "bound_cast_pair_ms": bound(2 * pos * (1 + item) + 10 * c * item,
+                                                    18 * pos, dtype)[0],
+                        "plan": S.plan_dw3(N, h, w, c, SMS, item, item)._asdict()}
+                    if (h, w, c) == (80, 80, 128) and dtype == torch.bfloat16:
+                        timed["profiler_kernel_ms"] = BS.profiled_ms(call, "spread_dw3_kernel")
                 else:
                     ms = cuda_ms(kernel, reps)
                     timed = {"wrapper_ms": cuda_ms(wrapper, reps)}
@@ -589,7 +628,7 @@ def phase_k3_path(FZ, cfg_cls, sites: Counter, broadcast: set, counters: dict,
     return counts["ecs_lif_fused_v2"]
 
 
-def phase_k7_k8(BD, log) -> dict:
+def phase_k7_k8(BD, BS, log) -> dict:
     """The bench kernels against their plain versions at the bench's b16
     sites (``BD.SITES``), both output dtypes, the bench's bf16 weights; the
     plane is int8 0/1 at rate 0.3, and -2..2 at c128.  Gates: K4's for
@@ -597,7 +636,10 @@ def phase_k7_k8(BD, log) -> dict:
     convolution timed beside each.  K8's ``ms`` is the kernel alone
     (``dense3_launch`` on its plan), ``wrapper_ms`` ``pallas_dense3`` as the
     bench calls it, ``mma_route_ms`` the flattened ``mma.sync`` kernel (the
-    "mma" route, PR 4's design) on the same inputs."""
+    "mma" route) on the same inputs.  K7's ``ms`` is the
+    device time of ``pallas_dw3`` from calls replayed in a CUDA graph,
+    ``wrapper_ms`` the same calls eager, ``library_graph_ms`` the library
+    call replayed (``BS``: ``scripts.bench_spread``, the timing helpers)."""
     aggs = {"pallas_dw3": Agg(), "pallas_dense3": Agg()}
     for name, shape in BD.SITES.items():
         dense = name.startswith("act")
@@ -628,7 +670,10 @@ def phase_k7_k8(BD, log) -> dict:
                         reps), "plan": plan._asdict()}
                     del out
                 else:
-                    ms = cuda_ms(fn, reps)
+                    ms = BS.graph_ms(fn)
+                    timed = {"wrapper_ms": cuda_ms(fn, reps), "library_graph_ms": BS.graph_ms(
+                        BD.library_call(dense, s8, k, b, out_dtype)),
+                        "plan": BD.S.plan_dw3(*shape, SMS, 1, kk.element_size())._asdict()}
                 plain_ms = cuda_ms(lambda: plain(s8, kk, b, out_dtype), reps)
                 library_ms = cuda_ms(BD.library_call(dense, s8, k, b, out_dtype), reps)
             bms, by = BD.bound_ms(dense, shape, out_dtype)
@@ -699,6 +744,65 @@ def phase_k8_shapes(BD, log) -> None:
                     raise AssertionError(f"pallas_dense3 failed at {shape}: {rec}, "
                                          f"{mma} mma launches")
         del s8, k, b, got, want
+
+
+# K4/K7's kernel at shapes its plan cuts raggedly: C = 8 and 24 (one channel
+# group a block, 128 columns), a 20-wide plane at C = 1024, a full 80x80x128
+K4_SHAPES = [(1, 7, 9, 8), (2, 13, 21, 24), (3, 20, 20, 1024), (1, 80, 80, 128)]
+
+
+def phase_k4_shapes(S, BD, log) -> None:
+    """The depthwise kernel through its wrappers against its plain versions
+    at ``K4_SHAPES``, with dyadic weights and bias (multiples of 1/64, |k|
+    <= 1/4, so every sum is exact in float32 and the results must agree bit
+    for bit): the int8-in mode (K7) on full-range int8 planes, both weight
+    and both output dtypes; the float-in mode (K4) on binary planes and on
+    planes of any value in [-128, 127], both dtypes, where the int8 plane
+    the kernel writes must also equal ``s.to(torch.int8)`` byte for byte
+    (its taps use that int8 value)."""
+    for i, shape in enumerate(K4_SHAPES):
+        n, h, w, c = shape
+        rng = np.random.RandomState(800 + i)
+        s8 = torch.from_numpy(rng.randint(-128, 128, shape).astype(np.int8)).cuda()
+        planes = {"binary": torch.from_numpy((rng.rand(*shape) < 0.3).astype(np.float32)),
+                  "range": torch.from_numpy(rng.uniform(-128, 127, shape).astype(np.float32))}
+        k = torch.from_numpy(rng.randint(-16, 17, (3, 3, 1, c)).astype(np.float32) / 64).cuda()
+        b = torch.from_numpy(rng.randint(-64, 65, c).astype(np.float32) / 64).cuda()
+        for wdt in (torch.float32, torch.bfloat16):
+            k3, bw = k.reshape(3, 3, c).to(wdt), b.to(wdt)
+            plan = S.plan_dw3(n, h, w, c, SMS, 1, itemsize(wdt))
+            for odt in (torch.bfloat16, torch.float32):
+                with torch.no_grad():
+                    got = BD.pallas_dw3(s8, k3, bw, odt)
+                    want = BD.pallas_dw3_reference(s8, k3, bw, odt)
+                    torch.cuda.synchronize()
+                rec = {"phase": "k4_shape", "mode": "int8_in", "shape": list(shape),
+                       "plan": plan._asdict(), "weight_dtype": dname(wdt),
+                       "out_dtype": dname(odt), "data": "full",
+                       "int8_range": [int(s8.min()), int(s8.max())],
+                       "bit_equal": bool(torch.equal(got, want)),
+                       **check_spread("pallas_dw3", got, want, odt)}
+                emit(rec, log)
+                if not rec["bit_equal"]:
+                    raise AssertionError(f"pallas_dw3 failed at {shape}: {rec}")
+        for kind, plane in planes.items():
+            for dt in (torch.float32, torch.bfloat16):
+                sf, kf, bf = plane.cuda().to(dt), k.to(dt), b.to(dt)
+                plan = S.plan_dw3(n, h, w, c, SMS, itemsize(dt), itemsize(dt))
+                with torch.no_grad():
+                    got, g8 = S._dw3_kernel(sf, kf, bf)
+                    want8 = sf.to(torch.int8)
+                    want = S.binary_dw3_conv_reference(want8, kf, bf)
+                    torch.cuda.synchronize()
+                rec = {"phase": "k4_shape", "mode": "float_in", "shape": list(shape),
+                       "plan": plan._asdict(), "dtype": dname(dt), "data": kind,
+                       "bit_equal": bool(torch.equal(got, want)),
+                       "int8_plane_equal": bool(torch.equal(g8, want8)),
+                       **check_spread("binary_dw3_conv", got, want, dt)}
+                emit(rec, log)
+                if not (rec["bit_equal"] and rec["int8_plane_equal"]):
+                    raise AssertionError(f"binary_dw3_conv failed at {shape}: {rec}")
+        del s8, planes, k, b, got, want
 
 
 def phase_bench_path(BD, BV3, counters: dict, log) -> dict:
@@ -1128,6 +1232,7 @@ def main(argv=None) -> int:
     from ecs_yolo_tpu_torch.snn.route import plain_kernels
     from ecs_yolo_tpu_torch.scripts import bench_pallas_dw as BD
     from ecs_yolo_tpu_torch.scripts import bench_pallas_v3 as BV3
+    from ecs_yolo_tpu_torch.scripts import bench_spread as BS
 
     global SMS
     SMS = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1184,7 +1289,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"res10 has {len(sites)} neuron sites, want 24")
 
         agg1 = phase_k1(K, SNNConfig, shapes, broadcast, log)
-        aggs = phase_spread(S, plain_kernels, shapes, log)
+        aggs = phase_spread(S, BS, plain_kernels, shapes, log)
         phase_spread_grads(S, log)
         agg6 = phase_k6(FZ, SNNConfig, shapes, broadcast, log)
         agg2, agg3 = phase_k2(FZ, K, SNNConfig, shapes, broadcast, log)
@@ -1262,8 +1367,9 @@ def main(argv=None) -> int:
 
     # --- K3's entry point, and the kernel benches ------------------------------
     k3_launches = phase_k3_path(FZ, SNNConfig, shapes, broadcast, every_kernel, log)
-    aggs78 = phase_k7_k8(BD, log)
+    aggs78 = phase_k7_k8(BD, BS, log)
     phase_k8_shapes(BD, log)
+    phase_k4_shapes(S, BD, log)
     bench_launches = phase_bench_path(BD, BV3, every_kernel, log)
 
     csrc = "ecs_yolo_tpu_torch/csrc/"
@@ -1281,8 +1387,13 @@ def main(argv=None) -> int:
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:73",
             launches=spread_launches["binary_dw3_conv"],
             work=f"the 57 launches (19 sites x {T - 1} steps) of {fwd}; launches "
-                 f"over the {TRAIN_STEPS} train steps",
-            library_note="F.conv2d(groups=C) with bias, channels_last"),
+                 f"over the {TRAIN_STEPS} train steps; ms is the device time of "
+                 "binary_dw3_conv (one launch a call) from calls replayed in a CUDA "
+                 "graph, wrapper_ms the same calls eager; the bound is the float-in "
+                 "function's (the plane read, the output and the int8 plane written)",
+            library_note="F.conv2d(groups=C) with bias, channels_last, replayed in a "
+                         "CUDA graph as ms is; library_eager_ms the same call eager",
+            graph_library=True),
         aggs["packed_spread"].entry(
             name="packed_spread", route="cuda", source=csrc + "spread_gemm.cu",
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:218",
@@ -1326,8 +1437,12 @@ def main(argv=None) -> int:
             launches=bench_launches["pallas_dw3"],
             work="ecs_yolo_tpu_torch.scripts.bench_pallas_dw at its three "
                  "depthwise b16 sites, bf16 out, one call each; launches over "
-                 f"the bench's warm-up and {BENCH_ITERS} timed calls a site",
-            library_note="F.conv2d(groups=C) with bias, channels_last"),
+                 f"the bench's warm-up and {BENCH_ITERS} timed calls a site; ms is "
+                 "the device time of pallas_dw3 from calls replayed in a CUDA "
+                 "graph, wrapper_ms the same calls eager",
+            library_note="F.conv2d(groups=C) with bias, channels_last, replayed in a "
+                         "CUDA graph as ms is; library_eager_ms the same call eager",
+            graph_library=True),
         aggs78["pallas_dense3"].entry(
             name="pallas_dense3", route="cuda", source=csrc + "dense3.cu",
             replaces="scripts/bench_pallas_dw.py:127",

@@ -96,9 +96,10 @@ def pallas_dw3(s8, k33c, bias, out_dtype=torch.bfloat16) -> torch.Tensor:
     """Depthwise 3x3 SAME convolution plus bias: ``s8`` ``[N, H, W, C]`` int8
     (any values), ``k33c`` ``[3, 3, C]``, ``bias`` ``[C]`` (float32 or
     bfloat16 each), result in ``out_dtype``.  The kernel is K4's
-    (``csrc/spread_dw3.cu``): it widens the weights to f32, sums the taps in
+    (``csrc/spread_dw3.cu``) in its int8-in mode, on K4's plan
+    (``snn.spread.plan_dw3``): it widens the weights to f32, sums the taps in
     row-major order from the bias and rounds once; C % 8 == 0."""
-    code = _out_code(out_dtype)
+    _out_code(out_dtype)
     if not use_kernel(s8):
         return pallas_dw3_reference(s8, k33c, bias, out_dtype)
     _int8_plane("pallas_dw3", s8)
@@ -109,17 +110,12 @@ def pallas_dw3(s8, k33c, bias, out_dtype=torch.bfloat16) -> torch.Tensor:
                         f"{k33c.dtype}/{bias.dtype}")
     if k33c.dtype != bias.dtype:      # exact: the kernel widens both to f32
         k33c, bias = k33c.float(), bias.float()
-    k33c, bias = k33c.contiguous(), bias.contiguous()
-    from .. import _build
-
-    _build.load("spread_dw3")
+    k33c, bias = S._aligned(k33c), S._aligned(bias)
+    plan = S.plan_dw3(n, h, w, c, S._sms(s8.device), 1, k33c.element_size())
     out = torch.empty((n, h, w, c), dtype=out_dtype, device=s8.device)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    S._launch("spread_dw3", "spread_dw3_fwd", [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp],
-              (_CODES[k33c.dtype], code, s8.data_ptr(), k33c.data_ptr(),
-               bias.data_ptr(), out.data_ptr(), n, h, w, c,
-               torch.cuda.current_stream(s8.device).cuda_stream))
-    pallas_dw3.launches += 1
+    if plan.grid:
+        S.dw3_launch(s8, k33c, bias, out, None, plan)
+        pallas_dw3.launches += 1
     return out
 
 

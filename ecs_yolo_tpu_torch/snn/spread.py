@@ -4,7 +4,11 @@ plain versions and gradients (counterpart of ``ecs_yolo_tpu/snn/pallas_dw.py``).
 * ``binary_dw3_conv`` replaces ``pallas_dw.binary_dw3_conv``: depthwise 3x3
   SAME convolution plus bias over a binary ``[N, H, W, C]`` spike plane, read
   as int8, summed in float32 from the bias, rounded once.  Kernel
-  ``csrc/spread_dw3.cu``.
+  ``csrc/spread_dw3.cu``, one launch a call: it reads the plane in its own
+  dtype and writes the int8 plane the backward keeps in the same pass.  Its
+  walk is planned in Python (``plan_dw3``: strips of rows, channel groups
+  and columns a block, one wave of blocks); ``dw3_tile_walk_reference``
+  walks a plan in plain PyTorch.
 * ``packed_spread`` replaces ``pallas_dw.packed_spread_pallas``: the whole
   spread ``pw1x1(dw3x3(s) + dwb) + pwb`` as one implicit product
   ``patches[pos, 9C] @ M[9C, C] + const`` over int8 spikes, with ``M`` and
@@ -19,7 +23,8 @@ plain versions and gradients (counterpart of ``ecs_yolo_tpu/snn/pallas_dw.py``).
 Each wrapper is a ``torch.autograd.Function``: the forward launches the
 kernel on a CUDA tensor (or raises) and takes the plain version on a CPU
 tensor or inside ``route.plain_kernels()``; it saves the spikes as int8 with
-the weights.  The backward is the gradient of the plain convolution from the
+the weights.  A kernel's ctypes entry is bound once, at its first launch
+(``_entry``).  The backward is the gradient of the plain convolution from the
 saved int8 input, through the library's convolution gradients, as the JAX
 ``custom_vjp``s compute theirs outside any kernel.  ``*.launches`` count the
 kernel launches.
@@ -27,6 +32,7 @@ kernel launches.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import math
@@ -69,11 +75,12 @@ def _dw_oihw(k: torch.Tensor) -> torch.Tensor:
 
 
 def _check(name: str, s8: torch.Tensor, c_mult: int, **params) -> None:
-    """What the kernels take: a dense int8 ``[N, H, W, C]`` plane, parameters
+    """What the kernels take: a dense ``[N, H, W, C]`` spike plane, parameters
     of the stated shapes on the same device."""
-    if s8.dim() != 4:
-        raise ValueError(f"{name}: spikes must be [N, H, W, C], got {tuple(s8.shape)}")
-    n, h, w, c = s8.shape
+    shape = s8.shape
+    if len(shape) != 4:
+        raise ValueError(f"{name}: spikes must be [N, H, W, C], got {tuple(shape)}")
+    n, h, w, c = shape
     if not s8.is_contiguous():
         raise ValueError(f"{name}: spikes must be contiguous, strides {s8.stride()}")
     if c % c_mult:
@@ -82,26 +89,65 @@ def _check(name: str, s8: torch.Tensor, c_mult: int, **params) -> None:
         raise ValueError(f"{name}: N*H*W must be below 2^31")
     if s8.data_ptr() % 16:
         raise ValueError(f"{name}: spikes must start on a 16-byte boundary")
-    for pname, (p, shape) in params.items():
-        if tuple(p.shape) != shape:
-            raise ValueError(f"{name}: {pname} must be {shape}, got {tuple(p.shape)}")
-        if p.device != s8.device:
-            raise ValueError(f"{name}: {pname} is on {p.device}, spikes on {s8.device}")
+    device = s8.device
+    for pname, (p, pshape) in params.items():
+        if p.shape != pshape:
+            raise ValueError(f"{name}: {pname} must be {pshape}, got {tuple(p.shape)}")
+        if p.device != device:
+            raise ValueError(f"{name}: {pname} is on {p.device}, spikes on {device}")
+
+
+#: the bound ctypes entries of the spread kernels, by (library, function)
+_entries: dict = {}
+
+
+def _entry(lib_name: str, fn_name: str, argtypes):
+    """The C function ``fn_name`` of ``csrc/<lib_name>.cu``'s library (built
+    first if needed), its ``argtypes`` and ``restype`` set when it is first
+    asked for and kept."""
+    fn = _entries.get((lib_name, fn_name))
+    if fn is None:
+        from .. import _build
+
+        fn = getattr(_build.load(lib_name), fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[lib_name, fn_name] = fn
+    return fn
+
+
+def _fail_on(err: int, lib_name: str, fn_name: str) -> None:
+    """Raises with the CUDA error's text when a launch returned one."""
+    if err != 0:
+        msg = _entry(lib_name, "spread_error_string", [ctypes.c_int])
+        msg.restype = ctypes.c_char_p
+        raise RuntimeError(f"{fn_name} launch failed: {msg(err).decode()}")
 
 
 def _launch(lib_name: str, fn_name: str, argtypes, args) -> None:
-    from .. import _build
+    _fail_on(_entry(lib_name, fn_name, argtypes)(*args), lib_name, fn_name)
 
-    lib = _build.load(lib_name)
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    err = fn(*args)
-    if err != 0:
-        lib.spread_error_string.argtypes = [ctypes.c_int]
-        lib.spread_error_string.restype = ctypes.c_char_p
-        raise RuntimeError(f"{fn_name} launch failed: "
-                           + lib.spread_error_string(err).decode())
+
+def _stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the kernels take it (the
+    raw handle: no ``torch.cuda.Stream`` object is built a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    """SMs of a CUDA device; the H100's 132 for any other device (the plans
+    of the CPU tests)."""
+    if device.type != "cuda":
+        return 132
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on a 16-byte boundary (the kernels read
+    parameters in 16-byte pieces), copied only where it is not."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 # --- K4: binary depthwise 3x3 ----------------------------------------------
@@ -119,32 +165,154 @@ def binary_dw3_conv_reference(s: torch.Tensor, k: torch.Tensor,
     return _nhwc(y).to(out).contiguous()
 
 
-def _dw3_forward(s8: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """int8 spikes -> ``k.dtype`` output: the kernel on the card."""
-    if not use_kernel(s8):
-        return binary_dw3_conv_reference(s8, k, b)
-    n, h, w, c = s8.shape
-    _check("binary_dw3_conv", s8, 8, k=(k, (3, 3, 1, c)), b=(b, (c,)))
-    if k.dtype not in _DTYPES or b.dtype != k.dtype:
-        raise TypeError(f"binary_dw3_conv takes float32 or bfloat16 parameters "
-                        f"of one dtype, not {k.dtype}/{b.dtype}")
-    k, b = k.contiguous(), b.contiguous()
-    out = torch.empty((n, h, w, c), dtype=k.dtype, device=s8.device)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    _launch("spread_dw3", "spread_dw3_fwd", [ci, ci, vp, vp, vp, vp, ci, ci, ci, ci, vp],
-            (_DTYPES[k.dtype], _DTYPES[k.dtype], s8.data_ptr(), k.data_ptr(),
-             b.data_ptr(), out.data_ptr(), n, h, w, c,
-             torch.cuda.current_stream(s8.device).cuda_stream))
-    binary_dw3_conv.launches += 1
-    return out
+class Dw3Plan(NamedTuple):
+    """A launch of the depthwise kernel: ``grid`` blocks of ``DW3_THREADS``
+    threads, each block ``gb`` channel groups of 8 channels times ``tw``
+    columns of one image over a strip of ``rows`` output rows (``strips``
+    strips an image); every thread walks its column down the strip."""
+    rows: int
+    strips: int
+    tw: int
+    gb: int
+    grid: int
+
+
+#: threads of a block of the depthwise kernel (csrc/spread_dw3.cu: kThreads)
+DW3_THREADS = 128
+#: dtype codes of the depthwise kernel's plane
+_PLANE_CODES = {**_DTYPES, torch.int8: 2}
+#: the entry takes its 18 arguments as one block of int64 (one ctypes
+#: conversion a launch)
+_DW3_ARGTYPES = [ctypes.c_void_p]
+
+
+def dw3_blocks_per_sm(in_item: int, w_item: int) -> int:
+    """Blocks an SM holds, by the kernel's ``__launch_bounds__``
+    (``blocks_per_sm``): the registers a thread has for its weights, its
+    accumulators and three rows in flight."""
+    return 2 if in_item == 4 and w_item == 4 else 3
+
+
+@functools.lru_cache(maxsize=256)
+def plan_dw3(n: int, h: int, w: int, c: int, sms: int = 132, in_item: int = 2,
+             w_item: int = 2) -> Dw3Plan:
+    """The depthwise kernel's plan for an ``[n, h, w, c]`` plane of
+    ``in_item``-byte values and ``w_item``-byte weights on a card of ``sms``
+    SMs.
+
+    A block takes ``gb`` channel groups, the largest power of two <= 16 that
+    divides C / 8, and ``tw = 128 / gb`` columns (ragged columns masked).
+    The strips are as many as one wave of blocks allows (``sms`` times the
+    blocks an SM holds), at least one an image and at most H: the more
+    strips, the more threads in flight; the fewer, the fewer rows read
+    twice (each strip reads one row above and one below it).
+    """
+    if c <= 0 or c % 8:
+        raise ValueError(f"plan_dw3: C must be a positive multiple of 8, got {c}")
+    g = c // 8
+    gb = 16
+    while g % gb:
+        gb //= 2
+    tw = DW3_THREADS // gb
+    per_strip = n * math.ceil(w / tw) * (g // gb)
+    cap = sms * dw3_blocks_per_sm(in_item, w_item)
+    rows = max(1, math.ceil(h / max(1, min(h, cap // max(per_strip, 1)))))
+    strips = math.ceil(h / rows)
+    grid = per_strip * strips
+    if grid >= 2 ** 31:
+        raise ValueError(f"plan_dw3: {grid} blocks exceed the grid")
+    return Dw3Plan(rows, strips, tw, gb, grid)
+
+
+def dw3_block_origin(plan: Dw3Plan, w: int, c: int, blk):
+    """``(n, h0, x0, g0)`` of block ``blk`` (an int or an array of them): its
+    image, first output row, first column and first channel group, in the
+    kernel's order (channel blocks fastest, then column blocks, strips,
+    images)."""
+    gblks, wblks = c // 8 // plan.gb, math.ceil(w / plan.tw)
+    return (blk // (gblks * wblks * plan.strips),
+            blk // (gblks * wblks) % plan.strips * plan.rows,
+            blk // gblks % wblks * plan.tw, blk % gblks * plan.gb)
+
+
+def dw3_tile_walk_reference(s: torch.Tensor, k: torch.Tensor, b: torch.Tensor,
+                            plan: Dw3Plan, out_dtype=None):
+    """The depthwise kernel's walk in plain PyTorch: every block takes the
+    int8 values of its window (zeros outside the image) and walks its
+    strip, input row by input row, adding each row's three columns to the
+    three rolling float32 accumulators of the output rows that use it
+    (bias first, taps in row-major order), and writes each completed row
+    rounded once (the rest of ``out`` stays NaN).  Returns ``(out, s8)``:
+    ``s8`` the int8 plane.  ``out_dtype`` defaults to ``s``'s dtype (the
+    float-in mode) and must be given for an int8 ``s``.  Products and sums
+    round apart here (the kernel fuses them), so the two agree bit for bit
+    where every sum is exact.  For the CPU tests of the plan."""
+    n, h, w, c = s.shape
+    s8 = s if s.dtype == torch.int8 else s.to(torch.int8)
+    out_dtype = out_dtype or s.dtype
+    sp = F.pad(s8.float(), (0, 0, 1, 1, 1, 1))
+    k9, bias = k.reshape(9, c).float(), b.float()
+    out = torch.full((n, h, w, c), float("nan"), dtype=out_dtype)
+    for blk in range(plan.grid):
+        i, h0, x0, g0 = dw3_block_origin(plan, w, c, blk)
+        h1, x1 = min(h0 + plan.rows, h), min(x0 + plan.tw, w)
+        cs = slice(g0 * 8, (g0 + plan.gb) * 8)
+        start = bias[cs].expand(x1 - x0, -1)
+        acc = [start, start, start]          # outputs y+1, y, y-1 at input row y
+        for y in range(h0 - 1, h1 + 1):
+            if 0 <= y < h:
+                row = sp[i, y + 1, x0:x1 + 2, cs]
+                for dx in range(3):
+                    v = row[dx:dx + x1 - x0]
+                    acc = [a + v * k9[3 * dy + dx, cs] for dy, a in enumerate(acc)]
+            if y > h0:
+                out[i, y - 1, x0:x1, cs] = acc[2].to(out_dtype)
+            acc = [start, acc[0], acc[1]]
+    return out, s8
+
+
+def dw3_launch(s: torch.Tensor, k: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+               s8, plan: Dw3Plan) -> None:
+    """Launches the depthwise kernel on ``plan``, writing ``out`` and, for a
+    float plane, the int8 plane ``s8`` (None for an int8 ``s``): the launch
+    ``binary_dw3_conv`` and ``pallas_dw3`` share, after their checks."""
+    n, h, w, c = s.shape
+    fn = _entry("spread_dw3", "spread_dw3_fwd", _DW3_ARGTYPES)    # built and bound first
+    args = array.array("q", (
+        _PLANE_CODES[s.dtype], _DTYPES[k.dtype], _DTYPES[out.dtype], s.data_ptr(),
+        k.data_ptr(), b.data_ptr(), out.data_ptr(), 0 if s8 is None else s8.data_ptr(),
+        n, h, w, c, *plan, _stream(s)))
+    _fail_on(fn(args.buffer_info()[0]), "spread_dw3", "spread_dw3_fwd")
+
+
+def _dw3_kernel(s: torch.Tensor, k: torch.Tensor, b: torch.Tensor):
+    """A float spike plane on the card -> ``(out, s8)``: the output in
+    ``s``'s dtype and the int8 plane, from one launch."""
+    n, h, w, c = s.shape
+    _check("binary_dw3_conv", s, 8, k=(k, (3, 3, 1, c)), b=(b, (c,)))
+    if s.dtype not in _DTYPES or k.dtype != s.dtype or b.dtype != s.dtype:
+        raise TypeError(f"binary_dw3_conv takes a float32 or bfloat16 plane and "
+                        f"parameters of its dtype, not {s.dtype}/{k.dtype}/{b.dtype}")
+    k, b = _aligned(k), _aligned(b)
+    plan = plan_dw3(n, h, w, c, _sms(s.device), s.element_size(), k.element_size())
+    out = torch.empty_like(s)
+    s8 = torch.empty_like(s, dtype=torch.int8)
+    if plan.grid:
+        dw3_launch(s, k, b, out, s8, plan)
+        binary_dw3_conv.launches += 1
+    return out, s8
 
 
 class _BinaryDw3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, s, k, b):
-        s8 = s.to(torch.int8)                       # exact: s in {0, 1}
+        if use_kernel(s):
+            out, s8 = _dw3_kernel(s, k, b)
+        else:
+            s8 = s.to(torch.int8)                   # exact: s in {0, 1}
+            out = binary_dw3_conv_reference(s8, k, b)
         ctx.save_for_backward(s8, k)
-        return _dw3_forward(s8, k, b)
+        return out
 
     @staticmethod
     def backward(ctx, dy):
@@ -168,11 +336,13 @@ def binary_dw3_conv(s: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.
     plane ``s`` (values 0 or 1, float32 or bfloat16).
 
     ``k`` is the canonical ``[3, 3, 1, C]`` depthwise kernel, ``b`` the ``[C]``
-    bias; both are cast to ``s``'s dtype.  The kernel reads the plane as int8
-    (the cast is made here and kept for the backward) and writes ``s``'s
-    dtype.
+    bias; both are cast to ``s``'s dtype.  The kernel reads the plane in its
+    own dtype, takes the int8 value of each spike, writes ``s``'s dtype and,
+    in the same launch, the int8 plane kept for the backward.
     """
-    return _BinaryDw3.apply(s, k.to(s.dtype), b.to(s.dtype))
+    dt = s.dtype
+    return _BinaryDw3.apply(s, k if k.dtype == dt else k.to(dt),
+                            b if b.dtype == dt else b.to(dt))
 
 
 binary_dw3_conv.launches = 0
@@ -315,14 +485,12 @@ def _gemm_forward(s8: torch.Tensor, m: torch.Tensor, const: torch.Tensor) -> tor
     if m.data_ptr() % 16:                             # read in 16-byte pieces
         m = m.clone()
     # the bf16 kernel's plan; the f32 kernel ignores it
-    plan = plan_gemm(n, h, w, c,
-                     torch.cuda.get_device_properties(s8.device).multi_processor_count)
+    plan = plan_gemm(n, h, w, c, _sms(s8.device))
     out = torch.empty((n, h, w, c), dtype=m.dtype, device=s8.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     _launch("spread_gemm", "spread_gemm_fwd", [ci, vp, vp, vp, vp] + [ci] * 10 + [vp],
             (_DTYPES[m.dtype], s8.data_ptr(), m.data_ptr(), const.data_ptr(),
-             out.data_ptr(), n, h, w, c, *plan,
-             torch.cuda.current_stream(s8.device).cuda_stream))
+             out.data_ptr(), n, h, w, c, *plan, _stream(s8)))
     packed_spread.launches += 1
     return out
 

@@ -24,6 +24,7 @@ import torch
 
 from ecs_yolo_tpu_torch.scripts import bench_pallas_dw as BD
 from ecs_yolo_tpu_torch.scripts import bench_pallas_v3 as BV3
+from ecs_yolo_tpu_torch.snn import spread as S
 
 torch.set_num_threads(2)
 
@@ -269,3 +270,66 @@ def test_bench_pallas_v3_main_runs_on_the_cpu(capsys):
     assert BV3.main(["--device", "cpu", "--shape", "2", "1", "8", "8", "16"]) == 0
     out = capsys.readouterr().out
     assert "spike mismatch: 0.000000" in out and "times: not measured" in out
+
+
+@pytest.mark.parametrize("out", sorted(DTYPES))
+@pytest.mark.parametrize("shape,sms", [((2, 13, 21, 24), 132), ((1, 9, 7, 128), 1),
+                                       ((1, 5, 20, 1024), 132)],
+                         ids=["2x13x21x24", "1x9x7x128-sms1", "1x5x20x1024"])
+def test_dw3_tile_walk_is_the_plain_version_bit_for_bit(shape, sms, out):
+    """K7's int8-in mode on K4's plan: full-range int8 planes with dyadic
+    weights and bias (multiples of 1/64, |k| <= 1/4: every sum exact in
+    f32), f32 and bf16 weights, the walk gives ``pallas_dw3_reference``'s
+    bits."""
+    c = shape[-1]
+    rng = np.random.RandomState(c)
+    s8 = torch.from_numpy(rng.randint(-128, 128, shape).astype(np.int8))
+    k = torch.from_numpy(rng.randint(-16, 17, (3, 3, c)).astype(np.float32) / 64)
+    b = torch.from_numpy(rng.randint(-64, 65, c).astype(np.float32) / 64)
+    out_dtype = DTYPES[out][0]
+    for wdt in (torch.float32, torch.bfloat16):
+        plan = S.plan_dw3(*shape, sms, 1, wdt.itemsize)
+        got, same = S.dw3_tile_walk_reference(s8, k.to(wdt), b.to(wdt), plan, out_dtype)
+        assert same is s8 and got.dtype == out_dtype
+        assert torch.equal(got, BD.pallas_dw3_reference(s8, k.to(wdt), b.to(wdt), out_dtype))
+
+
+def test_pallas_dw3_binds_once_and_passes_the_int8_plane(monkeypatch):
+    """A stub library in place of the built one: ``pallas_dw3`` loads it
+    once and sets the entry's argtypes once over many calls; each call
+    passes the int8 plane (code 2) with no int8 output, the weights' and
+    the output's dtype codes and K4's plan for an int8 plane, and counts one
+    launch."""
+    import ctypes
+
+    from ecs_yolo_tpu_torch import _build
+
+    calls, binds = [], []
+
+    class Entry:
+        def __setattr__(self, name, value):
+            binds.append(name)
+            object.__setattr__(self, name, value)
+
+        def __call__(self, block):       # the launch's 18 int64 arguments
+            calls.append(tuple((ctypes.c_longlong * 18).from_address(block)))
+            return 0
+
+    class Lib:
+        spread_dw3_fwd = Entry()
+
+    loads = []
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or Lib)
+    monkeypatch.setattr(S, "_entries", {})
+    monkeypatch.setattr(BD, "use_kernel", lambda x: True)
+    monkeypatch.setattr(S, "_stream", lambda t: 5)
+    s8 = torch.from_numpy(_plane((2, 6, 10, 32), 0))
+    k, b = torch.zeros(3, 3, 32, dtype=torch.bfloat16), torch.zeros(32, dtype=torch.bfloat16)
+    before = BD.pallas_dw3.launches
+    for _ in range(3):
+        y = BD.pallas_dw3(s8, k, b, torch.float32)
+    assert loads == ["spread_dw3"] and binds.count("argtypes") == 1
+    assert BD.pallas_dw3.launches == before + 3 and y.dtype == torch.float32
+    plan = S.plan_dw3(2, 6, 10, 32, 132, 1, 2)
+    assert calls[-1] == (2, 1, 0, s8.data_ptr(), k.data_ptr(), b.data_ptr(), y.data_ptr(),
+                         0, 2, 6, 10, 32, *plan, 5)

@@ -236,3 +236,111 @@ def test_tile_walk_reference_is_the_plain_version_bit_for_bit(nhw, sms, c, dtype
     want = S.packed_spread_reference(s, dw, dwb, pw, pwb)
     assert got.dtype == want.dtype == dtype
     assert torch.equal(got, want)
+
+
+# --- the depthwise kernel's plan (K4, and K7 on the same kernel) ----------------
+
+# (shape, sms): ragged H and W, C = 8, 24, 128, 1024, N = 1 and 3, one SM
+# (long strips) and the H100's 132
+DW3_PLAN_CASES = [((1, 7, 9, 8), 132), ((3, 13, 21, 24), 132), ((1, 80, 80, 128), 132),
+                  ((3, 20, 20, 1024), 132), ((3, 13, 21, 24), 1), ((1, 9, 7, 128), 1)]
+
+
+@pytest.mark.parametrize("shape,sms", DW3_PLAN_CASES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else f"sms{v}")
+def test_plan_dw3_covers_every_output_once(shape, sms):
+    """Over the kernel's blocks, threads and strip rows every (pixel,
+    channel group) of the plane is written once; one wave of blocks where
+    the plane allows it."""
+    n, h, w, c = shape
+    g = c // 8
+    plan = S.plan_dw3(n, h, w, c, sms)
+    assert plan.gb * plan.tw == S.DW3_THREADS and g % plan.gb == 0
+    assert plan.strips == -(-h // plan.rows)
+    if plan.strips > 1:                                 # as many strips as a wave holds
+        assert plan.grid <= sms * S.dw3_blocks_per_sm(2, 2) or plan.rows == 1
+    i, h0, x0, g0 = S.dw3_block_origin(plan, w, c, np.arange(plan.grid))
+    t = np.arange(S.DW3_THREADS)
+    x = x0[:, None] + t // plan.gb                      # [block, thread]
+    gg = g0[:, None] + t % plan.gb
+    hits = np.zeros((n, h, w, g), np.int64)
+    for r in range(plan.rows):
+        y = h0[:, None] + r + 0 * t
+        keep = (x < w) & (y < np.minimum(h0 + plan.rows, h)[:, None])
+        np.add.at(hits, (np.broadcast_to(i[:, None], x.shape)[keep], y[keep], x[keep],
+                         gg[keep]), 1)
+    assert (hits == 1).all(), plan
+
+
+def _dyadic_dw3(shape, seed):
+    """A binary plane and dyadic weights and bias (multiples of 1/64, |k| <=
+    1/4): every sum of the depthwise function is exact in float32."""
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    s = torch.from_numpy((rng.rand(*shape) < 0.3).astype(np.float32))
+    k = torch.from_numpy(rng.randint(-16, 17, (3, 3, 1, c)).astype(np.float32) / 64)
+    b = torch.from_numpy(rng.randint(-64, 65, c).astype(np.float32) / 64)
+    return s, k, b
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,sms", [((2, 13, 21, 24), 132), ((1, 9, 7, 128), 1),
+                                       ((1, 5, 20, 1024), 132)],
+                         ids=["2x13x21x24", "1x9x7x128-sms1", "1x5x20x1024"])
+def test_dw3_tile_walk_reference_is_the_plain_version_bit_for_bit(shape, sms, dtype):
+    """The float-in mode (K4): the walk on the kernel's plan, from a binary
+    plane in its own dtype, gives the plain version's bits and the int8
+    plane ``s.to(int8)``."""
+    s, k, b = (a.to(dtype) for a in _dyadic_dw3(shape, seed=shape[-1]))
+    plan = S.plan_dw3(*shape, sms, s.element_size(), k.element_size())
+    got, s8 = S.dw3_tile_walk_reference(s, k, b, plan)
+    want = S.binary_dw3_conv_reference(s.to(torch.int8), k, b)
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(got, want) and torch.equal(s8, s.to(torch.int8))
+
+
+def test_k4_launch_binds_once_and_launches_once_a_call(monkeypatch):
+    """A stub library in place of the built one: over many calls the entry's
+    argtypes are set once and the library loaded once; each call passes the
+    float plane, the int8-out and out pointers, the dtype codes and the
+    plan, counts one launch, and keeps the plane it wrote for the
+    backward."""
+    import ctypes
+
+    from ecs_yolo_tpu_torch import _build
+
+    calls, loads = [], []
+
+    class Entry:
+        def __init__(self):
+            object.__setattr__(self, "binds", 0)
+
+        def __setattr__(self, name, value):
+            if name == "argtypes":
+                object.__setattr__(self, "binds", self.binds + 1)
+            object.__setattr__(self, name, value)
+
+        def __call__(self, block):       # the launch's 18 int64 arguments
+            calls.append(tuple((ctypes.c_longlong * 18).from_address(block)))
+            return 0
+
+    class Lib:
+        spread_dw3_fwd = Entry()
+
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or Lib)
+    monkeypatch.setattr(S, "_entries", {})
+    monkeypatch.setattr(S, "use_kernel", lambda x: True)
+    monkeypatch.setattr(S, "_stream", lambda t: 7)
+    s, k, b = (a.bfloat16() for a in _dyadic_dw3((2, 5, 6, 16), seed=0))
+    s.requires_grad_(True)
+    before = S.binary_dw3_conv.launches
+    for _ in range(4):
+        y = S.binary_dw3_conv(s, k, b)
+    assert Lib.spread_dw3_fwd.binds == 1 and loads == ["spread_dw3"]
+    assert S.binary_dw3_conv.launches == before + 4 and len(calls) == 4
+    s8 = y.grad_fn.saved_tensors[0]
+    assert s8.dtype == torch.int8 and s8.shape == s.shape
+    plan = S.plan_dw3(2, 5, 6, 16, 132, 2, 2)
+    assert calls[-1] == (1, 1, 1, s.data_ptr(), k.data_ptr(), b.data_ptr(), y.data_ptr(),
+                         s8.data_ptr(), 2, 5, 6, 16, plan.rows, plan.strips, plan.tw, plan.gb,
+                         plan.grid, 7)
