@@ -9,12 +9,14 @@ general-shape fused ECS-LIF forward, the ECS-LIF forward with its state in
 shared memory, the dense 3x3 product), which serve eight functions (the
 depthwise kernel also serves the bench's ``pallas_dw3``), takes the
 EMS-ResNet10@640 neuron-site shapes from the model itself, holds every kernel
-against its plain PyTorch version at those shapes (and the two spread
+against its plain PyTorch version at those shapes (the fused ECS-LIF forward
+also at six shapes the forward does not give it, ``k1_shape``, each record
+with the launch's plan: items, grid, Cout slice; and the two spread
 kernels' gradients against autograd through the plain version; the fused
 spread product and the dense 3x3 product timed alone and as their callers
 call them; the ``-Xptxas -v`` report of every source, with no spill allowed
-in the two ``wgmma`` sources, ``spread_gemm`` and ``dense3``, nor in the
-depthwise ``spread_dw3``), and drives
+in the three ``wgmma`` sources, ``ecs_lif``, ``spread_gemm`` and ``dense3``,
+nor in the depthwise ``spread_dw3``), and drives
 the port's paths at full width with random weights from a seed:
 
 * serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
@@ -101,7 +103,7 @@ SMS = 132                  # streaming multiprocessors of the H100 SXM (read in 
 BENCH_ITERS, V3_ITERS = 20, 4   # timed calls a site of the two kernel benches
 #: sources whose -Xptxas -v report must show no spill (the wgmma kernels and
 #: the depthwise kernel, whose weights live in registers)
-NO_SPILL = ("spread_gemm", "dense3", "spread_dw3")
+NO_SPILL = ("ecs_lif", "spread_gemm", "dense3", "spread_dw3")
 #: per-shape keys summed beside ms in the kernels line, where a row has them
 EXTRA_SUMS = ("wrapper_ms", "library_graph_ms")
 
@@ -226,10 +228,11 @@ def spread_inputs(shape, dtype, seed):
 
 def phase_k1(K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
     """K1 against its plain version at every res10 site shape, N=8, T=4, x
-    dense, and x a broadcast over T where the model hands the site one."""
+    dense, and x a broadcast over T where the model hands the site one.
+    Each record carries the launch's plan: its (tile x Cout slice) items, the
+    grid of resident blocks and the slice."""
     agg = Agg()
     cfg = cfg_cls(time_window=T)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         for i, ((h, w, c), count) in enumerate(sorted(sites.items(), reverse=True)):
             shape = (T, N, h, w, c)
@@ -254,7 +257,7 @@ def phase_k1(K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
                 rec = {"phase": "kernel_check", "kernel": "ecs_lif_fused",
                        "dtype": dname(dtype), "act": False, "shape": list(shape),
                        "sites": count, "x_broadcast_over_t": bcast,
-                       "rows_per_tile": K.plan_rows(N, h, T, sms),
+                       **k1_plan_fields(K, args[0]),
                        "mismatch_share": share, "bound_share": SPIKE_BOUND[dtype],
                        "max_abs_err": float(diff.max()),
                        "firing_rate": float(want.float().mean()),
@@ -280,6 +283,46 @@ def phase_k1(K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
     if err > SILU_ATOL:
         raise AssertionError(f"ecs_lif_fused(act=True) max abs err {err}")
     return agg
+
+
+def k1_plan_fields(K, x) -> dict:
+    plan = K.launch_plan(x)
+    return {"items": plan.items, "grid": plan.grid, "slice": plan.slice,
+            "slices": plan.slices}
+
+
+#: K1 at shapes the res10 forward does not give it: ([T, N, H, W, C], x a
+#: broadcast over T): one image (the detect path) at the widest site, a
+#: ragged C and pixel count with H != W, T of 1, 2 and 5, a broadcast x
+K1_SHAPES = (((4, 1, 20, 20, 1024), False), ((4, 2, 7, 9, 24), False),
+             ((1, 8, 20, 20, 128), False), ((2, 8, 20, 20, 128), False),
+             ((5, 8, 20, 20, 128), False), ((4, 8, 40, 40, 64), True))
+
+
+def phase_k1_shapes(K, cfg_cls, log) -> None:
+    """K1 against its plain version at ``K1_SHAPES`` in both dtypes, with
+    ``phase_k1``'s gates (``act=True`` at the ragged C in float32)."""
+    for i, (shape, bcast) in enumerate(K1_SHAPES):
+        cfg = cfg_cls(time_window=shape[0])
+        for dtype in (torch.float32, torch.bfloat16):
+            x, *params = site_inputs(shape, dtype, seed=200 + i)
+            if bcast:
+                x = x[:1].expand(*shape)
+            got = K.ecs_lif_fused(x, *params, cfg)
+            want = K.ecs_lif_reference(x, *params, cfg)
+            share = float((got != want).float().mean())
+            rec = {"phase": "k1_shape", "dtype": dname(dtype), "shape": list(shape),
+                   "x_broadcast_over_t": bcast, **k1_plan_fields(K, x),
+                   "mismatch_share": share, "bound_share": SPIKE_BOUND[dtype],
+                   "finite": bool(torch.isfinite(got.float()).all())}
+            if shape[-1] == 24 and dtype == torch.float32:
+                rec["act_max_abs_err"] = float((K.ecs_lif_fused(x, *params, cfg, True) -
+                                                K.ecs_lif_reference(x, *params, cfg, True)
+                                                ).abs().max())
+            emit(rec, log)
+            if (share > SPIKE_BOUND[dtype] or not rec["finite"]
+                    or rec.get("act_max_abs_err", 0.0) > SILU_ATOL):
+                raise AssertionError(f"ecs_lif_fused disagrees at {rec}")
 
 
 def check_spread(name, got, want, dtype) -> dict:
@@ -1289,6 +1332,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"res10 has {len(sites)} neuron sites, want 24")
 
         agg1 = phase_k1(K, SNNConfig, shapes, broadcast, log)
+        phase_k1_shapes(K, SNNConfig, log)
         aggs = phase_spread(S, BS, plain_kernels, shapes, log)
         phase_spread_grads(S, log)
         agg6 = phase_k6(FZ, SNNConfig, shapes, broadcast, log)

@@ -1,5 +1,6 @@
 // Fused ECS-LIF forward for Hopper (sm_90a): the whole T-step recurrence of
-// one MemUpdate site in one launch.
+// one MemUpdate site in ONE COOPERATIVE LAUNCH, with T-1 grid-wide barriers
+// and no halo recompute.
 //
 // Replaces ecs_yolo_tpu/snn/pallas_ecs_v3.py:ecs_lif_pallas (the TPU kernel
 // `_kernel`).  Same recurrence, step for step, in the input dtype:
@@ -11,45 +12,71 @@
 //   ecs   = alpha * e + (1 - 1/tau) * ecs    (skipped after the last step)
 // Each elementwise operation rounds to the storage dtype, as PyTorch's
 // elementwise kernels and the plain loop (snn/neuron.py:ecs_lif_scan) do.
-// The two convolutions accumulate in f32 and round once, as the library
-// convolution and matrix product of the plain loop do; then the bias is
+// The depthwise 3x3 sums its taps in f32 in (dy, dx) order and rounds once;
+// the 1x1 product accumulates in f32 and rounds once; each bias is then
 // added in the dtype.
 //
-// Design.  One block per (image, row tile).  A tile of `rb` output rows is
-// computed on a window of full-width rows grown by halo = T-1 rows on each
-// side and clipped to the image: the 3x3 spread widens the receptive field
-// one row per step, so after T steps the tile's interior is exact.  Rows
-// outside the image are simply absent from the window, which is the SAME zero
-// padding; full rows mean the width needs no halo.  Per step the block runs
-//   (1) the depthwise 3x3 over the window's spikes into a `d` buffer, eight
-//       channels a thread with 16-byte loads,
-//   (2) the C x C pointwise product d @ pw over 64x64 output tiles, whose
-//       epilogue finishes the ecs update AND the next step's membrane update
-//       and spike for the same elements, so mem/ecs/spike are touched once
-//       per step.  bf16 runs the product on the tensor cores (mma.sync
-//       m16n8k16, f32 accumulation; 8 warps of 32x16; K slices of 64 through
-//       a 2-stage cp.async pipeline; the accumulator tile staged through
-//       shared memory for a row-wise epilogue); float32 runs it as a
-//       CUDA-core FMA loop (4x4 outputs a thread), in full f32.
-// x is read once per step and spikes are written once; state never leaves
-// the block between steps.  Where it lives: a window of full rows holds
-// (rb + 2*halo) * W * C elements per state, which does not fit in the 227 KB
-// of shared memory at any res10@640 site (the smallest, 20x20x128, needs
-// 200 KB per state at rb=1), so at every site mem, ecs, spike and d live in
-// a per-block workspace in device memory that the wrapper allocates.  Shared
-// memory holds the GEMM tiles.
+// Design.  The spikes of step t-1 are the output plane out[t-1], and the
+// only thing step t needs from another pixel is the one-pixel halo of those
+// spikes.  So the launch runs all T steps with one grid-wide barrier between
+// steps (an arrival counter and a generation word in a small device buffer,
+// left ready for the next launch; the grid is sized from the occupancy
+// query so that cudaLaunchCooperativeKernel guarantees every block is
+// resident), and nothing is recomputed across tiles.
+//   * Work items are (pixel tile x Cout slice): 128 consecutive pixels of the
+//     flattened N*H*W plane times a slice of N = 32, 64 or 128 output
+//     channels (snn/ecs_lif.py:plan_grid decides N, the grid and the shared
+//     memory).  Block b owns the slice b % slices and every (grid/slices)-th
+//     tile from b / slices, for the whole launch: the membrane and ECS state
+//     of its items never leave it.  They live between steps in an owner-only
+//     workspace [2, P, C] in device memory (mem, ecs), which step 1 does not
+//     read (mem_0 = x_0, ecs = 0) and the last step does not write.
+//   * Step 0: spike_0 = fire(x_0), written to out[0].
+//   * Step t >= 1, per item, K-chunk by K-chunk (64 input channels in bf16,
+//     32 in f32): the window of out[t-1] the tile's 3x3 taps reach -- three
+//     runs of 130 pixels, or one run of 2W + 130 where they overlap -- comes
+//     by cp.async.cg (an L2 load, coherent with the other blocks' stores)
+//     into a 2-stage ring in shared memory, 16-byte pieces XOR-swizzled by
+//     the slot; d = rnd(sum of 9 taps) + dwb is computed from it in f32.
+//       bf16: straight into the A fragments of wgmma m64nNk16 (A from
+//       registers; two warpgroups of 64 pixels each).  K stays in channel
+//       order, so that each k-step sums the 16 channels a library product
+//       over the same layout sums (another grouping rounds otherwise, and a
+//       membrane on the threshold flips); a thread reads its 16 channels of
+//       a slot as 8 words, and its weights are stored in that order.  B is
+//       the block's slice of pw, resident in shared memory for the whole
+//       launch in the 128-byte swizzle a K-major wgmma descriptor reads,
+//       loaded once from pw in the
+//       layout it arrives in: [Cout][Cin] memory (the model's view of its
+//       conv weight), [Cin][Cout] (a contiguous JAX-shaped kernel) or any
+//       strides; nothing is copied on the host.  Two A register sets
+//       alternate, so the depthwise pass of chunk k+1 overlaps the wgmma of
+//       chunk k.
+//       float32: d into a [32][128] tile in shared memory and a CUDA-core FMA
+//       product in full f32 (no TF32) against the chunk of pw, in the same
+//       accumulator layout as wgmma's.
+//     Epilogue in the accumulator's register layout (a 4x4 transpose within
+//     each quad, so that each lane holds 8 consecutive channels of one
+//     pixel): e = rnd(acc) + pwb, then ecs, fecs, mem and spike in the order
+//     above; spike_{t-1} is read from out[t-1] (ld.global.cg), spike_t
+//     written to out[t].  out is read and written by different blocks inside
+//     the launch, so it is never read through the non-coherent path.  bf16
+//     runs the tail on bf16 pairs (add/sub/mul.rn.bf16x2 give the float32
+//     operation's value rounded to bf16 here, see hadd2), without the
+//     float-to-bf16 conversions, which ran at a quarter of the FMA rate and
+//     took most of the tail's time.
 //
-// What bounds it.  The function itself moves 2 * T*N*H*W*C elements (x in,
-// spikes out) and does 2*N*H*W*C*C*(T-1) pointwise FLOPs (the 3x3 adds
-// 18 per element).  At C <= 128 the bytes bound it; from C >= 512 the C^2
-// product does.  This version pays, beyond that: the halo recompute
-// ((rb + 2*halo) / rb more work; the wrapper picks rb to balance it against
-// filling the SMs), the state round trips through the workspace (mostly L2
-// at the small sites, HBM at the 320x320 stem site), and latency: each
-// block walks its window's tiles in order, two blocks to an SM.
+// What bounds it.  The function moves 2 * T*N*H*W*C elements (x in, spikes
+// out; x once where it is a broadcast over T) and does 2*N*H*W*C*C*(T-1)
+// pointwise operations (the 3x3 adds 18 per element).  At C <= 128 the bytes
+// bound it, from C >= 512 the C^2 product.  Beyond that this version pays
+// the state round trip through the workspace (L2 at the small sites, HBM at
+// 320x320 and 160x160), the window's halo (up to 3x the tile's pixels from
+// L2 at W >= 130), the depthwise pass repeated once per Cout slice (8-16x at
+// C = 512/1024, from shared memory), and the barriers.
 //
 // Requires C % 8 == 0 (every channel count the model parser makes is a
-// multiple of 8); the wrapper checks it.
+// multiple of 8) and a 16-byte aligned x; the wrapper checks both.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,31 +84,67 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BM = 64;    // pixels per GEMM tile
-constexpr int BN = 64;    // output channels per GEMM tile
-constexpr int BK = 16;    // input channels per K slice, f32 FMA path
-constexpr int BKT = 64;   // input channels per K slice, bf16 tensor-core path
-constexpr int LDT = BKT + 8;  // padded smem row (halves): ldmatrix conflict-free
-constexpr int kStages = 2;    // cp.async pipeline depth, bf16 path
-
 using bf16 = __nv_bfloat16;
 
-// 8 consecutive elements (16-byte aligned for bf16, 32 for f32)
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+constexpr int kThreads = 256;     // two warpgroups
+constexpr int kTile = 128;        // pixels of a work item: 64 rows a warpgroup
+constexpr int kRun = kTile + 2;   // pixels of one row run of a window
+constexpr int kSlot = 128;        // bytes of one window pixel slot (one K-chunk)
+
+template <typename T> struct Chunk;   // input channels of a K-chunk: 128 bytes
+template <> struct Chunk<bf16> { static constexpr int K = 64; };
+template <> struct Chunk<float> { static constexpr int K = 32; };
+
+struct Params {
+  const void* x;          // [T][P][C]; T stride x_ts (0: a broadcast)
+  long long x_ts;
+  void* out;              // [T][P][C]; out[t-1] is read by every block at step t
+  const void* dw;         // dw[dy][dx][c] at dy*dw_sy + dx*dw_sx + c*dw_sc
+  long long dw_sy, dw_sx, dw_sc;
+  const void* dwb;
+  long long dwb_s;
+  const void* pw;         // pw[ci][co] at ci*pw_si + co*pw_so
+  long long pw_si, pw_so;
+  int pw_vec;             // 16-byte reads: 1 along ci (pw_si == 1), 2 along co; 0 none
+  const void* pwb;
+  long long pwb_s;
+  void* ws;               // [2][P][C]: mem, ecs between steps (T > 2)
+  unsigned* bar;          // [2]: arrivals, generation
+  long long P;            // N*H*W
+  int Tn, H, W, C, slices, tiles, act;
+  float thresh, decay, alpha, beta, leak;   // rounded to the dtype by the caller
+};
+
+// --- elementwise ------------------------------------------------------------------
+
+enum Ld { kPlain, kNc, kCg };
+
+template <int L>
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  if constexpr (L == kNc) return __ldg(q);
+  else if constexpr (L == kCg) return __ldcg(q);
+  else return *q;
 }
+
+// 8 consecutive elements (16-byte aligned)
+template <int L>
 __device__ __forceinline__ void load8(const bf16* p, float v[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint4 u = ld16<L>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
   #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
     v[2 * i] = f.x; v[2 * i + 1] = f.y;
   }
+}
+template <int L>
+__device__ __forceinline__ void load8(const float* p, float v[8]) {
+  const uint4 a = ld16<L>(p), b = ld16<L>(p + 4);
+  v[0] = __uint_as_float(a.x); v[1] = __uint_as_float(a.y);
+  v[2] = __uint_as_float(a.z); v[3] = __uint_as_float(a.w);
+  v[4] = __uint_as_float(b.x); v[5] = __uint_as_float(b.y);
+  v[6] = __uint_as_float(b.z); v[7] = __uint_as_float(b.w);
 }
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -93,17 +156,6 @@ __device__ __forceinline__ void store8(bf16* p, const float v[8]) {
   #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
-}
-// 2 consecutive elements
-__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // round a float to the storage dtype and back
@@ -118,10 +170,6 @@ template <typename T> __device__ __forceinline__ float mul(float a, float b) { r
 template <typename T> __device__ __forceinline__ float add(float a, float b) { return rnd<T>(__fadd_rn(a, b)); }
 template <typename T> __device__ __forceinline__ float sub(float a, float b) { return rnd<T>(__fsub_rn(a, b)); }
 
-struct Consts {
-  float thresh, decay, alpha, beta, leak;  // already rounded to the dtype
-};
-
 // spike (or SiLU) of a membrane value
 template <typename T>
 __device__ __forceinline__ float fire(float m, float thresh, int act) {
@@ -129,348 +177,722 @@ __device__ __forceinline__ float fire(float m, float thresh, int act) {
   return m > thresh ? 1.0f : 0.0f;
 }
 
-// The per-element tail of a step: ecs update from the 1x1 product `acc`,
-// then the next step's membrane and spike, updated in place.
+// The per-element tail of a step t >= 1: the ecs update from the 1x1 product
+// `acc` (with ecs the previous field), then the membrane and spike of step t
+// (with spk the previous spike), updated in place.
 template <typename T>
 __device__ __forceinline__ void finish(float acc, float bias, float& ecs, float& mem,
-                                       float& spk, float x, const Consts& k, int act) {
+                                       float& spk, float x, const Params& k, int act) {
   const float ev = add<T>(rnd<T>(acc), bias);
   ecs = add<T>(mul<T>(k.alpha, ev), mul<T>(k.leak, ecs));
   const float fecs = mul<T>(k.beta, rnd<T>(tanhf(ecs)));
   const float gate = sub<T>(1.0f, spk);
-  float m = mul<T>(mul<T>(mem, k.decay), gate);
+  const float m = mul<T>(mul<T>(mem, k.decay), gate);
   mem = add<T>(add<T>(m, x), fecs);
   spk = fire<T>(mem, k.thresh, act);
 }
+
+// bf16 pairs in one 32-bit word, the lower channel in the low half.  One
+// bf16x2 operation rounds each exact result once; for the product or sum of
+// two bf16 values that is the same value as the float32 operation rounded
+// to bf16 (a product of two 8-bit significands is exact in float32; a sum
+// is exact in float32 unless the smaller addend lies below the larger's
+// half ulp by far, and then both round to the larger), so these are the
+// operations `finish` does, two elements at a time and without the
+// conversions, which run at a quarter of the FMA rate.
+__device__ __forceinline__ uint32_t hadd2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t hsub2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t hmul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ float lo_f(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_f(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// the constants of `finish` as bf16 pairs
+struct Pairs {
+  uint32_t alpha, leak, beta, decay, one;
+};
+
+// `finish` on two elements: accumulators a0, a1 and bf16 pairs
+__device__ __forceinline__ void finish2(float a0, float a1, uint32_t bias, uint32_t& ecs,
+                                        uint32_t& mem, uint32_t& spk, uint32_t x,
+                                        const Pairs& k2, float thresh, int act) {
+  const uint32_t ev = hadd2(pack_bf16x2(a0, a1), bias);
+  ecs = hadd2(hmul2(k2.alpha, ev), hmul2(k2.leak, ecs));
+  const uint32_t fecs = hmul2(k2.beta, pack_bf16x2(tanhf(lo_f(ecs)), tanhf(hi_f(ecs))));
+  const uint32_t gate = hsub2(k2.one, spk);
+  mem = hadd2(hadd2(hmul2(hmul2(mem, k2.decay), gate), x), fecs);
+  const float m0 = lo_f(mem), m1 = hi_f(mem);
+  if (act)
+    spk = pack_bf16x2(__fdiv_rn(m0, __fadd_rn(1.0f, expf(-m0))),
+                      __fdiv_rn(m1, __fadd_rn(1.0f, expf(-m1))));
+  else
+    spk = (m0 > thresh ? 0x3F80u : 0u) | (m1 > thresh ? 0x3F800000u : 0u);
+}
+
+// --- shared memory, copies, barriers -----------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16-byte global -> shared copy, zero-filled when !valid (no global read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+// 16 bytes global -> shared through L2 (.cg); src_bytes 0 fills zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
-template <int N>
+template <int Pending>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(Pending) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
-struct Window {
-  int M, C, lo, hi;  // GEMM rows (window pixels), channels, interior [lo, hi)
-};
-
-// (2) for bf16: tensor-core tile loop.  pwt is the 1x1 kernel as [Cout][Cin].
-// K slices of 64 go through a 2-stage cp.async pipeline: the next slice's
-// tiles load while the current one feeds the mma.  The finished tile's
-// accumulators go through shared memory so that the epilogue reads and
-// writes whole rows.
-__device__ __forceinline__ void product_and_finish(
-    const bf16* dbuf, const bf16* pwt, const bf16* pwb, bf16* mem, bf16* ecs, bf16* spk,
-    const bf16* xn, bf16* on, const Window& w, const Consts& k, int act,
-    unsigned char* smem) {
-  using Tile = bf16[BM][LDT];
-  Tile* As = reinterpret_cast<Tile*>(smem);               // [kStages]
-  Tile* Bs = reinterpret_cast<Tile*>(smem + kStages * sizeof(Tile));
-  float (*Cs)[BN + 4] = reinterpret_cast<float (*)[BN + 4]>(smem);  // over the stages
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = (warp / 4) * 32, wn = (warp % 4) * 16;
-  const int M = w.M, C = w.C;
-  const int nk = (C + BKT - 1) / BKT;
-
-  // each thread copies two 16-byte chunks of each tile per slice
-  auto load_slice = [&](int stage, int m0, int n0, int k0) {
-    #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int chunk = tid + q * kThreads;      // 0..511: row, 8-wide col
-      const int r = chunk / (BKT / 8), kc = (chunk % (BKT / 8)) * 8;
-      const int p = m0 + r, n = n0 + r, kk = k0 + kc;
-      const bool ka = kk < C;
-      cp_async16(&As[stage][r][kc], ka && p < M ? dbuf + (long long)p * C + kk : dbuf,
-                 ka && p < M);
-      cp_async16(&Bs[stage][r][kc], ka && n < C ? pwt + (long long)n * C + kk : pwt,
-                 ka && n < C);
-    }
-    cp_async_commit();
-  };
-
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    for (int n0 = 0; n0 < C; n0 += BN) {
-      float acc[2][2][4] = {};
-      load_slice(0, m0, n0, 0);
-      for (int kt = 0; kt < nk; ++kt) {
-        if (kt + 1 < nk) {
-          load_slice((kt + 1) % kStages, m0, n0, (kt + 1) * BKT);
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();
-        const int st = kt % kStages;
-        #pragma unroll
-        for (int ks = 0; ks < BKT; ks += 16) {
-          uint32_t a[2][4], b[4];
-          #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            ldmatrix_x4(a[mi], &As[st][wm + mi * 16 + lane % 16][ks + (lane / 16) * 8]);
-          ldmatrix_x4(b, &Bs[st][wn + lane % 8 + (lane / 16) * 8][ks + ((lane / 8) % 2) * 8]);
-          #pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-            #pragma unroll
-            for (int ni = 0; ni < 2; ++ni) mma_bf16(acc[mi][ni], a[mi], b[2 * ni], b[2 * ni + 1]);
-        }
-        __syncthreads();
-      }
-      #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        #pragma unroll
-        for (int ni = 0; ni < 2; ++ni)
-          #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(
-                &Cs[wm + mi * 16 + lane / 4 + h * 8][wn + ni * 8 + (lane % 4) * 2]) =
-                make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-      __syncthreads();
-      // epilogue: eight consecutive channels of one pixel a thread
-      #pragma unroll
-      for (int q = 0; q < (BM * BN / 8) / kThreads; ++q) {
-        const int g = tid + q * kThreads;
-        const int r = g / (BN / 8), cg = (g % (BN / 8)) * 8;
-        const int p = m0 + r, co = n0 + cg;
-        if (p >= M || co >= C) continue;
-        const int e = p * C + co;
-        const float4 c0 = *reinterpret_cast<const float4*>(&Cs[r][cg]);
-        const float4 c1 = *reinterpret_cast<const float4*>(&Cs[r][cg + 4]);
-        const float a[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-        float bias[8], xv[8], ev[8], mv[8], sv[8];
-        load8(pwb + co, bias);
-        load8(xn + e, xv);
-        load8(ecs + e, ev);
-        load8(mem + e, mv);
-        load8(spk + e, sv);
-        #pragma unroll
-        for (int i = 0; i < 8; ++i) finish<bf16>(a[i], bias[i], ev[i], mv[i], sv[i], xv[i], k, act);
-        store8(ecs + e, ev);
-        store8(mem + e, mv);
-        store8(spk + e, sv);
-        if (e >= w.lo && e < w.hi) store8(on + e, sv);
-      }
-      __syncthreads();  // Cs aliases the stages the next tile loads into
-    }
-  }
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
 }
 
-// (2) for float32: CUDA-core FMA tile loop, full f32 products.
-__device__ __forceinline__ void product_and_finish(
-    const float* dbuf, const float* pwt, const float* pwb, float* mem, float* ecs,
-    float* spk, const float* xn, float* on, const Window& w, const Consts& k, int act,
-    unsigned char* smem) {
-  // +4 pads each K row: the transposed A stores then conflict at most 2-way
-  float (*As)[BM + 4] = reinterpret_cast<float (*)[BM + 4]>(smem);
-  float (*Bs)[BN] = reinterpret_cast<float (*)[BN]>(smem + BK * (BM + 4) * sizeof(float));
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int M = w.M, C = w.C;
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    for (int n0 = 0; n0 < C; n0 += BN) {
-      float acc[4][4] = {};
-      for (int k0 = 0; k0 < C; k0 += BK) {
-        #pragma unroll
-        for (int q = 0; q < (BM * BK) / kThreads; ++q) {
-          const int idx = tid + q * kThreads;
-          const int kk = idx % BK, mm = idx / BK;
-          const int p = m0 + mm;
-          As[kk][mm] = (p < M && k0 + kk < C) ? dbuf[(long long)p * C + k0 + kk] : 0.0f;
-        }
-        #pragma unroll
-        for (int q = 0; q < (BK * BN) / kThreads; ++q) {
-          const int idx = tid + q * kThreads;
-          const int kk = idx % BK, nn = idx / BK;
-          Bs[kk][nn] = (k0 + kk < C && n0 + nn < C)
-                           ? pwt[(long long)(n0 + nn) * C + k0 + kk] : 0.0f;
-        }
-        __syncthreads();
-        #pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-          const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[4] = {b.x, b.y, b.z, b.w};
-          #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-      #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = m0 + ty * 4 + i;
-        if (p >= M) continue;
-        #pragma unroll
-        for (int j = 0; j < 4; j += 2) {
-          const int co = n0 + tx * 4 + j;
-          if (co >= C) continue;
-          const int e = p * C + co;
-          const float2 b2 = load2(pwb + co), x2 = load2(xn + e);
-          const float2 e2 = load2(ecs + e), m2 = load2(mem + e), s2 = load2(spk + e);
-          float ea = e2.x, eb = e2.y, ma = m2.x, mb = m2.y, sa = s2.x, sb = s2.y;
-          finish<float>(acc[i][j], b2.x, ea, ma, sa, x2.x, k, act);
-          finish<float>(acc[i][j + 1], b2.y, eb, mb, sb, x2.y, k, act);
-          store2(ecs + e, ea, eb);
-          store2(mem + e, ma, mb);
-          store2(spk + e, sa, sb);
-          if (e >= w.lo && e < w.hi) store2(on + e, sa, sb);
-        }
+// Every block of the grid (all resident: a cooperative launch) waits here
+// until all have arrived; what each wrote before is then visible to the
+// others' L2 loads.  bar[0] counts arrivals and is back at 0 when the
+// barrier opens; bar[1], the generation, grows by one a barrier.  So the
+// buffer is ready for the next barrier and the next launch as it is, and
+// every block must reach every barrier.  A barrier still closed after 10 s
+// (a fault: a step takes milliseconds) traps, so the launch fails instead
+// of hanging the card.
+__device__ __forceinline__ void grid_sync(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned gen = ld_acquire(bar + 1);
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      const unsigned long long t0 = global_ns();
+      while (ld_acquire(bar + 1) == gen) {
+        __nanosleep(64);
+        if (global_ns() - t0 > 10000000000ull) __trap();
       }
     }
-  }
-}
-
-constexpr int kSmemTensor = 2 * kStages * BM * LDT * 2;    // bf16 A and B stages
-constexpr int kSmemFma = BK * (BM + 4) * 4 + BK * BN * 4;   // f32 A and B tiles
-constexpr int kSmemBytes = kSmemTensor > kSmemFma ? kSmemTensor : kSmemFma;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-ecs_lif_kernel(const T* __restrict__ x, long long x_tstride, T* __restrict__ out,
-               const T* __restrict__ dw, const T* __restrict__ dwb,
-               const T* __restrict__ pwt, const T* __restrict__ pwb,
-               T* __restrict__ ws, long long ws_cap,
-               int Tn, int H, int W, int C, int rb, int halo, Consts k, int act) {
-  __shared__ __align__(16) unsigned char smem[kSmemBytes];
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.y;
-  const int r0 = blockIdx.x * rb;
-  const int r1 = min(H, r0 + rb);
-  const int w0 = max(0, r0 - halo);
-  const int w1 = min(H, r1 + halo);
-  const int nwr = w1 - w0;
-  // offsets inside one image fit in an int (the wrapper checks H*W*C < 2^31)
-  const int rowel = W * C;
-  const int plane = nwr * rowel;           // window elements
-  const Window win{nwr * W, C, (r0 - w0) * rowel, (r1 - w0) * rowel};
-  const long long img = (long long)H * rowel;
-  const long long out_tstride = (long long)gridDim.y * img;
-
-  const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  T* mem = ws + blk * 4 * ws_cap;
-  T* ecs = mem + ws_cap;
-  T* spk = ecs + ws_cap;
-  T* dbuf = spk + ws_cap;
-
-  const T* xw = x + n * img + (long long)w0 * rowel;    // window of step 0
-  T* ow = out + n * img + (long long)w0 * rowel;
-
-  // step 0: mem = x_0, ecs = 0; eight elements a thread
-  for (int e = tid * 8; e < plane; e += kThreads * 8) {
-    float m[8], s[8];
-    const float z[8] = {};
-    load8(xw + e, m);
-    #pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = fire<T>(m[i], k.thresh, act);
-    store8(mem + e, m);
-    store8(spk + e, s);
-    store8(ecs + e, z);
-    if (e >= win.lo && e < win.hi) store8(ow + e, s);
+    __threadfence();
   }
   __syncthreads();
+}
 
-  for (int t = 0; t + 1 < Tn; ++t) {
-    // (1) depthwise 3x3 over the window, f32 sum, then + bias in the dtype;
-    // eight channels a thread (C % 8 == 0: a group never straddles pixels)
-    for (int e = tid * 8; e < plane; e += kThreads * 8) {
-      const int c = e % C;
-      const int pix = e / C;
-      const int w = pix % W;
-      const int r = pix / W;
-      float acc[8] = {};
-      #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const int rr = r + dy - 1;
-        if (rr < 0 || rr >= nwr) continue;
-        #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int ww = w + dx - 1;
-          if (ww < 0 || ww >= W) continue;
-          float s[8], kw[8];
-          load8(spk + (rr * W + ww) * C + c, s);
-          load8(dw + (dy * 3 + dx) * C + c, kw);
-          #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] = fmaf(s[i], kw[i], acc[i]);
-        }
-      }
-      float b[8], d[8];
-      load8(dwb + c, b);
-      #pragma unroll
-      for (int i = 0; i < 8; ++i) d[i] = add<T>(rnd<T>(acc[i]), b[i]);
-      store8(dbuf + e, d);
-    }
-    __syncthreads();
-
-    // (2) e = d @ pw, epilogue: ecs update, then step t+1's membrane/spike
-    const T* xn = xw + (long long)(t + 1) * x_tstride;
-    T* on = ow + (long long)(t + 1) * out_tstride;
-    product_and_finish(dbuf, pwt, pwb, mem, ecs, spk, xn, on, win, k, act, smem);
-    __syncthreads();
+// The window of out[t-1] that the 3x3 taps of the tile [p0, p0 + 128) reach,
+// input channels [kc*K, kc*K + K): the flat pixel p + dy*W + dx lies in slot
+// (dy+1)*S + (p - p0) + dx + 1, S = min(W, 130).  Slots outside the plane
+// (and channels past C) are zeros; pixels of a neighbouring row or image are
+// loaded but masked by the taps.  16-byte piece c16 of a slot sits at c16 ^
+// (slot & 7).
+template <typename T>
+__device__ __forceinline__ void load_window(const T* prev, uint32_t dst, long long p0, int kc,
+                                            const Params& p, int S, int NS) {
+  constexpr int E = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < NS * 8; i += kThreads) {
+    const int slot = i >> 3, c16 = i & 7;
+    const long long px = p.W <= kRun ? p0 - p.W - 1 + slot
+        : p0 + (long long)(slot / kRun - 1) * p.W - 1 + slot % kRun;
+    const int c = kc * Chunk<T>::K + c16 * E;
+    const bool in = px >= 0 && px < p.P && c < p.C;
+    cp_async16(dst + slot * kSlot + ((c16 ^ (slot & 7)) << 4), in ? prev + px * p.C + c : prev,
+               in ? 16 : 0);
   }
 }
 
+// bit tap = 3*dy + dx: the tap of pixel px lies in the image (none for px >= P)
+__device__ __forceinline__ uint32_t tap_mask(long long px, const Params& p) {
+  if (px >= p.P) return 0u;
+  const int w = (int)(px % p.W), h = (int)((px / p.W) % p.H);
+  uint32_t m = 0u;
+  #pragma unroll
+  for (int tap = 0; tap < 9; ++tap)
+    if ((unsigned)(h + tap / 3 - 1) < (unsigned)p.H && (unsigned)(w + tap % 3 - 1) < (unsigned)p.W)
+      m |= 1u << tap;
+  return m;
+}
+
+// --- bf16: wgmma with A from registers, B resident ------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(Pending) : "memory");
+}
+
+// D[64, N] += A[64, 16] (registers, bf16) * B[16, N] (shared, K-major, 128B swizzle)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t a[4], uint64_t desc);
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t a[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t a[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t a[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// shared-memory descriptor of a K-major, 128-byte-swizzled operand: start
+// address, LBO 1 (unused when swizzled), SBO 1024 bytes (8 rows of 128 bytes)
+__device__ __forceinline__ uint64_t smem_desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// The channel (0..63 of a chunk) whose depthwise weight and bias sit at
+// position i of the chunk in shared memory: position 16q + 4ks + j holds what
+// quad lane q puts in value j of k-step ks of its A fragment, channel
+// 16ks + 8(j/2) + 2q + j%2, so that a thread reads its 16 in two pieces.
+__device__ __forceinline__ int quad_channel(int i) {
+  const int q = i >> 4, ks = (i >> 2) & 3, j = i & 3;
+  return 16 * ks + 8 * (j >> 1) + 2 * q + (j & 1);
+}
+
+// The block's slice of pw as B: chunk kc is [N rows (output channels)][64 k]
+// of 128 bytes, K in channel order, 16-byte piece index XOR (n % 8).
+template <int N>
+__device__ void load_b(const Params& p, uint8_t* bmat, int slice, int nk) {
+  const bf16* pw = static_cast<const bf16*>(p.pw);
+  const int C = p.C, co0 = slice * N, cp = nk * 64;
+  auto put = [&](int ci, int n, bf16 v) {
+    const int k = ci & 63;
+    *reinterpret_cast<bf16*>(bmat + ((ci >> 6) * N + n) * 128 +
+                             ((((k * 2) >> 4) ^ (n & 7)) << 4) + ((k * 2) & 15)) = v;
+  };
+  if (p.pw_vec == 1) {            // 8 input channels of one output channel in 16 bytes
+    for (int i = threadIdx.x; i < N * (cp / 8); i += kThreads) {
+      const int n = i / (cp / 8), ci = i % (cp / 8) * 8, co = co0 + n;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (co < C && ci < C)
+        v = __ldg(reinterpret_cast<const uint4*>(pw + co * p.pw_so + ci));
+      *reinterpret_cast<uint4*>(bmat + ((ci >> 6) * N + n) * 128 +
+                                ((((ci & 63) >> 3) ^ (n & 7)) << 4)) = v;
+    }
+  } else if (p.pw_vec == 2) {     // 8 output channels of one input channel in 16 bytes
+    for (int i = threadIdx.x; i < cp * (N / 8); i += kThreads) {
+      const int ci = i / (N / 8), n = i % (N / 8) * 8, co = co0 + n;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (co < C && ci < C)
+        v = __ldg(reinterpret_cast<const uint4*>(pw + ci * p.pw_si + co));
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      #pragma unroll
+      for (int j = 0; j < 8; ++j) put(ci, n + j, e[j]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < cp * N; i += kThreads) {
+      const int ci = i / N, n = i % N, co = co0 + n;
+      put(ci, n, co < C && ci < C ? pw[ci * p.pw_si + co * p.pw_so] : bf16{});
+    }
+  }
+  // the generic-proxy stores of B, visible to wgmma's async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d of the thread's rows r0, r0 + 8 and the 16 channels of chunk kc that its
+// A fragments hold (quad_channel), from the window, in the A fragments of the
+// chunk's four k-steps; K in channel order, so that each k-step sums the same
+// 16 channels as a product over the plain layout does
+__device__ __forceinline__ void d_frags(const uint8_t* win, const bf16* dw_s, const bf16* dwb_s,
+                                        int kc, int cp, int S, int r0, int q,
+                                        const uint32_t valid[2], uint32_t a[4][4]) {
+  float acc[2][16];
+  #pragma unroll
+  for (int h = 0; h < 2; ++h)
+    #pragma unroll
+    for (int i = 0; i < 16; ++i) acc[h][i] = 0.f;
+  #pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    float wk[16];
+    load8<kPlain>(dw_s + tap * cp + kc * 64 + 16 * q, wk);
+    load8<kPlain>(dw_s + tap * cp + kc * 64 + 16 * q + 8, wk + 8);
+    #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!((valid[h] >> tap) & 1u)) continue;
+      const int slot = (tap / 3) * S + r0 + 8 * h + tap % 3;
+      const uint8_t* row = win + slot * kSlot + 4 * q;
+      #pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {   // word q of pieces 2ks and 2ks + 1
+        const uint32_t lo = *reinterpret_cast<const uint32_t*>(row + (((2 * ks) ^ (slot & 7)) << 4));
+        const uint32_t hi =
+            *reinterpret_cast<const uint32_t*>(row + (((2 * ks + 1) ^ (slot & 7)) << 4));
+        acc[h][4 * ks] = fmaf(lo_f(lo), wk[4 * ks], acc[h][4 * ks]);
+        acc[h][4 * ks + 1] = fmaf(hi_f(lo), wk[4 * ks + 1], acc[h][4 * ks + 1]);
+        acc[h][4 * ks + 2] = fmaf(lo_f(hi), wk[4 * ks + 2], acc[h][4 * ks + 2]);
+        acc[h][4 * ks + 3] = fmaf(hi_f(hi), wk[4 * ks + 3], acc[h][4 * ks + 3]);
+      }
+    }
+  }
+  // d = rnd(sum) + dwb, in bf16 pairs: the A fragments' words
+  const uint4 b0 = ld16<kPlain>(dwb_s + kc * 64 + 16 * q);
+  const uint4 b1 = ld16<kPlain>(dwb_s + kc * 64 + 16 * q + 8);
+  const uint32_t bw[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  #pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    a[ks][0] = hadd2(pack_bf16x2(acc[0][4 * ks], acc[0][4 * ks + 1]), bw[2 * ks]);
+    a[ks][1] = hadd2(pack_bf16x2(acc[1][4 * ks], acc[1][4 * ks + 1]), bw[2 * ks]);
+    a[ks][2] = hadd2(pack_bf16x2(acc[0][4 * ks + 2], acc[0][4 * ks + 3]), bw[2 * ks + 1]);
+    a[ks][3] = hadd2(pack_bf16x2(acc[1][4 * ks + 2], acc[1][4 * ks + 3]), bw[2 * ks + 1]);
+  }
+}
+
+// one chunk: its A fragments, then four async k-steps into acc
+template <int N>
+__device__ __forceinline__ void chunk_mma(float* acc, uint32_t a[4][4], const uint8_t* win,
+                                          const bf16* dw_s, const bf16* dwb_s, int kc, int cp,
+                                          int S, int r0, int q, const uint32_t valid[2],
+                                          uint64_t desc0) {
+  d_frags(win, dw_s, dwb_s, kc, cp, S, r0, q, valid, a);
+  wgmma_fence();
+  #pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_rs<N>(acc, a[ks], desc0 + ((kc * N * 128 + ks * 32) >> 4));
+  wgmma_commit();
+}
+
+// --- float32: d in shared memory, CUDA-core product -------------------------------------
+
+// d of pixel r of the tile and channels 16*half .. +16 of the 32-channel chunk kc
+__device__ __forceinline__ void d_tile_f32(const uint8_t* win, const float* dw_s,
+                                           const float* dwb_s, int kc, int cp, int S, int r,
+                                           int half, uint32_t valid, float* As) {
+  float acc[16];
+  #pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  #pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    if (!((valid >> tap) & 1u)) continue;
+    const int slot = (tap / 3) * S + r + tap % 3;
+    const uint8_t* row = win + slot * kSlot;
+    #pragma unroll
+    for (int c4 = 0; c4 < 4; ++c4) {
+      const float4 s = *reinterpret_cast<const float4*>(row + (((4 * half + c4) ^ (slot & 7)) << 4));
+      const float4 k = *reinterpret_cast<const float4*>(dw_s + tap * cp + kc * 32 + 16 * half + 4 * c4);
+      acc[4 * c4] = fmaf(s.x, k.x, acc[4 * c4]);
+      acc[4 * c4 + 1] = fmaf(s.y, k.y, acc[4 * c4 + 1]);
+      acc[4 * c4 + 2] = fmaf(s.z, k.z, acc[4 * c4 + 2]);
+      acc[4 * c4 + 3] = fmaf(s.w, k.w, acc[4 * c4 + 3]);
+    }
+  }
+  #pragma unroll
+  for (int i = 0; i < 16; ++i)
+    As[(16 * half + i) * kTile + r] = add<float>(acc[i], dwb_s[kc * 32 + 16 * half + i]);
+}
+
+// --- the epilogue, in the accumulator layout --------------------------------------------
+
+// lanes q = 0..3 of a quad hold x[m] = X[q][m]; afterwards x[m] = X[m][q]
+__device__ __forceinline__ void quad_transpose(uint32_t x[4], int q) {
+  const bool up = q & 2, odd = q & 1;
+  uint32_t s0 = up ? x[0] : x[2], s1 = up ? x[1] : x[3];
+  s0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+  s1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (up) { x[0] = s0; x[1] = s1; } else { x[2] = s0; x[3] = s1; }
+  uint32_t t0 = odd ? x[0] : x[1], t1 = odd ? x[2] : x[3];
+  t0 = __shfl_xor_sync(0xffffffffu, t0, 1);
+  t1 = __shfl_xor_sync(0xffffffffu, t1, 1);
+  if (odd) { x[0] = t0; x[2] = t1; } else { x[1] = t0; x[3] = t1; }
+}
+
+// acc[4j + 2h + e] is (row r0 + 8h, column 8j + 2q + e) of the item: wgmma's
+// accumulator layout, which the f32 product keeps too.  A 4x4 transpose
+// within each quad gives lane q the 8 columns 32s + 8q .. +8 of each set s
+// of four j: acc values a[s][0..8).
+template <int N>
+__device__ __forceinline__ void row_sets(const float* acc, int h, int q, float a[][8]) {
+  #pragma unroll
+  for (int s = 0; s < N / 32; ++s) {
+    uint32_t ev[4], od[4];
+    #pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      ev[m] = __float_as_uint(acc[4 * (4 * s + m) + 2 * h]);
+      od[m] = __float_as_uint(acc[4 * (4 * s + m) + 2 * h + 1]);
+    }
+    quad_transpose(ev, q);
+    quad_transpose(od, q);
+    #pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      a[s][2 * m] = __uint_as_float(ev[m]);
+      a[s][2 * m + 1] = __uint_as_float(od[m]);
+    }
+  }
+}
+
+// The item's tail of step t: ecs, mem and spike from acc, mem and ecs kept
+// in the workspace for the next step (none after the last).  bf16 issues
+// every load of a row's sets before it uses one, and computes in bf16 pairs.
+template <typename T, int N>
+__device__ __forceinline__ void epilogue(const Params& p, const float* acc, int t, long long p0,
+                                         int slice, const T* pwb_s, int r0, int q) {
+  constexpr int NS = N / 32;
+  const T* x = static_cast<const T*>(p.x);
+  T* out = static_cast<T*>(p.out);
+  const long long pc = p.P * p.C;
+  T* mem_ws = static_cast<T*>(p.ws);
+  T* ecs_ws = mem_ws + pc;
+  const bool keep = t + 1 < p.Tn;
+  #pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long px = p0 + r0 + 8 * h;
+    float a[NS][8];
+    row_sets<N>(acc, h, q, a);
+    if constexpr (sizeof(T) == 2) {
+      const Pairs k2{pack_bf16x2(p.alpha, p.alpha), pack_bf16x2(p.leak, p.leak),
+                     pack_bf16x2(p.beta, p.beta), pack_bf16x2(p.decay, p.decay), 0x3F803F80u};
+      uint4 xr[NS], sr[NS], mr[NS], cr[NS];
+      #pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int co = slice * N + 32 * s + 8 * q;
+        if (px >= p.P || co >= p.C) continue;
+        const long long e = px * p.C + co;
+        xr[s] = ld16<kNc>(x + t * p.x_ts + e);
+        sr[s] = ld16<kCg>(out + (t - 1) * pc + e);
+        if (t == 1) {                     // mem_0 = x_0, no field yet
+          mr[s] = ld16<kNc>(x + e);
+          cr[s] = make_uint4(0u, 0u, 0u, 0u);
+        } else {
+          mr[s] = ld16<kPlain>(mem_ws + e);
+          cr[s] = ld16<kPlain>(ecs_ws + e);
+        }
+      }
+      #pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int co = slice * N + 32 * s + 8 * q;
+        if (px >= p.P || co >= p.C) continue;
+        const long long e = px * p.C + co;
+        const uint4 b = ld16<kPlain>(pwb_s + co);
+        const uint32_t bw[4] = {b.x, b.y, b.z, b.w}, xw[4] = {xr[s].x, xr[s].y, xr[s].z, xr[s].w};
+        uint32_t sw[4] = {sr[s].x, sr[s].y, sr[s].z, sr[s].w};
+        uint32_t mw[4] = {mr[s].x, mr[s].y, mr[s].z, mr[s].w};
+        uint32_t cw[4] = {cr[s].x, cr[s].y, cr[s].z, cr[s].w};
+        #pragma unroll
+        for (int m = 0; m < 4; ++m)
+          finish2(a[s][2 * m], a[s][2 * m + 1], bw[m], cw[m], mw[m], sw[m], xw[m], k2, p.thresh,
+                  p.act);
+        *reinterpret_cast<uint4*>(out + t * pc + e) = make_uint4(sw[0], sw[1], sw[2], sw[3]);
+        if (keep) {
+          *reinterpret_cast<uint4*>(mem_ws + e) = make_uint4(mw[0], mw[1], mw[2], mw[3]);
+          *reinterpret_cast<uint4*>(ecs_ws + e) = make_uint4(cw[0], cw[1], cw[2], cw[3]);
+        }
+      }
+    } else {
+      #pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int co = slice * N + 32 * s + 8 * q;
+        if (px >= p.P || co >= p.C) continue;
+        const long long e = px * p.C + co;
+        float bias[8], xv[8], mv[8], cv[8], sv[8];
+        load8<kPlain>(pwb_s + co, bias);
+        load8<kNc>(x + t * p.x_ts + e, xv);
+        load8<kCg>(out + (t - 1) * pc + e, sv);
+        if (t == 1) {
+          load8<kNc>(x + e, mv);
+          #pragma unroll
+          for (int i = 0; i < 8; ++i) cv[i] = 0.f;
+        } else {
+          load8<kPlain>(mem_ws + e, mv);
+          load8<kPlain>(ecs_ws + e, cv);
+        }
+        #pragma unroll
+        for (int i = 0; i < 8; ++i) finish<T>(a[s][i], bias[i], cv[i], mv[i], sv[i], xv[i], p, p.act);
+        store8(out + t * pc + e, sv);
+        if (keep) {
+          store8(mem_ws + e, mv);
+          store8(ecs_ws + e, cv);
+        }
+      }
+    }
+  }
+}
+
+// --- the kernel --------------------------------------------------------------------------
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, 1) ecs_lif_kernel(const __grid_constant__ Params p) {
+  constexpr int K = Chunk<T>::K;
+  constexpr bool kMma = sizeof(T) == 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // B starts on the swizzle's 1024-byte atom (the plan's 1024 bytes of slack)
+  uint8_t* base = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  const int C = p.C;
+  const long long pc = p.P * C;
+  const int nk = (C + K - 1) / K, cp = nk * K;
+  const int S = min(p.W, kRun), NS = 2 * S + kRun;
+  const int tid = threadIdx.x, lane = tid & 31, q = lane & 3;
+  const int r0 = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + (lane >> 2);   // rows r0, r0 + 8
+  const int slice = blockIdx.x % p.slices, per = gridDim.x / p.slices;
+  const int j0 = blockIdx.x / p.slices;
+  const int mine = j0 < p.tiles ? (p.tiles - 1 - j0) / per + 1 : 0;
+
+  // shared memory (snn/ecs_lif.py:k1_smem): [B (bf16)] [2 windows] [As, Bs (f32)]
+  // [dw 9 x cp] [dwb cp] [pwb cp]
+  uint8_t* bmat = base;
+  uint8_t* win = base + (kMma ? nk * N * 128 : 0);
+  uint8_t* rest = win + 2 * NS * kSlot;
+  float* As = reinterpret_cast<float*>(rest);            // f32: d chunk [K][kTile]
+  float* Bs = As + K * kTile;                            // f32: pw chunk [K][N]
+  T* dw_s = reinterpret_cast<T*>(kMma ? rest : reinterpret_cast<uint8_t*>(Bs + K * N));
+  T* dwb_s = dw_s + 9 * cp;
+  T* pwb_s = dwb_s + cp;
+
+  const T* dw = static_cast<const T*>(p.dw);
+  const T* dwb = static_cast<const T*>(p.dwb);
+  const T* pwb = static_cast<const T*>(p.pwb);
+  const T* pw = static_cast<const T*>(p.pw);
+  // bf16: the depthwise weights and bias in quad_channel's order
+  auto channel = [&](int i) { return kMma ? i / 64 * 64 + quad_channel(i % 64) : i; };
+  for (int i = tid; i < 9 * cp; i += kThreads) {
+    const int tap = i / cp, c = channel(i % cp);
+    dw_s[i] = c < C ? dw[(tap / 3) * p.dw_sy + (tap % 3) * p.dw_sx + c * p.dw_sc] : T{};
+  }
+  for (int i = tid; i < cp; i += kThreads) {
+    const int c = channel(i);
+    dwb_s[i] = c < C ? dwb[c * p.dwb_s] : T{};
+    pwb_s[i] = i < C ? pwb[i * p.pwb_s] : T{};
+  }
+  if constexpr (kMma) load_b<N>(p, bmat, slice, nk);
+  __syncthreads();
+
+  const T* x = static_cast<const T*>(p.x);
+  T* out = static_cast<T*>(p.out);
+
+  // step 0: spike_0 = fire(x_0), the block's own items
+  for (int m = 0; m < mine; ++m) {
+    const long long p0 = (long long)(j0 + m * per) * kTile;
+    for (int g = tid; g < kTile * (N / 8); g += kThreads) {
+      const long long px = p0 + g / (N / 8);
+      const int co = slice * N + g % (N / 8) * 8;
+      if (px >= p.P || co >= C) continue;
+      float v[8];
+      load8<kNc>(x + px * C + co, v);
+      #pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = fire<T>(v[i], p.thresh, p.act);
+      store8(out + px * C + co, v);
+    }
+  }
+
+  const uint32_t win_addr = smem_addr(win);
+  const uint64_t desc0 = smem_desc_sw128(smem_addr(bmat));
+  float acc[N / 2];
+  uint32_t a0[4][4], a1[4][4];
+  uint32_t valid[2] = {0u, 0u};
+  const int total = mine * nk;
+  auto tile_p0 = [&](int s) { return (long long)(j0 + s / nk * per) * kTile; };
+
+  for (int t = 1; t < p.Tn; ++t) {
+    grid_sync(p.bar);                    // out[t-1] is complete
+    const T* prev = out + (t - 1) * pc;
+    if (total > 0) load_window<T>(prev, win_addr, tile_p0(0), 0, p, S, NS);
+    cp_async_commit();
+    #pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+    for (int s = 0; s < total; ++s) {
+      const int kc = s % nk;
+      const long long p0 = tile_p0(s);
+      __syncthreads();                   // stage (s + 1) & 1 is read by no one
+      if (s + 1 < total)
+        load_window<T>(prev, win_addr + ((s + 1) & 1) * NS * kSlot, tile_p0(s + 1),
+                       (s + 1) % nk, p, S, NS);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();                   // window s is in, for every thread
+      const uint8_t* w = win + (s & 1) * NS * kSlot;
+      if constexpr (kMma) {
+        if (kc == 0) {
+          valid[0] = tap_mask(p0 + r0, p);
+          valid[1] = tap_mask(p0 + r0 + 8, p);
+        }
+        wgmma_wait<1>();                 // the k-steps that read this A set are done
+        if (s & 1)
+          chunk_mma<N>(acc, a1, w, dw_s, dwb_s, kc, cp, S, r0, q, valid, desc0);
+        else
+          chunk_mma<N>(acc, a0, w, dw_s, dwb_s, kc, cp, S, r0, q, valid, desc0);
+      } else {
+        const int r = tid & (kTile - 1), half = tid >> 7;
+        if (kc == 0) valid[0] = tap_mask(p0 + r, p);
+        d_tile_f32(w, dw_s, dwb_s, kc, cp, S, r, half, valid[0], As);
+        for (int i = tid; i < K * N; i += kThreads) {
+          // read along the unit stride of pw where it has one
+          const int k = p.pw_si == 1 ? i % K : i / N, n = p.pw_si == 1 ? i / K : i % N;
+          const int ci = kc * K + k, co = slice * N + n;
+          Bs[k * N + n] = ci < C && co < C ? pw[ci * p.pw_si + co * p.pw_so] : 0.f;
+        }
+        __syncthreads();
+        #pragma unroll 4
+        for (int k = 0; k < K; ++k) {
+          const float x0 = As[k * kTile + r0], x1 = As[k * kTile + r0 + 8];
+          #pragma unroll
+          for (int j = 0; j < N / 8; ++j) {
+            const float2 b = *reinterpret_cast<const float2*>(Bs + k * N + 8 * j + 2 * q);
+            acc[4 * j] = fmaf(x0, b.x, acc[4 * j]);
+            acc[4 * j + 1] = fmaf(x0, b.y, acc[4 * j + 1]);
+            acc[4 * j + 2] = fmaf(x1, b.x, acc[4 * j + 2]);
+            acc[4 * j + 3] = fmaf(x1, b.y, acc[4 * j + 3]);
+          }
+        }
+      }
+      if (kc == nk - 1) {
+        if constexpr (kMma) {
+          wgmma_wait<0>();
+          #pragma unroll
+          for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
+        }
+        epilogue<T, N>(p, acc, t, p0, slice, pwb_s, r0, q);
+        #pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+cudaError_t allow_smem(int smem) {
+  static int allowed = 0;   // the dynamic shared memory this instance may take
+  if (smem > allowed) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ecs_lif_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int N>
+cudaError_t launch(Params& prm, int grid, int smem, cudaStream_t st) {
+  const cudaError_t e = allow_smem<T, N>(smem);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&prm};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(ecs_lif_kernel<T, N>),
+                                     dim3(grid), dim3(kThreads), args, (size_t)smem, st);
+}
+
+template <typename T, int N>
+int occupancy(int smem) {
+  cudaError_t e = allow_smem<T, N>(smem);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, ecs_lif_kernel<T, N>, kThreads,
+                                                      (size_t)smem);
+  return e == cudaSuccess ? blocks : -(int)e;
+}
+
 template <typename T>
-cudaError_t launch(const void* x, long long x_tstride, void* out, const void* dw,
-                   const void* dwb, const void* pwt, const void* pwb, void* ws,
-                   long long ws_cap, int Tn, int N, int H, int W, int C, int rb,
-                   int halo, Consts k, int act, cudaStream_t stream) {
-  dim3 grid((H + rb - 1) / rb, N);
-  ecs_lif_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), x_tstride, static_cast<T*>(out),
-      static_cast<const T*>(dw), static_cast<const T*>(dwb),
-      static_cast<const T*>(pwt), static_cast<const T*>(pwb),
-      static_cast<T*>(ws), ws_cap, Tn, H, W, C, rb, halo, k, act);
-  return cudaGetLastError();
+cudaError_t dispatch(Params& prm, int n, int grid, int smem, cudaStream_t st) {
+  switch (n) {
+    case 32: return launch<T, 32>(prm, grid, smem, st);
+    case 64: return launch<T, 64>(prm, grid, smem, st);
+    case 128: return launch<T, 128>(prm, grid, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Pointers are device pointers, 16-byte
-// aligned; dw is [3, 3, C] and pwt the 1x1 kernel as [Cout, Cin], both
-// contiguous; C % 8 == 0; the constants are already rounded to the dtype by
-// the caller.  Returns the cudaError_t of the launch (0 = launched).
-int ecs_lif_fwd(int dtype, const void* x, long long x_tstride, void* out,
-                const void* dw, const void* dwb, const void* pwt, const void* pwb,
-                void* ws, long long ws_cap, int Tn, int N, int H, int W, int C,
-                int rb, int halo, float thresh, float decay, float alpha,
-                float beta, float leak, int act, void* stream) {
-  Consts k{thresh, decay, alpha, beta, leak};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch<float>(x, x_tstride, out, dw, dwb, pwt, pwb, ws, ws_cap,
-                              Tn, N, H, W, C, rb, halo, k, act, s);
-  if (dtype == 1)
-    return (int)launch<bf16>(x, x_tstride, out, dw, dwb, pwt, pwb, ws, ws_cap,
-                             Tn, N, H, W, C, rb, halo, k, act, s);
+// a: 30 int64 values (snn/ecs_lif.py:_launch_args): dtype (0 = float32,
+// 1 = bfloat16), slice N, x, x's T stride, out, dw and its dy/dx/c strides,
+// dwb and its stride, pw, its ci/co strides and 16-byte mode, pwb and its
+// stride, the workspace, the barrier buffer, T, N, H, W, C, slices, tiles,
+// grid, shared memory bytes, act, stream.  k: thresh, decay, alpha, beta,
+// leak, already rounded to the dtype.  Returns the launch's cudaError_t
+// (0 = launched).
+int ecs_lif_fwd(const long long* a, const float* k) {
+  Params prm;
+  const int dtype = (int)a[0], n = (int)a[1];
+  prm.x = reinterpret_cast<const void*>(a[2]);
+  prm.x_ts = a[3];
+  prm.out = reinterpret_cast<void*>(a[4]);
+  prm.dw = reinterpret_cast<const void*>(a[5]);
+  prm.dw_sy = a[6]; prm.dw_sx = a[7]; prm.dw_sc = a[8];
+  prm.dwb = reinterpret_cast<const void*>(a[9]);
+  prm.dwb_s = a[10];
+  prm.pw = reinterpret_cast<const void*>(a[11]);
+  prm.pw_si = a[12]; prm.pw_so = a[13];
+  prm.pw_vec = (int)a[14];
+  prm.pwb = reinterpret_cast<const void*>(a[15]);
+  prm.pwb_s = a[16];
+  prm.ws = reinterpret_cast<void*>(a[17]);
+  prm.bar = reinterpret_cast<unsigned*>(a[18]);
+  prm.Tn = (int)a[19];
+  const long long images = a[20];
+  prm.H = (int)a[21]; prm.W = (int)a[22]; prm.C = (int)a[23];
+  prm.slices = (int)a[24]; prm.tiles = (int)a[25];
+  const int grid = (int)a[26], smem = (int)a[27];
+  prm.act = (int)a[28];
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(a[29]);
+  prm.P = images * prm.H * prm.W;
+  prm.thresh = k[0]; prm.decay = k[1]; prm.alpha = k[2]; prm.beta = k[3]; prm.leak = k[4];
+  if (prm.C % 8 || prm.slices <= 0 || grid < prm.slices || grid % prm.slices ||
+      (long long)prm.slices * n < prm.C || (long long)prm.tiles * kTile < prm.P)
+    return (int)cudaErrorInvalidValue;
+  if (prm.P == 0 || prm.Tn == 0) return (int)cudaSuccess;
+  if (dtype == 0) return (int)dispatch<float>(prm, n, grid, smem, st);
+  if (dtype == 1) return (int)dispatch<bf16>(prm, n, grid, smem, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the (dtype, slice N) instance one SM holds with `smem` bytes of
+// dynamic shared memory; a negative cudaError_t on failure.
+int ecs_lif_occupancy(int dtype, int n, int smem) {
+  if (dtype != 0 && dtype != 1) return -(int)cudaErrorInvalidValue;
+  const bool b = dtype == 1;
+  switch (n) {
+    case 32: return b ? occupancy<bf16, 32>(smem) : occupancy<float, 32>(smem);
+    case 64: return b ? occupancy<bf16, 64>(smem) : occupancy<float, 64>(smem);
+    case 128: return b ? occupancy<bf16, 128>(smem) : occupancy<float, 128>(smem);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 const char* ecs_lif_error_string(int err) {

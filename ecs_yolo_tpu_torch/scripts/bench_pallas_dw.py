@@ -407,11 +407,15 @@ def _need_card(device) -> None:
 # --- the script ------------------------------------------------------------------------
 
 
-def parity_check(shape, device="cpu") -> Dict[str, float]:
+def parity_check(shape, device=None) -> Dict[str, float]:
     """Both kernels on the JAX script's parity inputs (int8 0/1 plane, f32
     weights, f32 out): on the CPU the wrappers' plain versions against the
     library's convolutions, on the card the kernels against their plain
-    versions.  Returns the worst absolute differences; asserts < 1e-4."""
+    versions.  ``device`` None is the card (``device.resolve_device``).
+    Returns the worst absolute differences; asserts < 1e-4."""
+    from ..device import resolve_device
+
+    device = resolve_device(device)
     rng = np.random.RandomState(0)
     n, h, w, c = shape
     s = torch.from_numpy((rng.rand(n, h, w, c) > 0.7).astype(np.int8)).to(device)

@@ -333,3 +333,14 @@ def test_pallas_dw3_binds_once_and_passes_the_int8_plane(monkeypatch):
     plan = S.plan_dw3(2, 6, 10, 32, 132, 1, 2)
     assert calls[-1] == (2, 1, 0, s8.data_ptr(), k.data_ptr(), b.data_ptr(), y.data_ptr(),
                          0, 2, 6, 10, 32, *plan, 5)
+
+
+def test_parity_check_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``parity_check``'s device defaults to the card (``resolve_device``):
+    without one it refuses instead of running on the CPU, and an explicit
+    ``"cpu"`` (the CLI's ``--device cpu``) still compares there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BD.parity_check((1, 8, 8, 16))
+    worst = BD.parity_check((1, 16, 16, 16), "cpu")
+    assert all(v < 1e-4 for v in worst.values())
