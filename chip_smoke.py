@@ -28,7 +28,7 @@ the port's paths at full width with random weights from a seed:
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
-  and the plain-LIF model (``ecs=False``); the first and the last again under
+  and the plain-LIF model (``ecs=False``); each again under
   ``plain_kernels()``, which must give the same detections and metrics; and
   the metric half alone on a perfect detector;
 * the shared-memory ECS-LIF kernel's own entry point,
@@ -99,6 +99,13 @@ VAL_SIZES = [(480, 640), (375, 500), (640, 640), (720, 1280)]
 # H100 SXM: HBM 3.35 TB/s; dense fp32 (CUDA cores) 67 TFLOP/s, bf16 989
 HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# CUDA-core instructions a second (one FFMA counts two of the 67 TFLOP/s)
+CUDA_CORE_IPS = 33.5e12
+# instructions a multiply-add of a sum in channel order takes on CUDA cores:
+# one fmaf in bf16 (a bf16 x bf16 product is exact in f32), a separate
+# multiply and add in f32; two bf16 elements an elementwise instruction
+MAC_INSTRUCTIONS = {torch.bfloat16: 1, torch.float32: 2}
+ELEMENTWISE_LANES = {torch.bfloat16: 2, torch.float32: 1}
 SMS = 132                  # streaming multiprocessors of the H100 SXM (read in main)
 BENCH_ITERS, V3_ITERS = 20, 4   # timed calls a site of the two kernel benches
 #: sources whose -Xptxas -v report must show no spill (the wgmma kernels and
@@ -143,6 +150,28 @@ def itemsize(dtype) -> int:
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     ms_b, ms_f = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return max(ms_b, ms_f), "bytes" if ms_b >= ms_f else "operations"
+
+
+def rows_bound(shape, bcast: bool, dtype) -> dict:
+    """The bounds of the ECS-LIF function K2 and K3 compute, at ``shape``
+    [T, N, H, W, C]: ``bound_ms`` and ``bound_by``, the function's (K1's
+    formula: x read once, one plane when it is a broadcast, spikes written
+    once, the weights; the spread's operations over T-1 steps against the
+    peak for x's dtype, the 1x1 on tensor cores as the TPU kernel runs it on
+    its matrix unit); ``bytes_bound_ms``, the bytes alone; and
+    ``cuda_core_floor_ms``, the floor of this port's design, which keeps
+    the plain version's channel-order 1x1 sum and so runs it on CUDA cores
+    (MAC_INSTRUCTIONS a multiply-add, 18*C elementwise operations an
+    element and step on ELEMENTWISE_LANES elements an instruction, against
+    CUDA_CORE_IPS)."""
+    t, n, h, w, c = shape
+    nbytes = (((1 if bcast else t) + t) * n * h * w * c + 11 * c + c * c) * itemsize(dtype)
+    bms, by = bound(nbytes, (t - 1) * n * h * w * (2 * c * c + 18 * c), dtype)
+    ops = (t - 1) * n * h * w * (MAC_INSTRUCTIONS[dtype] * c * c
+                                 + 18 * c / ELEMENTWISE_LANES[dtype])
+    bytes_ms = nbytes / HBM_BPS * 1e3
+    return {"bound_ms": bms, "bound_by": by, "bytes_bound_ms": bytes_ms,
+            "cuda_core_floor_ms": max(bytes_ms, ops / CUDA_CORE_IPS * 1e3)}
 
 
 class Agg:
@@ -509,15 +538,18 @@ def phase_k6(FZ, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
 def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> tuple:
     """The general-shape ECS-LIF kernel (K2) against its own plain version at
     every res10 site shape (x dense, and x a broadcast over T where the model
-    hands the site one) and at two shapes the tensor-core kernel (K1)
+    hands the site one) and at three shapes the tensor-core kernel (K1)
     refuses; beside it K1 on the same inputs (another rounding of the
-    spread: recorded, ceiling 2 %).  On the same inputs the shared-memory
-    kernel (K3), held to the same plain output with K1's gates, timed beside
-    K1 and K2.  Returns the Aggs of K2 and K3."""
+    spread: recorded, ceiling 2 %).  Each K2 record carries its launch's
+    plan (items, grid, Cout slice), the function's bound and, beside it,
+    the bytes alone and the CUDA-core floor of this design
+    (``rows_bound``).  On the same inputs the shared-memory kernel (K3),
+    held to the same plain output with K1's gates, timed beside K1 and K2.
+    Returns the Aggs of K2 and K3."""
     agg, agg3 = Agg(), Agg()
     cfg = cfg_cls(time_window=T)
     shapes = [((T, N, h, w, c), n) for (h, w, c), n in sorted(sites.items(), reverse=True)]
-    shapes += [((T, 2, 29, 6, 4), 0), ((T, 2, 20, 20, 12), 0)]
+    shapes += [((T, 2, 29, 6, 4), 0), ((T, 2, 20, 20, 12), 0), ((T, 2, 29, 6, 12), 0)]
     for dtype in (torch.float32, torch.bfloat16):
         item = itemsize(dtype)
         for i, (shape, count) in enumerate(shapes):
@@ -533,20 +565,19 @@ def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> tuple:
                 reps = 3
                 ms = cuda_ms(lambda: FZ.ecs_lif_fused_rows(*args, cfg), reps)
                 plain_ms = cuda_ms(lambda: FZ.ecs_lif_rows_reference(*args, cfg), 1)
-                # the function's bound, not this version's: x read once (one
-                # plane when it is a broadcast), spikes written once, weights;
-                # the spread's operations over T-1 steps against the peak for
-                # x's dtype, as for the tensor-core kernel
-                planes = (1 if bcast else T) + T
-                bms, by = bound((planes * n * h * w * c + 11 * c + c * c) * item,
-                                (T - 1) * n * h * w * (2 * c * c + 18 * c), dtype)
+                # the function's bound, not this version's
+                bounds = rows_bound(shape, bcast, dtype)
+                plan = FZ.k2_launch_plan(args[0])
                 rec = {"phase": "kernel_check", "kernel": "ecs_lif_fused_rows",
                        "dtype": dname(dtype), "act": False, "shape": list(shape),
                        "sites": count, "x_broadcast_over_t": bcast,
-                       "mismatch_share": share,
+                       "items": plan.items, "grid": plan.grid, "slice": plan.slice,
+                       "slices": plan.slices, "mismatch_share": share,
                        "bound_share": SPIKE_BOUND[dtype], "max_abs_err": float(diff.max()),
                        "firing_rate": float(want.float().mean()), "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "plain_ms": plain_ms, **bounds,
+                       "ms_over_bound": ms / bounds["bound_ms"],
+                       "ms_over_cuda_core_floor": ms / bounds["cuda_core_floor_ms"],
                        "library_ms": None}
                 if K.layout_refusal(args[0]) is None:
                     k1 = K.ecs_lif_fused(*args, cfg)
@@ -572,7 +603,11 @@ def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> tuple:
                         "ms": cuda_ms(lambda: FZ.ecs_lif_fused_v2(*args, cfg), reps),
                         "ecs_lif_fused_rows_ms": ms, "cluster": cs, "channels_per_block": cl,
                         "tile_rows": br, "tile_cols": bc}
-                rec3.pop("share_differing_from_tensor_core_kernel", None)
+                rec3["ms_over_bound"] = rec3["ms"] / bounds["bound_ms"]
+                rec3["ms_over_cuda_core_floor"] = rec3["ms"] / bounds["cuda_core_floor_ms"]
+                for key in ("share_differing_from_tensor_core_kernel", "items", "grid",
+                            "slice", "slices"):
+                    rec3.pop(key, None)
                 emit(rec3, log)
                 if rec3["mismatch_share"] > SPIKE_BOUND[dtype]:
                     raise AssertionError(f"ecs_lif_fused_v2 disagrees at {rec3}")
@@ -1069,7 +1104,7 @@ def phase_val(seed: int, log) -> dict:
         model = cast_params(make(SNNConfig(time_window=T, fused_inference=True), state),
                             torch.bfloat16)
         res_b, outs_b = val_pass("ecs_lif_fused_inference", model, "ecs_lif_fused_rows",
-                         False, ecs_ref(FZ.ecs_lif_rows_reference))
+                         True, ecs_ref(FZ.ecs_lif_rows_reference))
         del model, state
         rows_differing = sum(int(((a - b).abs().amax(-1) > 0).sum())
                              for (a, _), (b, _) in zip(outs_a, outs_b))
@@ -1463,8 +1498,12 @@ def main(argv=None) -> int:
                  f"fused_inference, N={N}, T={T}, bf16 (the site behind the stem "
                  "reads a broadcast x); launches over the "
                  f"{VAL_IMAGES // N} forwards of the val pass",
-            note="this version runs the 1x1 product on CUDA cores; the bound "
-                 "is the function's, against the peak for x's dtype",
+            note="one cooperative launch a site (T-1 grid barriers, no halo "
+                 "recompute), the 1x1 as a register-tiled FFMA product in channel "
+                 "order, as the plain version sums it; the bound is the function's "
+                 "(the 1x1 at the tensor-core peak, as K1's); each shape's record "
+                 "also gives cuda_core_floor_ms, the floor of this channel-order "
+                 "design on CUDA cores",
             library_note="no single PyTorch call computes the ECS-LIF recurrence"),
         agg3.entry(
             name="ecs_lif_fused_v2", route="cuda", source=csrc + "ecs_lif_v2.cu",

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``_build/lib<name>-<hash>.so``), loaded
-with ``ctypes``.  The hash is taken over the source, so an edited source
-builds anew and a stale library is never loaded.  Nothing here runs at
+with ``ctypes``.  The hash is taken over the source and the ``csrc/``
+headers it includes (``#include "..."``, followed into headers), so an
+edited source or header builds anew and a stale library is never loaded.  Nothing here runs at
 import time; the CPU tests import this module without a compiler present.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,8 +48,24 @@ def find_nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes with
+    quotes, directly or through another header, in the order first met."""
+    todo, seen = [CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode() for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in _sources(name))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -44,9 +44,6 @@ from .surrogate import spike_fn
 
 #: dtype codes of the kernels' C interfaces
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: blocks resident on one SM of the general-shape kernel (``snn/fused.py``),
-#: whose row tiles :func:`plan_rows` plans
-BLOCKS_PER_SM = 2
 #: pixels of a work item of K1 (two warpgroups of 64 rows)
 K1_TILE = 128
 #: H100 SXM: the most dynamic shared memory one block may take
@@ -56,27 +53,6 @@ K1_SLICES = (128, 64, 32)
 #: blocks of K1 an SM holds off the card (144-255 registers a thread of 256:
 #: one); on the card the wrapper asks the occupancy query
 K1_BLOCKS_PER_SM = 1
-
-
-def plan_rows(n: int, h: int, t: int, num_sms: int) -> int:
-    """Rows per tile of the general-shape kernel (``snn/fused.py``).
-
-    A block computes its tile on a window of up to ``rb + 2*(t-1)`` rows
-    (clipped to the image), so a small tile recomputes much of its halo while
-    a large one leaves SMs idle.  A block's time is bound by latency more than
-    by its SM's throughput, so count the blocks that fit on the card at once:
-    minimise ``ceil(blocks / (num_sms * BLOCKS_PER_SM)) * window``; on a tie
-    take the larger tile (less work and workspace in all).
-    """
-    halo = t - 1
-    best, best_cost = h, None
-    for rb in range(1, h + 1):
-        blocks = n * math.ceil(h / rb)
-        cost = (math.ceil(blocks / (num_sms * BLOCKS_PER_SM))
-                * min(h, rb + 2 * halo))
-        if best_cost is None or cost <= best_cost:
-            best, best_cost = rb, cost
-    return best
 
 
 # --- K1's plan -----------------------------------------------------------------
@@ -310,27 +286,29 @@ def _check(x, dw_kernel, dw_bias, pw_kernel, pw_bias):
 _FWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p]
 
 
-def _fail_on(err: int, what: str) -> None:
-    """Raises with the CUDA error's text when a call returned one."""
+def _fail_on(err: int, what: str, lib: str = "ecs_lif") -> None:
+    """Raises with the CUDA error's text when a call into ``csrc/<lib>.cu``
+    (K1's, or K2's ``ecs_lif_rows``) returned one."""
     if err != 0:
-        msg = _entry("ecs_lif", "ecs_lif_error_string", [ctypes.c_int])
+        msg = _entry(lib, f"{lib}_error_string", [ctypes.c_int])
         msg.restype = ctypes.c_char_p
-        raise RuntimeError(f"ecs_lif kernel {what} failed: {msg(err).decode()}")
+        raise RuntimeError(f"{lib} kernel {what} failed: {msg(err).decode()}")
 
 
 @functools.lru_cache(maxsize=256)
-def _occupancy(device: torch.device, dtype: torch.dtype, n_slice: int, smem: int) -> int:
-    """Blocks of the (dtype, slice) instance an SM of ``device`` holds at
-    ``smem`` bytes, from the CUDA occupancy query (the shared-memory estimate
-    off the card)."""
+def _occupancy(lib: str, device: torch.device, dtype: torch.dtype, n_slice: int, smem: int,
+               off_card: int) -> int:
+    """Blocks of the (dtype, slice) instance of ``csrc/<lib>.cu`` an SM of
+    ``device`` holds at ``smem`` bytes, from the CUDA occupancy query
+    (``off_card`` off the card)."""
     if device.type != "cuda":
-        return K1_BLOCKS_PER_SM
-    blocks = _entry("ecs_lif", "ecs_lif_occupancy", [ctypes.c_int] * 3)(
+        return off_card
+    blocks = _entry(lib, f"{lib}_occupancy", [ctypes.c_int] * 3)(
         DTYPE_CODES[dtype], n_slice, smem)
     if blocks < 0:
-        _fail_on(-blocks, "occupancy query")
+        _fail_on(-blocks, "occupancy query", lib)
     if blocks == 0:
-        raise RuntimeError(f"ecs_lif kernel: no block of {smem} bytes fits an SM")
+        raise RuntimeError(f"{lib} kernel: no block of {smem} bytes fits an SM")
     return blocks
 
 
@@ -338,7 +316,7 @@ def launch_plan(x: torch.Tensor) -> K1Plan:
     """The plan a launch on ``x`` ``[T, N, H, W, C]`` takes."""
     t, n, h, w, c = x.shape
     n_slice, smem = k1_slice(c, w, x.element_size())
-    occ = _occupancy(x.device, x.dtype, n_slice, smem)
+    occ = _occupancy("ecs_lif", x.device, x.dtype, n_slice, smem, K1_BLOCKS_PER_SM)
     return plan_grid(n, h, w, c, _sms(x.device), x.dtype, occ)
 
 

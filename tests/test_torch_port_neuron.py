@@ -150,16 +150,6 @@ def test_check_accepts_t_broadcast_and_rejects_bad_layouts():
                  pw[..., :4, :4], pwb[:4])
 
 
-@pytest.mark.parametrize("n,h,t", [(8, 320, 4), (8, 20, 4), (1, 16, 5), (2, 7, 4)])
-def test_plan_rows_tiles_cover_every_row_once(n, h, t):
-    rb = K.plan_rows(n, h, t, num_sms=132)
-    assert 1 <= rb <= h
-    rows = [r for r0, r1, _, _ in _windows(h, rb, t - 1) for r in range(r0, r1)]
-    assert rows == list(range(h))
-    for r0, r1, w0, w1 in _windows(h, rb, t - 1):
-        assert 0 <= w0 <= r0 < r1 <= w1 <= h
-
-
 @pytest.mark.parametrize("rb", [3, 5])
 def test_halo_windows_reproduce_the_full_recurrence(rb):
     """The kernel's tiling on the CPU: run the plain recurrence on each
