@@ -5,8 +5,8 @@
 Builds the port's seven CUDA kernel sources from the checkout
 (``ecs_yolo_tpu_torch/csrc/``: the fused ECS-LIF forward, the binary depthwise
 3x3, the fused dw+pw spread product, the fused plain-LIF forward, the
-general-shape fused ECS-LIF forward, the ECS-LIF forward with its state in
-shared memory, the dense 3x3 product), which serve eight functions (the
+general-shape fused ECS-LIF forward, the ECS-LIF forward with its state on
+chip, the dense 3x3 product), which serve eight functions (the
 depthwise kernel also serves the bench's ``pallas_dw3``), takes the
 EMS-ResNet10@640 neuron-site shapes from the model itself, holds every kernel
 against its plain PyTorch version at those shapes (the fused ECS-LIF forward
@@ -15,8 +15,9 @@ with the launch's plan: items, grid, Cout slice; and the two spread
 kernels' gradients against autograd through the plain version; the fused
 spread product and the dense 3x3 product timed alone and as their callers
 call them; the ``-Xptxas -v`` report of every source, with no spill allowed
-in the three ``wgmma`` sources, ``ecs_lif``, ``spread_gemm`` and ``dense3``,
-nor in the depthwise ``spread_dw3``), and drives
+in the four ``wgmma`` sources, ``ecs_lif``, ``ecs_lif_v2``, ``spread_gemm``
+and ``dense3``, nor in the depthwise ``spread_dw3`` or the plain-LIF
+``lif_fused``), and drives
 the port's paths at full width with random weights from a seed:
 
 * serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
@@ -29,13 +30,17 @@ the port's paths at full width with random weights from a seed:
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
   and the plain-LIF model (``ecs=False``); each again under
-  ``plain_kernels()``, which must give the same detections and metrics; and
-  the metric half alone on a perfect detector;
-* the shared-memory ECS-LIF kernel's own entry point,
+  ``plain_kernels()``, which must give the same detections and metrics, and
+  each model's batch-8 forward timed alone and profiled; and the metric
+  half alone on a perfect detector;
+* the shared-state ECS-LIF kernel's own entry point,
   ``snn.fused.ecs_lif_fused_v2``, at the 24 site shapes of one res10@640
   forward (bf16, N=8), after its checks at every site shape against the
   general-shape kernel's plain version, beside the other two ECS-LIF
-  kernels, and its tilings held equal bit for bit;
+  kernels (each record with its plan: items, grid, Cout slice, where the
+  state lies; where it fits in shared memory, the same launch with its
+  state there and in the workspace timed in turns), and its tilings held
+  equal bit for bit across ``block_rows``;
 * the kernel benches: ``ecs_yolo_tpu_torch.scripts.bench_pallas_dw`` at its
   b16 sites (``pallas_dw3``, ``pallas_dense3``, each first checked against
   its plain version in both output dtypes; ``pallas_dense3`` also at six
@@ -45,9 +50,11 @@ the port's paths at full width with random weights from a seed:
   one call each of its
   ``bench_phase_spread`` and of ``scripts.bench_pallas_v3.compare``.
 
-The depthwise kernel (``binary_dw3_conv``, ``pallas_dw3``) is timed alone
-as the device time of calls replayed in a CUDA graph, beside the same calls
-eager (the host's issue rate in them) and the library call both ways; in
+The depthwise kernel (``binary_dw3_conv``, ``pallas_dw3``) and the
+plain-LIF kernel (``lif_fused``) are timed alone as the device time of calls
+replayed in a CUDA graph, beside the same calls eager (the host's issue rate
+in them; for the plain-LIF kernel also their difference, the host's issue a
+call), the depthwise kernel also beside the library call both ways; in
 the ``kernels`` line its ``library_ms`` is the library call replayed, as
 its ``ms`` is (``library_eager_ms`` beside it).  The graph and profiler
 timing helpers are ``ecs_yolo_tpu_torch.scripts.bench_spread``'s.
@@ -110,7 +117,7 @@ SMS = 132                  # streaming multiprocessors of the H100 SXM (read in 
 BENCH_ITERS, V3_ITERS = 20, 4   # timed calls a site of the two kernel benches
 #: sources whose -Xptxas -v report must show no spill (the wgmma kernels and
 #: the depthwise kernel, whose weights live in registers)
-NO_SPILL = ("ecs_lif", "spread_gemm", "dense3", "spread_dw3")
+NO_SPILL = ("ecs_lif", "spread_gemm", "dense3", "spread_dw3", "lif_fused", "ecs_lif_v2")
 #: per-shape keys summed beside ms in the kernels line, where a row has them
 EXTRA_SUMS = ("wrapper_ms", "library_graph_ms")
 
@@ -320,6 +327,35 @@ def k1_plan_fields(K, x) -> dict:
             "slices": plan.slices}
 
 
+def k3_states(FZ, args, cfg, got, reps) -> dict:
+    """Where K3's state fits in shared memory, the same launch with its
+    state there and in the workspace, in turns (shared, workspace, shared,
+    workspace), each held equal to the wrapper's output ``got``."""
+    x = args[0]
+    plan = FZ.k3_launch_plan(x)
+    _, _, _, w, c = x.shape
+    most = -(-plan.tiles // (plan.grid // plan.slices))
+    shared = FZ.k3_smem(x.element_size(), c, w, plan.slice, most, plan.sub)
+    if not FZ.k3_state_fits(shared, 1):
+        return {}
+    calls = {state: (lambda p=plan._replace(state=state, smem=smem):
+                     FZ._launch_k3(*args, cfg, False, p))
+             for state, smem in (("shared", shared), ("workspace", FZ.k3_smem(
+                 x.element_size(), c, w, plan.slice, 0, plan.sub)))}
+    out = {"states_equal": all(torch.equal(f(), got) for f in calls.values())}
+    for i in range(2):
+        for state, f in calls.items():
+            out.setdefault(f"{state}_state_ms", []).append(cuda_ms(f, reps))
+    return out
+
+
+def k3_plan_fields(FZ, x, block_rows: int = 0) -> dict:
+    plan = FZ.k3_launch_plan(x, block_rows)
+    return {"items": plan.items, "grid": plan.grid, "slice": plan.slice,
+            "slices": plan.slices, "tile": plan.tile, "state": plan.state,
+            "smem": plan.smem}
+
+
 #: K1 at shapes the res10 forward does not give it: ([T, N, H, W, C], x a
 #: broadcast over T): one image (the detect path) at the widest site, a
 #: ragged C and pixel count with H != W, T of 1, 2 and 5, a broadcast x
@@ -481,10 +517,13 @@ def phase_spread_grads(S, log) -> None:
             raise AssertionError(f"{name}: gradients disagree: {worst}")
 
 
-def phase_k6(FZ, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
+def phase_k6(FZ, BS, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
     """The plain-LIF kernel against its plain version at every res10 site
     shape, N=8, T=4, x dense and x a broadcast over T, plus one ragged shape
-    (odd element count: the scalar variant)."""
+    (odd element count: the scalar variant).  ``ms`` is the kernel alone:
+    the device time of one call from 20 calls captured in one CUDA graph and
+    replayed (``BS.graph_ms``); ``wrapper_ms`` the same calls eager, back to
+    back; ``host_issue_ms`` their difference, what the host adds a call."""
     agg = Agg()
     cfg = cfg_cls(time_window=T, ecs=False)
     shapes = [((T, N, h, w, c), n) for (h, w, c), n in sorted(sites.items(), reverse=True)]
@@ -508,8 +547,10 @@ def phase_k6(FZ, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
                     silu_err = float((silu / ulp).max())
                     silu_ok = silu_err <= LIF_SILU_ULPS_BF16
                 m = math.prod(shape[1:])
+                call = lambda: FZ.lif_fused(x, cfg)
+                ms = BS.graph_ms(call)
+                wrapper_ms = cuda_ms(call, BS.GRAPH_REPS)
                 reps = max(3, min(10, int(4e8 // math.prod(shape))))
-                ms = cuda_ms(lambda: FZ.lif_fused(x, cfg), reps)
                 plain_ms = cuda_ms(lambda: FZ.lif_reference(x, cfg), reps)
                 # x read once (one plane when it is a broadcast), spikes
                 # written once; five operations an element and step
@@ -522,8 +563,9 @@ def phase_k6(FZ, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
                        "silu_err": silu_err, "silu_err_unit":
                        "abs" if dtype == torch.float32 else "bf16 ulps",
                        "firing_rate": float(want.float().mean()), "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                       "library_ms": None}
+                       "wrapper_ms": wrapper_ms, "host_issue_ms": wrapper_ms - ms,
+                       "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "ms_over_bound": ms / bms, "library_ms": None}
                 emit(rec, log)
                 if share > 0.0 or not silu_ok:
                     raise AssertionError(f"lif_fused disagrees at {rec}")
@@ -595,21 +637,19 @@ def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> tuple:
                 got3 = FZ.ecs_lif_fused_v2(*args, cfg)
                 torch.cuda.synchronize()
                 diff3 = (got3.float() - want.float()).abs()
-                cs, cl, _, br, bc = FZ.plan_v2(tuple(shape), item, 0, SMS)
                 rec3 = {**rec, "kernel": "ecs_lif_fused_v2",
                         "mismatch_share": float((diff3 > 0).float().mean()),
                         "max_abs_err": float(diff3.max()),
                         "share_differing_from_ecs_lif_fused_rows": float((got3 != got).float().mean()),
                         "ms": cuda_ms(lambda: FZ.ecs_lif_fused_v2(*args, cfg), reps),
-                        "ecs_lif_fused_rows_ms": ms, "cluster": cs, "channels_per_block": cl,
-                        "tile_rows": br, "tile_cols": bc}
+                        "ecs_lif_fused_rows_ms": ms, **k3_plan_fields(FZ, args[0])}
                 rec3["ms_over_bound"] = rec3["ms"] / bounds["bound_ms"]
                 rec3["ms_over_cuda_core_floor"] = rec3["ms"] / bounds["cuda_core_floor_ms"]
-                for key in ("share_differing_from_tensor_core_kernel", "items", "grid",
-                            "slice", "slices"):
-                    rec3.pop(key, None)
+                rec3.update(k3_states(FZ, args, cfg, got3, reps))
+                rec3.pop("share_differing_from_tensor_core_kernel", None)
                 emit(rec3, log)
-                if rec3["mismatch_share"] > SPIKE_BOUND[dtype]:
+                if (rec3["mismatch_share"] > SPIKE_BOUND[dtype]
+                        or not rec3.get("states_equal", True)):
                     raise AssertionError(f"ecs_lif_fused_v2 disagrees at {rec3}")
                 # one val forward: the site behind the stem reads a broadcast
                 if dtype == torch.bfloat16 and count and bcast == (shape[2:] in broadcast):
@@ -639,15 +679,14 @@ def phase_k2(FZ, K, cfg_cls, sites: Counter, broadcast: set, log) -> tuple:
 
 
 def phase_k3_tilings(FZ, cfg_cls, log) -> None:
-    """K3's result does not depend on its tiling: at one site shape of each
-    regime of the channel split (no cluster, a cluster of 8 blocks with 48
-    and with 128 channels each), both dtypes, ``block_rows`` = 0 (the
-    wrapper's plan), 7 (no divisor of H) and the largest that fits, bit for
-    bit; one more row than the largest raises, naming it."""
+    """K3's result does not depend on its tiling: at three site shapes, both
+    dtypes, ``block_rows`` = 0 (the wrapper's plan), 7 (no divisor of H) and
+    the largest whose item fits (``FZ.max_block_rows``), bit for bit; one
+    more row than the largest raises, naming it."""
     cfg = cfg_cls(time_window=T)
     for dtype in (torch.bfloat16, torch.float32):
         item = itemsize(dtype)
-        for i, (h, w, c) in enumerate(((160, 160, 64), (40, 40, 384), (20, 20, 1024))):
+        for i, (h, w, c) in enumerate(((40, 40, 384), (20, 20, 1024), (40, 40, 256))):
             shape = (T, N, h, w, c)
             args = site_inputs(shape, dtype, seed=400 + i)
             most = FZ.max_block_rows(shape, item)
@@ -657,15 +696,15 @@ def phase_k3_tilings(FZ, cfg_cls, log) -> None:
             if most < h:
                 try:
                     FZ.ecs_lif_fused_v2(*args, cfg, block_rows=most + 1)
+                    named = False
                 except ValueError as e:
                     named = str(e).endswith(f"fits is {most}")
             emit({"phase": "k3_tilings", "dtype": dname(dtype), "shape": list(shape),
-                  "cluster": FZ.split_channels(c, item)[0],
-                  "block_rows": sorted(outs), "plans": {
-                      b: list(FZ.plan_v2(shape, item, b, SMS)) for b in sorted(outs)},
+                  "block_rows": sorted(outs), "largest_block_rows": most,
+                  "plans": {b: k3_plan_fields(FZ, args[0], b) for b in sorted(outs)},
                   "bit_equal": equal, "one_more_row_raises_naming_the_largest": named},
                  log)
-            if not equal or named is False:
+            if not equal or named is False or most < 7:
                 raise AssertionError(f"ecs_lif_fused_v2 tilings disagree at {shape} {dtype}")
             del args, outs
 
@@ -1085,6 +1124,11 @@ def phase_val(seed: int, log) -> dict:
                 shares = [float((ref_fn(m, xin).to(torch.uint8) != spikes).float().mean())
                           for m, xin, spikes in seen]
             del seen
+            with torch.inference_mode():
+                # one batch's forward alone, and where it spends the device time
+                rec["forward_ms"] = cuda_ms(lambda: model(x), 10)
+                rec.update({"forward_" + k: v
+                            for k, v in profile_step(lambda: model(x)).items()})
             rec["worst_site_mismatch_share"] = max(shares)
             rec["site_firing_rates_checked"] = len(shares)
             ok &= len(shares) == len(sites) and max(shares) <= (
@@ -1370,7 +1414,7 @@ def main(argv=None) -> int:
         phase_k1_shapes(K, SNNConfig, log)
         aggs = phase_spread(S, BS, plain_kernels, shapes, log)
         phase_spread_grads(S, log)
-        agg6 = phase_k6(FZ, SNNConfig, shapes, broadcast, log)
+        agg6 = phase_k6(FZ, BS, SNNConfig, shapes, broadcast, log)
         agg2, agg3 = phase_k2(FZ, K, SNNConfig, shapes, broadcast, log)
         phase_k3_tilings(FZ, SNNConfig, log)
 
@@ -1488,7 +1532,9 @@ def main(argv=None) -> int:
             launches=val_launches["lif_fused"],
             work=f"the 24 neuron sites of one plain-LIF res10@640 forward, N={N}, "
                  f"T={T}, bf16 (the site behind the stem reads a broadcast x); "
-                 f"launches over the {VAL_IMAGES // N} forwards of the val pass",
+                 f"launches over the {VAL_IMAGES // N} forwards of the val pass; ms "
+                 "is the device time of lif_fused from calls replayed in a CUDA "
+                 "graph, wrapper_ms the same calls eager",
             library_note="no single PyTorch call computes the LIF recurrence"),
         agg2.entry(
             name="ecs_lif_fused_rows", route="cuda", source=csrc + "ecs_lif_rows.cu",
@@ -1511,8 +1557,11 @@ def main(argv=None) -> int:
             work=f"its own entry point at the 24 neuron-site shapes of one res10@640 "
                  f"forward, N={N}, T={T}, bf16 (the site behind the stem on a "
                  "broadcast x); no model route takes it, as in the JAX package",
-            note="state in shared memory, tiles in rows and width, C split "
-                 "over a cluster of up to 8 blocks; the bound is K2's",
+            note="K1's launch design (one cooperative launch a site, T-1 grid "
+                 "barriers, no halo recompute, (tile x Cout slice) items owned by one "
+                 "block, the 1x1 on wgmma in bf16) with K2's depthwise rounding; the "
+                 "state in the block's shared memory where it fits in f32, else in "
+                 "the workspace; the bound is K2's",
             library_note="no single PyTorch call computes the ECS-LIF recurrence"),
         aggs78["pallas_dw3"].entry(
             name="pallas_dw3", route="cuda", source=csrc + "spread_dw3.cu",

@@ -111,217 +111,7 @@ struct Params {
   float thresh, decay, alpha, beta, leak;   // rounded to the dtype by the caller
 };
 
-// --- elementwise ------------------------------------------------------------------
-
-enum Ld { kPlain, kNc, kCg };
-
-template <int L>
-__device__ __forceinline__ uint4 ld16(const void* p) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  if constexpr (L == kNc) return __ldg(q);
-  else if constexpr (L == kCg) return __ldcg(q);
-  else return *q;
-}
-
-// 8 consecutive elements (16-byte aligned)
-template <int L>
-__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
-  const uint4 u = ld16<L>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x; v[2 * i + 1] = f.y;
-  }
-}
-template <int L>
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const uint4 a = ld16<L>(p), b = ld16<L>(p + 4);
-  v[0] = __uint_as_float(a.x); v[1] = __uint_as_float(a.y);
-  v[2] = __uint_as_float(a.z); v[3] = __uint_as_float(a.w);
-  v[4] = __uint_as_float(b.x); v[5] = __uint_as_float(b.y);
-  v[6] = __uint_as_float(b.z); v[7] = __uint_as_float(b.w);
-}
-__device__ __forceinline__ void store8(float* p, const float v[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(bf16* p, const float v[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-// The per-element tail of a step t >= 1: the ecs update from the 1x1 product
-// `acc` (with ecs the previous field), then the membrane and spike of step t
-// (with spk the previous spike), updated in place.
-template <typename T>
-__device__ __forceinline__ void finish(float acc, float bias, float& ecs, float& mem,
-                                       float& spk, float x, const Params& k, int act) {
-  const float ev = add<T>(rnd<T>(acc), bias);
-  ecs = add<T>(mul<T>(k.alpha, ev), mul<T>(k.leak, ecs));
-  const float fecs = mul<T>(k.beta, rnd<T>(tanhf(ecs)));
-  const float gate = sub<T>(1.0f, spk);
-  const float m = mul<T>(mul<T>(mem, k.decay), gate);
-  mem = add<T>(add<T>(m, x), fecs);
-  spk = fire<T>(mem, k.thresh, act);
-}
-
-// `finish` on two elements: accumulators a0, a1 and bf16 pairs
-__device__ __forceinline__ void finish2(float a0, float a1, uint32_t bias, uint32_t& ecs,
-                                        uint32_t& mem, uint32_t& spk, uint32_t x,
-                                        const Pairs& k2, float thresh, int act) {
-  const uint32_t ev = hadd2(pack_bf16x2(a0, a1), bias);
-  ecs = hadd2(hmul2(k2.alpha, ev), hmul2(k2.leak, ecs));
-  const uint32_t fecs = hmul2(k2.beta, pack_bf16x2(tanhf(lo_f(ecs)), tanhf(hi_f(ecs))));
-  const uint32_t gate = hsub2(k2.one, spk);
-  mem = hadd2(hadd2(hmul2(hmul2(mem, k2.decay), gate), x), fecs);
-  const float m0 = lo_f(mem), m1 = hi_f(mem);
-  if (act)
-    spk = pack_bf16x2(__fdiv_rn(m0, __fadd_rn(1.0f, expf(-m0))),
-                      __fdiv_rn(m1, __fadd_rn(1.0f, expf(-m1))));
-  else
-    spk = (m0 > thresh ? 0x3F80u : 0u) | (m1 > thresh ? 0x3F800000u : 0u);
-}
-
-// --- the window --------------------------------------------------------------------
-
-// The window of out[t-1] that the 3x3 taps of the tile [p0, p0 + 128) reach,
-// input channels [kc*K, kc*K + K): the flat pixel p + dy*W + dx lies in slot
-// (dy+1)*S + (p - p0) + dx + 1, S = min(W, 130).  Slots outside the plane
-// (and channels past C) are zeros; pixels of a neighbouring row or image are
-// loaded but masked by the taps.  16-byte piece c16 of a slot sits at c16 ^
-// (slot & 7).
-template <typename T>
-__device__ __forceinline__ void load_window(const T* prev, uint32_t dst, long long p0, int kc,
-                                            const Params& p, int S, int NS) {
-  constexpr int E = 16 / sizeof(T);
-  for (int i = threadIdx.x; i < NS * 8; i += kThreads) {
-    const int slot = i >> 3, c16 = i & 7;
-    const long long px = p.W <= kRun ? p0 - p.W - 1 + slot
-        : p0 + (long long)(slot / kRun - 1) * p.W - 1 + slot % kRun;
-    const int c = kc * Chunk<T>::K + c16 * E;
-    const bool in = px >= 0 && px < p.P && c < p.C;
-    cp_async16(dst + slot * kSlot + ((c16 ^ (slot & 7)) << 4), in ? prev + px * p.C + c : prev,
-               in ? 16 : 0);
-  }
-}
-
-// bit tap = 3*dy + dx: the tap of pixel px lies in the image (none for px >= P)
-__device__ __forceinline__ uint32_t tap_mask(long long px, const Params& p) {
-  if (px >= p.P) return 0u;
-  const int w = (int)(px % p.W), h = (int)((px / p.W) % p.H);
-  uint32_t m = 0u;
-  #pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
-    if ((unsigned)(h + tap / 3 - 1) < (unsigned)p.H && (unsigned)(w + tap % 3 - 1) < (unsigned)p.W)
-      m |= 1u << tap;
-  return m;
-}
-
 // --- bf16: wgmma with A from registers, B resident ------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int Pending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(Pending) : "memory");
-}
-
-// D[64, N] += A[64, 16] (registers, bf16) * B[16, N] (shared, K-major, 128B swizzle)
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t a[4], uint64_t desc);
-template <>
-__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t a[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t a[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t a[4], uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-// shared-memory descriptor of a K-major, 128-byte-swizzled operand: start
-// address, LBO 1 (unused when swizzled), SBO 1024 bytes (8 rows of 128 bytes)
-__device__ __forceinline__ uint64_t smem_desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-// The channel (0..63 of a chunk) whose depthwise weight and bias sit at
-// position i of the chunk in shared memory: position 16q + 4ks + j holds what
-// quad lane q puts in value j of k-step ks of its A fragment, channel
-// 16ks + 8(j/2) + 2q + j%2, so that a thread reads its 16 in two pieces.
-__device__ __forceinline__ int quad_channel(int i) {
-  const int q = i >> 4, ks = (i >> 2) & 3, j = i & 3;
-  return 16 * ks + 8 * (j >> 1) + 2 * q + (j & 1);
-}
-
-// The block's slice of pw as B: chunk kc is [N rows (output channels)][64 k]
-// of 128 bytes, K in channel order, 16-byte piece index XOR (n % 8).
-template <int N>
-__device__ void load_b(const Params& p, uint8_t* bmat, int slice, int nk) {
-  const bf16* pw = static_cast<const bf16*>(p.pw);
-  const int C = p.C, co0 = slice * N, cp = nk * 64;
-  auto put = [&](int ci, int n, bf16 v) {
-    const int k = ci & 63;
-    *reinterpret_cast<bf16*>(bmat + ((ci >> 6) * N + n) * 128 +
-                             ((((k * 2) >> 4) ^ (n & 7)) << 4) + ((k * 2) & 15)) = v;
-  };
-  if (p.pw_vec == 1) {            // 8 input channels of one output channel in 16 bytes
-    for (int i = threadIdx.x; i < N * (cp / 8); i += kThreads) {
-      const int n = i / (cp / 8), ci = i % (cp / 8) * 8, co = co0 + n;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (co < C && ci < C)
-        v = __ldg(reinterpret_cast<const uint4*>(pw + co * p.pw_so + ci));
-      *reinterpret_cast<uint4*>(bmat + ((ci >> 6) * N + n) * 128 +
-                                ((((ci & 63) >> 3) ^ (n & 7)) << 4)) = v;
-    }
-  } else if (p.pw_vec == 2) {     // 8 output channels of one input channel in 16 bytes
-    for (int i = threadIdx.x; i < cp * (N / 8); i += kThreads) {
-      const int ci = i / (N / 8), n = i % (N / 8) * 8, co = co0 + n;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (co < C && ci < C)
-        v = __ldg(reinterpret_cast<const uint4*>(pw + ci * p.pw_si + co));
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-      #pragma unroll
-      for (int j = 0; j < 8; ++j) put(ci, n + j, e[j]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < cp * N; i += kThreads) {
-      const int ci = i / N, n = i % N, co = co0 + n;
-      put(ci, n, co < C && ci < C ? pw[ci * p.pw_si + co * p.pw_so] : bf16{});
-    }
-  }
-  // the generic-proxy stores of B, visible to wgmma's async proxy
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 // d of the thread's rows r0, r0 + 8 and the 16 channels of chunk kc that its
 // A fragments hold (quad_channel), from the window, in the A fragments of the
@@ -358,8 +148,8 @@ __device__ __forceinline__ void d_frags(const uint8_t* win, const bf16* dw_s, co
     }
   }
   // d = rnd(sum) + dwb, in bf16 pairs: the A fragments' words
-  const uint4 b0 = ld16<kPlain>(dwb_s + kc * 64 + 16 * q);
-  const uint4 b1 = ld16<kPlain>(dwb_s + kc * 64 + 16 * q + 8);
+  const uint4 b0 = ldg<kPlain>(dwb_s + kc * 64 + 16 * q);
+  const uint4 b1 = ldg<kPlain>(dwb_s + kc * 64 + 16 * q + 8);
   const uint32_t bw[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
   #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
@@ -415,43 +205,6 @@ __device__ __forceinline__ void d_tile_f32(const uint8_t* win, const float* dw_s
 
 // --- the epilogue, in the accumulator layout --------------------------------------------
 
-// lanes q = 0..3 of a quad hold x[m] = X[q][m]; afterwards x[m] = X[m][q]
-__device__ __forceinline__ void quad_transpose(uint32_t x[4], int q) {
-  const bool up = q & 2, odd = q & 1;
-  uint32_t s0 = up ? x[0] : x[2], s1 = up ? x[1] : x[3];
-  s0 = __shfl_xor_sync(0xffffffffu, s0, 2);
-  s1 = __shfl_xor_sync(0xffffffffu, s1, 2);
-  if (up) { x[0] = s0; x[1] = s1; } else { x[2] = s0; x[3] = s1; }
-  uint32_t t0 = odd ? x[0] : x[1], t1 = odd ? x[2] : x[3];
-  t0 = __shfl_xor_sync(0xffffffffu, t0, 1);
-  t1 = __shfl_xor_sync(0xffffffffu, t1, 1);
-  if (odd) { x[0] = t0; x[2] = t1; } else { x[1] = t0; x[3] = t1; }
-}
-
-// acc[4j + 2h + e] is (row r0 + 8h, column 8j + 2q + e) of the item: wgmma's
-// accumulator layout, which the f32 product keeps too.  A 4x4 transpose
-// within each quad gives lane q the 8 columns 32s + 8q .. +8 of each set s
-// of four j: acc values a[s][0..8).
-template <int N>
-__device__ __forceinline__ void row_sets(const float* acc, int h, int q, float a[][8]) {
-  #pragma unroll
-  for (int s = 0; s < N / 32; ++s) {
-    uint32_t ev[4], od[4];
-    #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      ev[m] = __float_as_uint(acc[4 * (4 * s + m) + 2 * h]);
-      od[m] = __float_as_uint(acc[4 * (4 * s + m) + 2 * h + 1]);
-    }
-    quad_transpose(ev, q);
-    quad_transpose(od, q);
-    #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      a[s][2 * m] = __uint_as_float(ev[m]);
-      a[s][2 * m + 1] = __uint_as_float(od[m]);
-    }
-  }
-}
-
 // The item's tail of step t: ecs, mem and spike from acc, mem and ecs kept
 // in the workspace for the next step (none after the last).  bf16 issues
 // every load of a row's sets before it uses one, and computes in bf16 pairs.
@@ -471,22 +224,21 @@ __device__ __forceinline__ void epilogue(const Params& p, const float* acc, int 
     float a[NS][8];
     row_sets<N>(acc, h, q, a);
     if constexpr (sizeof(T) == 2) {
-      const Pairs k2{pack_bf16x2(p.alpha, p.alpha), pack_bf16x2(p.leak, p.leak),
-                     pack_bf16x2(p.beta, p.beta), pack_bf16x2(p.decay, p.decay), 0x3F803F80u};
+      const Pairs k2 = pairs(p);
       uint4 xr[NS], sr[NS], mr[NS], cr[NS];
       #pragma unroll
       for (int s = 0; s < NS; ++s) {
         const int co = slice * N + 32 * s + 8 * q;
         if (px >= p.P || co >= p.C) continue;
         const long long e = px * p.C + co;
-        xr[s] = ld16<kNc>(x + t * p.x_ts + e);
-        sr[s] = ld16<kCg>(out + (t - 1) * pc + e);
+        xr[s] = ldg<kNc>(x + t * p.x_ts + e);
+        sr[s] = ldg<kCg>(out + (t - 1) * pc + e);
         if (t == 1) {                     // mem_0 = x_0, no field yet
-          mr[s] = ld16<kNc>(x + e);
+          mr[s] = ldg<kNc>(x + e);
           cr[s] = make_uint4(0u, 0u, 0u, 0u);
         } else {
-          mr[s] = ld16<kPlain>(mem_ws + e);
-          cr[s] = ld16<kPlain>(ecs_ws + e);
+          mr[s] = ldg<kPlain>(mem_ws + e);
+          cr[s] = ldg<kPlain>(ecs_ws + e);
         }
       }
       #pragma unroll
@@ -494,15 +246,15 @@ __device__ __forceinline__ void epilogue(const Params& p, const float* acc, int 
         const int co = slice * N + 32 * s + 8 * q;
         if (px >= p.P || co >= p.C) continue;
         const long long e = px * p.C + co;
-        const uint4 b = ld16<kPlain>(pwb_s + co);
+        const uint4 b = ldg<kPlain>(pwb_s + co);
         const uint32_t bw[4] = {b.x, b.y, b.z, b.w}, xw[4] = {xr[s].x, xr[s].y, xr[s].z, xr[s].w};
         uint32_t sw[4] = {sr[s].x, sr[s].y, sr[s].z, sr[s].w};
         uint32_t mw[4] = {mr[s].x, mr[s].y, mr[s].z, mr[s].w};
         uint32_t cw[4] = {cr[s].x, cr[s].y, cr[s].z, cr[s].w};
         #pragma unroll
         for (int m = 0; m < 4; ++m)
-          finish2(a[s][2 * m], a[s][2 * m + 1], bw[m], cw[m], mw[m], sw[m], xw[m], k2, p.thresh,
-                  p.act);
+          finish2(pack_bf16x2(a[s][2 * m], a[s][2 * m + 1]), bw[m], cw[m], mw[m], sw[m], xw[m], k2,
+                  p.thresh, p.act);
         *reinterpret_cast<uint4*>(out + t * pc + e) = make_uint4(sw[0], sw[1], sw[2], sw[3]);
         if (keep) {
           *reinterpret_cast<uint4*>(mem_ws + e) = make_uint4(mw[0], mw[1], mw[2], mw[3]);
@@ -528,7 +280,7 @@ __device__ __forceinline__ void epilogue(const Params& p, const float* acc, int 
           load8<kPlain>(ecs_ws + e, cv);
         }
         #pragma unroll
-        for (int i = 0; i < 8; ++i) finish<T>(a[s][i], bias[i], cv[i], mv[i], sv[i], xv[i], p, p.act);
+        for (int i = 0; i < 8; ++i) finish<T>(a[s][i], bias[i], cv[i], mv[i], sv[i], xv[i], p);
         store8(out + t * pc + e, sv);
         if (keep) {
           store8(mem_ws + e, mv);
@@ -616,7 +368,7 @@ __global__ void __launch_bounds__(kThreads, 1) ecs_lif_kernel(const __grid_const
   for (int t = 1; t < p.Tn; ++t) {
     grid_sync(p.bar);                    // out[t-1] is complete
     const T* prev = out + (t - 1) * pc;
-    if (total > 0) load_window<T>(prev, win_addr, tile_p0(0), 0, p, S, NS);
+    if (total > 0) load_window128<T>(prev, win_addr, win, tile_p0(0), 0, p, S, NS, kRun, true);
     cp_async_commit();
     #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
@@ -625,8 +377,8 @@ __global__ void __launch_bounds__(kThreads, 1) ecs_lif_kernel(const __grid_const
       const long long p0 = tile_p0(s);
       __syncthreads();                   // stage (s + 1) & 1 is read by no one
       if (s + 1 < total)
-        load_window<T>(prev, win_addr + ((s + 1) & 1) * NS * kSlot, tile_p0(s + 1),
-                       (s + 1) % nk, p, S, NS);
+        load_window128<T>(prev, win_addr + ((s + 1) & 1) * NS * kSlot, nullptr, tile_p0(s + 1),
+                          (s + 1) % nk * K, p, S, NS, kRun, true);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();                   // window s is in, for every thread

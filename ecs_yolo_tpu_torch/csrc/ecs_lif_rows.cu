@@ -120,54 +120,8 @@ struct Params {
 
 // --- loads, stores, roundings ----------------------------------------------------
 
-enum Ld { kPlain, kNc, kCg };
-
-template <int L, typename V>
-__device__ __forceinline__ V ldg(const void* p) {
-  const V* q = reinterpret_cast<const V*>(p);
-  if constexpr (L == kNc) return __ldg(q);
-  else if constexpr (L == kCg) return __ldcg(q);
-  else return *q;
-}
-
-template <int L> __device__ __forceinline__ float ld1(const float* p) { return ldg<L, float>(p); }
-template <int L> __device__ __forceinline__ float ld1(const bf16* p) {
-  return __uint_as_float((uint32_t)ldg<L, unsigned short>(p) << 16);
-}
-__device__ __forceinline__ void st1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-// 8 consecutive elements (16-byte aligned)
-template <int L>
-__device__ __forceinline__ void load8(const bf16* p, float v[8]) {
-  const uint4 u = ldg<L, uint4>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x; v[2 * i + 1] = f.y;
-  }
-}
-template <int L>
-__device__ __forceinline__ void load8(const float* p, float v[8]) {
-  const float4 a = ldg<L, float4>(p), b = ldg<L, float4>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void store8(float* p, const float v[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(bf16* p, const float v[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
 
 // a run of V floats (V = 1, 2 or 4; aligned to its size)
 template <int V, int L>
@@ -197,47 +151,6 @@ template <> __device__ __forceinline__ float mac<bf16>(float a, float b, float a
 }
 template <> __device__ __forceinline__ float mac<float>(float a, float b, float acc) {
   return __fadd_rn(acc, __fmul_rn(a, b));
-}
-
-// The per-element tail of a step t >= 1: the ecs update from the 1x1 product
-// `acc` (with ecs the previous field), then the membrane and spike of step t
-// (with spk the previous spike), updated in place.
-template <typename T>
-__device__ __forceinline__ void finish(float acc, float bias, float& ecs, float& mem,
-                                       float& spk, float x, const Params& k) {
-  const float ev = add<T>(rnd<T>(acc), bias);
-  ecs = add<T>(mul<T>(k.alpha, ev), mul<T>(k.leak, ecs));
-  const float fecs = mul<T>(k.beta, rnd<T>(tanhf(ecs)));
-  const float gate = sub<T>(1.0f, spk);
-  const float m = mul<T>(mul<T>(mem, k.decay), gate);
-  mem = add<T>(add<T>(m, x), fecs);
-  spk = fire<T>(mem, k.thresh, k.act);
-}
-
-// `finish` on two elements: the product rounded to bf16 (`ew`) and bf16 pairs
-__device__ __forceinline__ void finish2(uint32_t ew, uint32_t bias, uint32_t& ecs,
-                                        uint32_t& mem, uint32_t& spk, uint32_t x,
-                                        const Pairs& k2, float thresh, int act) {
-  const uint32_t ev = hadd2(ew, bias);
-  ecs = hadd2(hmul2(k2.alpha, ev), hmul2(k2.leak, ecs));
-  const uint32_t fecs = hmul2(k2.beta, pack_bf16x2(tanhf(lo_f(ecs)), tanhf(hi_f(ecs))));
-  const uint32_t gate = hsub2(k2.one, spk);
-  mem = hadd2(hadd2(hmul2(hmul2(mem, k2.decay), gate), x), fecs);
-  const float m0 = lo_f(mem), m1 = hi_f(mem);
-  if (act)
-    spk = pack_bf16x2(__fdiv_rn(m0, __fadd_rn(1.0f, expf(-m0))),
-                      __fdiv_rn(m1, __fadd_rn(1.0f, expf(-m1))));
-  else
-    spk = (m0 > thresh ? 0x3F80u : 0u) | (m1 > thresh ? 0x3F800000u : 0u);
-}
-
-// fma.rn.bf16x2: a * b + c rounded once.  Where a is a Heaviside spike (0
-// or 1) the product is exact, so this is the depthwise pass's multiply,
-// round, add, round.
-__device__ __forceinline__ uint32_t hfma2(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
 }
 
 // --- the window --------------------------------------------------------------------
@@ -296,43 +209,6 @@ __device__ __forceinline__ void load_window(const T* prev, uint8_t* win, uint32_
       *reinterpret_cast<T*>(win + piece_at<T>(slot, c / E) + (c % E) * sizeof(T)) = v;
     }
   }
-}
-
-// image, row and column of flat pixel px: 32-bit divisions where the plane
-// allows (H*W < 2^31 always: the wrapper checks H*W*C)
-struct Pix {
-  long long n;
-  int h, w;
-};
-__device__ __forceinline__ Pix pixel(long long px, const Params& p) {
-  const unsigned hw = (unsigned)(p.H * p.W);
-  if (p.P <= 0x7fffffffLL) {
-    const unsigned q = (unsigned)px, img = q / hw, rem = q - img * hw, h = rem / (unsigned)p.W;
-    return {(long long)img, (int)h, (int)(rem - h * (unsigned)p.W)};
-  }
-  const long long img = px / hw;
-  const int rem = (int)(px - img * hw), h = rem / p.W;
-  return {img, h, rem - h * p.W};
-}
-
-// x at flat pixel px, step 0, channel 0 (through x's strides)
-template <typename T>
-__device__ __forceinline__ const T* x_at(const Params& p, long long px) {
-  const Pix q = pixel(px, p);
-  return static_cast<const T*>(p.x) + q.n * p.xs_n + q.h * p.xs_h + q.w * p.xs_w;
-}
-
-// bit tap = 3*dy + dx: the tap of pixel px lies in the image (none for px >= P)
-__device__ __forceinline__ uint32_t tap_mask(long long px, const Params& p) {
-  if (px >= p.P) return 0u;
-  const Pix q = pixel(px, p);
-  const int w = q.w, h = q.h;
-  uint32_t m = 0u;
-  #pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
-    if ((unsigned)(h + tap / 3 - 1) < (unsigned)p.H && (unsigned)(w + tap % 3 - 1) < (unsigned)p.W)
-      m |= 1u << tap;
-  return m;
 }
 
 // --- the chunk's weights -------------------------------------------------------------
@@ -460,29 +336,7 @@ __device__ __forceinline__ void depthwise(const uint8_t* win, const uint8_t* zer
 template <bool ACT>
 __device__ __forceinline__ void depthwise(const uint8_t* win, const uint8_t* zero, const float* dws,
                                           int S, int r, int half, uint32_t valid, float* As) {
-  float d[16];
-  #pragma unroll
-  for (int i = 0; i < 16; ++i) d[i] = 0.f;
-  #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int slot = (tap / 3) * S + r + tap % 3;
-    const bool in = (valid >> tap) & 1u;
-    const uint8_t* base = in ? win + slot * 128 : zero;
-    const int swz = in ? slot & 7 : 0;
-    #pragma unroll
-    for (int c4 = 0; c4 < 4; ++c4) {
-      const float4 sv = *reinterpret_cast<const float4*>(base + (((4 * half + c4) ^ swz) << 4));
-      const float4 k = *reinterpret_cast<const float4*>(dws + tap * KC + 16 * half + 4 * c4);
-      const float a[4] = {sv.x, sv.y, sv.z, sv.w}, b[4] = {k.x, k.y, k.z, k.w};
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        d[4 * c4 + i] = ACT ? __fadd_rn(d[4 * c4 + i], __fmul_rn(a[i], b[i]))
-                            : __fmaf_rn(a[i], b[i], d[4 * c4 + i]);
-    }
-  }
-  #pragma unroll
-  for (int i = 0; i < 16; ++i)
-    As[(16 * half + i) * kTile + r] = __fadd_rn(d[i], dws[9 * KC + 16 * half + i]);
+  depthwise_f32<ACT, kTile>(win, zero, dws, KC, dws + 9 * KC, S, r, half, valid, As);
 }
 
 // --- the 1x1 product -------------------------------------------------------------------
@@ -554,23 +408,6 @@ __device__ __forceinline__ void stage_acc(const float (&acc)[8][BN / 16], uint8_
   }
 }
 
-// 8 elements of T as 32-bit words (16-byte aligned): 4 for bf16, 8 for f32
-template <int L, typename T>
-__device__ __forceinline__ void ld8w(const T* p, uint32_t* w) {
-  const uint4 a = ldg<L, uint4>(p);
-  w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
-  if constexpr (sizeof(T) == 4) {
-    const uint4 b = ldg<L, uint4>(p + 4);
-    w[4] = b.x; w[5] = b.y; w[6] = b.z; w[7] = b.w;
-  }
-}
-template <typename T>
-__device__ __forceinline__ void st8w(T* p, const uint32_t* w) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  if constexpr (sizeof(T) == 4)
-    *reinterpret_cast<uint4*>(p + 4) = make_uint4(w[4], w[5], w[6], w[7]);
-}
-
 // The item's tail of step t from the warp's staging: ecs, mem and spike; mem
 // and ecs kept in the workspace for the next step (none after the last).
 // `vec`: C % 8 == 0 and x read in runs (Params::x_vec), so a group moves in
@@ -609,8 +446,7 @@ __device__ __forceinline__ void epilogue(const Params& p, const uint8_t* stg, in
       ld8w<kPlain>(ev, ew);
       ld8w<kPlain>(pwb_s + ch, bw);
       if constexpr (sizeof(T) == 2) {
-        const Pairs k2{pack_bf16x2(p.alpha, p.alpha), pack_bf16x2(p.leak, p.leak),
-                       pack_bf16x2(p.beta, p.beta), pack_bf16x2(p.decay, p.decay), 0x3F803F80u};
+        const Pairs k2 = pairs(p);
         #pragma unroll
         for (int m = 0; m < NWD; ++m)
           finish2(ew[m], bw[m], cw[m], mw[m], sw[m], xw[m], k2, p.thresh, p.act);

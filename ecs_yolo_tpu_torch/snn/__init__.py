@@ -17,9 +17,12 @@ wrapper                              source                   TPU kernel it repl
 ===================================  =======================  ==============================================
 
 The first three are the eval routes of a neuron site (``nn/blocks.MemUpdate``
-chooses); ``ecs_lif_fused_v2`` computes the second's function with its state
-in shared memory and, as in the JAX package, is reached only through its own
+chooses); ``ecs_lif_fused_v2`` computes the second's function in the first's
+launch design, with the recurrence's state in the block's shared memory
+where it fits (float32), and, as in the JAX package, is reached only through its own
 entry point; the last two run the spread inside the training T-loop.  The
+four recurrence kernels share one header of device helpers,
+``csrc/ecs_lif_common.cuh``.  The
 kernel benches of ``scripts/bench_pallas_dw.py`` (``pallas_dw3`` on
 ``csrc/spread_dw3.cu``, ``pallas_dense3`` on ``csrc/dense3.cu``) live in
 ``ecs_yolo_tpu_torch/scripts/``.

@@ -12,9 +12,10 @@ Counterpart of ``ecs_yolo_tpu/snn/pallas_kernels.py``:
   strides.  Eval takes it when ``SNNConfig.fused_inference`` is set, or for a
   site whose layout the tensor-core kernel (``snn/ecs_lif.py``) refuses.
 * :func:`ecs_lif_fused_v2` is ``pallas_kernels.ecs_lif_fused_v2``: the same
-  function with the state held in shared memory, tiles in rows and width,
-  and C split across a thread-block cluster where one block cannot hold a
-  useful tile.  As in the JAX package no model route takes it: its entry
+  function in K1's launch design (one cooperative launch a site over (tile
+  x Cout slice) items, the 1x1 on the tensor cores in bf16), with the
+  recurrence's state held in the block's shared memory where it fits
+  (float32).  As in the JAX package no model route takes it: its entry
   point is the function itself, with a caller-set ``block_rows``.
 
 All are forward-only, as their TPU kernels: training and autograd keep the
@@ -38,8 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SNNConfig
-from .ecs_lif import (DTYPE_CODES, K1_TILE, _barrier, _consts, _fail_on, _occupancy,
-                      _pw_vec, check_params, k1_block_items, k1_window)
+from .ecs_lif import (DTYPE_CODES, K1_SLICES, K1_TILE, SMEM_PER_BLOCK, _barrier, _consts,
+                      _fail_on, _occupancy, _pw_vec, check_params, k1_block_items,
+                      k1_smem, k1_window)
 from .neuron import _const, lif_scan
 from .route import use_kernel
 from .spread import _entry, _sms, _stream
@@ -56,6 +58,17 @@ def lif_reference(x: torch.Tensor, cfg: SNNConfig, act: bool = False) -> torch.T
     return lif_scan(x, cfg, act)
 
 
+#: the argument types of ``lif_fused_fwd``: one int64 block, the constants
+_LIF_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=64)
+def _lif_consts(dtype: torch.dtype, thresh: float, decay: float):
+    """K6's constants, the decay rounded to the dtype once (the threshold is
+    compared in float32): a ctypes float[2]."""
+    return (ctypes.c_float * 2)(float(thresh), _const(decay, torch.empty(0, dtype=dtype)))
+
+
 def lif_fused(x: torch.Tensor, cfg: SNNConfig, act: bool = False) -> torch.Tensor:
     """Plain-LIF spikes of ``x`` ``[T, ...]`` (float32 or bfloat16), any
     shape behind T.  The dims behind T must be dense; the T axis may be a
@@ -68,32 +81,21 @@ def lif_fused(x: torch.Tensor, cfg: SNNConfig, act: bool = False) -> torch.Tenso
         raise TypeError(f"lif_fused takes float32 or bfloat16, not {x.dtype}")
     t = x.shape[0]
     m = math.prod(x.shape[1:])
-    if m and not x[0].is_contiguous():
-        raise ValueError(f"x's dims behind T must be contiguous, strides "
-                         f"{x.stride()}")
-    if t > 1 and x.stride(0) not in (0, m):
-        raise ValueError(f"x's T stride must be 0 or {m}, got {x.stride(0)}")
-    if m > (2 ** 31 - 1) * 256:
-        raise ValueError(f"one step of x holds {m} elements, more than one "
-                         "grid of 256-thread blocks covers")
-    from .. import _build
-
-    lib = _build.load("lif_fused")
-    fn = lib.lif_fused_fwd
-    vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ci, vp, ll, vp, ll, ci, cf, cf, ci, vp]
-    fn.restype = ci
-    lib.lif_fused_error_string.argtypes = [ci]
-    lib.lif_fused_error_string.restype = ctypes.c_char_p
-
+    if not x.is_contiguous():
+        if m and not x[0].is_contiguous():
+            raise ValueError(f"x's dims behind T must be contiguous, strides "
+                             f"{x.stride()}")
+        if t > 1 and x.stride(0) not in (0, m):
+            raise ValueError(f"x's T stride must be 0 or {m}, got {x.stride(0)}")
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(DTYPE_CODES[x.dtype], x.data_ptr(), x.stride(0) if t > 1 else 0,
-             out.data_ptr(), m, t, float(cfg.thresh), _const(cfg.decay, x),
-             int(act), stream)
-    if err != 0:
-        raise RuntimeError("lif_fused kernel launch failed: "
-                           + lib.lif_fused_error_string(err).decode())
+    if out.numel() == 0:
+        return out
+    fn = _entry("lif_fused", "lif_fused_fwd", _LIF_ARGTYPES)     # built and bound first
+    args = array.array("q", (DTYPE_CODES[x.dtype], x.data_ptr(),
+                             x.stride(0) if t > 1 else 0, out.data_ptr(), m, t,
+                             int(act), _stream(x)))
+    _fail_on(fn(args.buffer_info()[0], _lif_consts(x.dtype, cfg.thresh, cfg.decay)),
+             "launch", "lif_fused")
     lif_fused.launches += 1
     return out
 
@@ -355,116 +357,278 @@ def ecs_lif_fused_rows(x, dw_kernel, dw_bias, pw_kernel, pw_bias,
 ecs_lif_fused_rows.launches = 0
 
 
-# --- ECS-LIF with its state in shared memory -------------------------------------
+# --- ECS-LIF with its state on chip: K3's plan ------------------------------------
 
-#: dynamic shared memory one block may hold on sm_90 (227 KB)
-SMEM_PER_BLOCK = 232448
-#: the largest thread-block cluster the kernel launches (the portable size)
-MAX_CLUSTER = 8
-#: channels one block of a cluster aims to own: its state planes then leave
-#: room for a window of some 24 x 24 pixels (bf16) or 16 x 16 (f32)
-TARGET_CHANNELS = {2: 64, 4: 32}
-
-
-def split_channels(c: int, itemsize: int) -> Tuple[int, int, int]:
-    """``(cluster, channels, pitch)``: how many blocks of a thread-block
-    cluster share a tile's C channels, how many each owns, and the row pitch
-    (elements) of its state planes in shared memory.
-
-    The cluster doubles while a block would own more than
-    ``TARGET_CHANNELS`` channels and the split stays a multiple of 16 (the
-    product's K step).  Unsplit, the channels are padded to a multiple of 16
-    with zeros.  The pitch pads each pixel's row by 16 bytes, so that the
-    rows of a product tile fall on different banks.
-    """
-    cs = 1
-    while (cs < MAX_CLUSTER and c // cs > TARGET_CHANNELS[itemsize]
-           and c % (2 * cs) == 0 and (c // (2 * cs)) % 16 == 0):
-        cs *= 2
-    cl = c // cs if cs > 1 else -(-c // 16) * 16
-    return cs, cl, cl + 16 // itemsize
+#: pixels of a run: the product's M granularity (two warpgroups of 64 rows)
+K3_RUN = K1_TILE
+#: shared memory of one SM (H100: 228 KB), of which each resident block
+#: takes its dynamic shared memory and 1 KB of its own
+SMEM_PER_SM = 233472
+#: blocks of K3 an SM holds off the card (as K1: one); on the card the
+#: wrapper asks the occupancy query
+K3_BLOCKS_PER_SM = 1
 
 
-def _window(n: int, tile: int, halo: int) -> int:
-    """Pixels (along one axis) of the largest window a tile needs."""
-    return min(n, tile + 2 * halo)
+class K3Plan(NamedTuple):
+    """A launch of K3: items of ``tile`` pixels (``sub`` runs of 128) x
+    ``slice`` output channels (``slices`` of them cover C; ``tiles`` tiles
+    cover the N*H*W pixels), K-chunks of ``chunk`` input channels, ``grid``
+    blocks (a multiple of ``slices``: block b owns slice ``b % slices``),
+    windows of ``window`` pixel slots, ``smem`` bytes of dynamic shared
+    memory a block, the recurrence's state in ``state``: ``"shared"`` (the
+    block's shared memory) or ``"workspace"`` (device memory)."""
+    tile: int
+    sub: int
+    slice: int
+    slices: int
+    chunk: int
+    tiles: int
+    items: int
+    grid: int
+    window: int
+    smem: int
+    state: str
 
 
-def max_block_rows(shape, itemsize: int) -> int:
-    """The largest ``block_rows`` whose tile fits one block's shared memory
-    on the card (with one-column tiles), for ``x`` of ``shape`` ``[T, N, H,
-    W, C]``; 0 when not even one row fits."""
-    t, _, h, w, c = shape
-    halo = t - 1
-    _, _, pitch = split_channels(c, itemsize)
-    rows = SMEM_PER_BLOCK // (3 * pitch * itemsize) // _window(w, 1, halo)
-    return h if rows >= h else max(0, rows - 2 * halo)
+def k3_smem(itemsize: int, c: int, w: int, n_slice: int, state_items: int = 0,
+            sub: int = 1) -> int:
+    """Dynamic shared memory of a block (``csrc/ecs_lif_v2.cu``'s layout):
+    K1's (:func:`k1_smem`), one window slot of zeros in f32, and the mem and
+    ecs of ``state_items`` items of ``sub`` runs x ``n_slice`` channels where
+    the state is held there."""
+    state = 2 * state_items * sub * K3_RUN * n_slice * itemsize
+    return k1_smem(itemsize, c, w, n_slice) + (128 if itemsize == 4 else 0) + state
+
+
+def k3_state_fits(smem: int, blocks_per_sm: int) -> bool:
+    """Whether blocks of ``smem`` bytes (the state in shared memory) still
+    fit ``blocks_per_sm`` to an SM."""
+    return smem <= SMEM_PER_BLOCK and blocks_per_sm * (smem + 1024) <= SMEM_PER_SM
+
+
+def _k3_slices(c: int) -> List[int]:
+    """The Cout slices K3 may take at C, widest first (no wider than C
+    rounded up to 32)."""
+    return [n for n in K1_SLICES if n <= 32 * math.ceil(c / 32)]
+
+
+@functools.lru_cache(maxsize=1024)
+def _k3_item_slice(c: int, w: int, itemsize: int, sub: int) -> Optional[int]:
+    """The widest Cout slice whose block holds one item of ``sub`` runs with
+    its state, or None."""
+    for n_slice in _k3_slices(c):
+        if k3_smem(itemsize, c, w, n_slice, 1, sub) <= SMEM_PER_BLOCK:
+            return n_slice
+    return None
+
+
+def _k3_sub(rows: int, w: int) -> int:
+    """Runs of an item of ``rows`` image rows: rows * W pixels rounded up to
+    the product's M granularity."""
+    return math.ceil(rows * w / K3_RUN)
 
 
 @functools.lru_cache(maxsize=256)
-def plan_v2(shape, itemsize: int, block_rows: int, sms: int) -> Tuple[int, ...]:
-    """``(cluster, channels, pitch, rows, cols)`` of a launch of
-    :func:`ecs_lif_fused_v2` for ``x`` of ``shape`` ``[T, N, H, W, C]``.
+def max_block_rows(shape, itemsize: int) -> int:
+    """The largest ``block_rows`` whose item fits, for ``x`` of ``shape``
+    ``[T, N, H, W, C]``: a block's shared memory holds one item's mem and
+    ecs beside its B slice and windows (the TPU kernel's scratch), at some
+    Cout slice.  H where the whole height fits (any larger block_rows is
+    H); 0 when not even one row does."""
+    _, _, h, w, c = shape
+    lo, hi = 0, h                    # fits(lo) (or lo = 0), the answer is in [lo, hi]
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _k3_item_slice(c, w, itemsize, _k3_sub(mid, w)) is not None:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
-    A tile of ``rows x cols`` output pixels is computed on its window grown
-    by T-1 pixels on each side and clipped to the image, whose state planes
-    (mem, ecs and the depthwise sum d, ``pitch`` elements a pixel) must fit
-    ``SMEM_PER_BLOCK``.  ``block_rows`` > 0 fixes the rows (clipped to H)
-    and takes the columns that cost least; 0 searches both.  The cost of a
-    tiling is the waves of blocks the card runs (one block an SM) times the
-    window a block computes; on a tie the larger tile wins (less work in
-    all).  Raises ``ValueError`` where no tile fits.
+
+@functools.lru_cache(maxsize=256)
+def plan_k3(n: int, h: int, w: int, c: int, sms: int = 132,
+            dtype: torch.dtype = torch.bfloat16, block_rows: int = 0,
+            blocks_per_sm: Optional[int] = None) -> K3Plan:
+    """K3's plan for ``[n, h, w, c]`` sites on a card of ``sms`` SMs.
+
+    ``block_rows`` > 0 sets the rows of an item (clipped to H): its tile is
+    block_rows * W pixels rounded up to 128, and its slice the widest whose
+    block holds one item's state beside B and the windows; a block_rows
+    whose item fits no slice raises ``ValueError`` naming the largest that
+    fits (:func:`max_block_rows`).  0: items of one run at K1's slice (the
+    widest whose B and windows fit).  The grid is every block the card holds
+    at once (``blocks_per_sm`` from the occupancy query, else an estimate),
+    rounded down to a multiple of the slices and no more than the items.
+    The state is held in shared memory in float32 where the busiest block's
+    items fit there without lowering the blocks an SM holds, else in the
+    workspace (bf16's state reads no faster from shared memory than
+    through L2 where it fits, f32's 3-7 % faster; PERF.md §6).
     """
-    t, n, h, w, c = shape
-    halo = t - 1
-    cs, cl, pitch = split_channels(c, itemsize)
-    px = SMEM_PER_BLOCK // (3 * pitch * itemsize)
+    if min(n, h, w, c) <= 0:
+        raise ValueError(f"plan_k3: empty site {n}x{h}x{w}x{c}")
+    itemsize = torch.tensor([], dtype=dtype).element_size()
     if block_rows:
-        br = min(block_rows, h)
-        if _window(h, br, halo) * _window(w, 1, halo) > px:
-            most = max_block_rows(shape, itemsize)
+        sub = _k3_sub(min(block_rows, h), w)
+        n_slice = _k3_item_slice(c, w, itemsize, sub)
+        if n_slice is None:
+            most = max_block_rows((0, n, h, w, c), itemsize)
             raise ValueError(
-                f"block_rows={block_rows} does not fit: a window of "
-                f"{_window(h, br, halo)} rows x {_window(w, 1, halo)} columns "
-                f"x {cl} channels needs more than the {SMEM_PER_BLOCK} bytes of "
-                f"shared memory a block has; the largest block_rows that fits "
-                f"is {most}")
-        rows = [br]
+                f"block_rows={block_rows} does not fit: an item of {sub * K3_RUN} pixels "
+                f"holds its mem and ecs in no block's {SMEM_PER_BLOCK} bytes of shared "
+                f"memory beside its Cout slice of pw and its windows at C={c}, W={w}; "
+                f"the largest block_rows that fits is {most}")
     else:
-        rows = range(1, h + 1)
-    best, best_key = None, None
-    for br in rows:
-        wr = _window(h, br, halo)
-        for bc in range(1, w + 1):
-            win = wr * _window(w, bc, halo)
-            if win > px:
-                break
-            blocks = n * math.ceil(h / br) * math.ceil(w / bc) * cs
-            key = (math.ceil(blocks / sms) * win, blocks * win)
-            if best_key is None or key <= best_key:
-                best, best_key = (br, bc), key
-    if best is None:
-        raise ValueError(
-            f"no tile of a {h}x{w}x{c} site fits one block's {SMEM_PER_BLOCK} "
-            f"bytes of shared memory (a {_window(h, 1, halo)}x"
-            f"{_window(w, 1, halo)} window of {cl} channels is too large)")
-    return (cs, cl, pitch) + best
+        sub = 1
+        n_slice = next((s for s in _k3_slices(c)
+                        if k3_smem(itemsize, c, w, s) <= SMEM_PER_BLOCK), None)
+        if n_slice is None:
+            raise ValueError(f"ecs_lif_fused_v2: no Cout slice fits the shared memory at "
+                             f"C={c}, W={w}")
+    slices = math.ceil(c / n_slice)
+    tile = sub * K3_RUN
+    tiles = math.ceil(n * h * w / tile)
+    per_sm = K3_BLOCKS_PER_SM if blocks_per_sm is None else blocks_per_sm
+    resident = per_sm * sms // slices * slices
+    if resident < slices:
+        raise ValueError(f"plan_k3: {per_sm} blocks an SM on {sms} SMs hold fewer "
+                         f"than the {slices} slices of C={c}")
+    grid = max(slices, min(resident, tiles * slices))
+    most = math.ceil(tiles / (grid // slices))
+    smem = k3_smem(itemsize, c, w, n_slice, most, sub)
+    state = "shared"
+    if itemsize == 2 or not k3_state_fits(smem, per_sm):
+        smem, state = k3_smem(itemsize, c, w, n_slice, 0, sub), "workspace"
+    return K3Plan(tile, sub, n_slice, slices, 128 // itemsize, tiles, tiles * slices, grid,
+                  k1_window(w), smem, state)
+
+
+#: the ``(tile, slice)`` items block ``b`` owns, K1's rule
+k3_block_items = k1_block_items
+
+
+@torch.no_grad()
+def k3_grid_walk_reference(x, dw_kernel, dw_bias, pw_kernel, pw_bias,
+                           cfg: SNNConfig, act: bool = False,
+                           plan: Optional[K3Plan] = None) -> torch.Tensor:
+    """K3's walk in plain PyTorch, for the CPU tests of the plan.
+
+    Step 0 fires x_0.  At every later step each block of the plan takes its
+    items in order and each item its 128-pixel runs in order; a run
+    computes, K-chunk by K-chunk, the depthwise 3x3 of the previous step's
+    spikes over its pixels (tap by tap in the dtype, + dwb) and adds the
+    chunk's products with its slice of pw into a float32 sum, one input
+    channel at a time in index order; its epilogue rounds the sum, adds pwb
+    and updates ecs, mem and the spike in the kernel's order, with the
+    block's state kept per run (the plan's ``state`` decides only where the
+    kernel keeps it).  Every operation is the plain version's, so on data
+    whose products and sums are exact (dyadic) the two are bit-equal; the
+    kernel's bf16 product sums on the tensor cores in another order.
+    """
+    dt = x.dtype
+    t_steps, n, h, w, c = x.shape
+    if plan is None:
+        plan = plan_k3(n, h, w, c, 132, dt)
+    p_all = n * h * w
+    xf = x.reshape(t_steps, p_all, c)
+    dw, dwb, pw, pwb, decay, alpha, beta, leak = _rows_params(
+        x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg)
+    dw = dw.reshape(9, c)
+    out = torch.full((t_steps, p_all, c), float("nan"), dtype=dt)
+    out[0] = spike_fn(xf[0], cfg.thresh, cfg.lens, act)
+    state = {}                       # (block, run) -> (mem, ecs) of the run's slice
+    pix = torch.arange(p_all)
+    hh, ww = (pix // w) % h, pix % w
+    for t in range(1, t_steps):
+        prev = F.pad(out[t - 1].reshape(n, h, w, c), (0, 0, 1, 1, 1, 1))
+        for b in range(plan.grid):
+            runs = [(tile * plan.sub + u, sl) for tile, sl in k3_block_items(plan, b)
+                    for u in range(plan.sub)]
+            for r, (run, sl) in enumerate(runs):
+                px = pix[run * K3_RUN:(run + 1) * K3_RUN]
+                if len(px) == 0:
+                    continue
+                cs = slice(sl * plan.slice, min(c, (sl + 1) * plan.slice))
+                i_n, i_h, i_w = px // (h * w), hh[px], ww[px]
+                acc = torch.zeros((len(px), cs.stop - cs.start))
+                for k0 in range(0, c, plan.chunk):
+                    ks = slice(k0, min(c, k0 + plan.chunk))
+                    d = torch.zeros((len(px), ks.stop - ks.start), dtype=dt)
+                    for tap in range(9):
+                        d = d + prev[i_n, i_h + tap // 3, i_w + tap % 3, ks] * dw[tap, ks]
+                    d = (d + dwb[ks]).float()
+                    for ci in range(ks.start, ks.stop):
+                        acc = acc + d[:, ci - k0:ci - k0 + 1] * pw[ci, cs]
+                e = acc.to(dt) + pwb[cs]
+                if t == 1:
+                    mem, ecs = xf[0][px, cs], torch.zeros_like(e)
+                else:
+                    mem, ecs = state[b, r]
+                ecs = alpha * e + leak * ecs
+                fecs = beta * torch.tanh(ecs)
+                spk = out[t - 1][px, cs]
+                mem = mem * decay * (1.0 - spk) + xf[t][px, cs] + fecs
+                out[t][px, cs] = spike_fn(mem, cfg.thresh, cfg.lens, act)
+                state[b, r] = (mem, ecs)
+    return out.reshape(t_steps, n, h, w, c)
+
+
+# --- ECS-LIF with its state on chip: the launch -------------------------------------
+
+_K3_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p]
+
+
+def k3_launch_plan(x: torch.Tensor, block_rows: int = 0) -> K3Plan:
+    """The plan a launch of K3 on ``x`` ``[T, N, H, W, C]`` takes (the
+    occupancy asked at the plan's slice and its shared memory without the
+    state; the state is taken into shared memory only where it keeps that
+    occupancy)."""
+    t, n, h, w, c = x.shape
+    probe = plan_k3(n, h, w, c, 132, x.dtype, block_rows, K3_BLOCKS_PER_SM)
+    occ = _occupancy("ecs_lif_v2", x.device, x.dtype, probe.slice,
+                     k3_smem(x.element_size(), c, w, probe.slice, 0, probe.sub),
+                     K3_BLOCKS_PER_SM)
+    return plan_k3(n, h, w, c, _sms(x.device), x.dtype, block_rows, occ)
+
+
+def _launch_k3(x, dw, dwb, pw, pwb, cfg: SNNConfig, act: bool, plan: K3Plan) -> torch.Tensor:
+    """One launch of K3 on ``plan``: the parameters in x's dtype, read
+    through their strides."""
+    t, n, h, w, c = x.shape
+    out = torch.empty((t, n, h, w, c), dtype=x.dtype, device=x.device)
+    fn = _entry("ecs_lif_v2", "ecs_lif_v2_fwd", _K3_ARGTYPES)
+    stream = _stream(x)
+    ws = torch.empty((2, n * h * w * c) if t > 2 and plan.state == "workspace" else (0,),
+                     dtype=x.dtype, device=x.device)
+    args = array.array("q", (
+        DTYPE_CODES[x.dtype], plan.slice, x.data_ptr(), *x.stride(), _x_vec(x),
+        out.data_ptr(), dw.data_ptr(), dw.stride(0), dw.stride(1), dw.stride(3),
+        dwb.data_ptr(), dwb.stride(0), pw.data_ptr(), pw.stride(2), pw.stride(3),
+        _pw_vec(pw) if c % 8 == 0 else 0, pwb.data_ptr(), pwb.stride(0), ws.data_ptr(),
+        _barrier(x, stream).data_ptr(), t, n, h, w, c, plan.slices, plan.tiles, plan.sub,
+        int(plan.state == "shared"), plan.grid, plan.smem, int(act), stream))
+    consts = _consts(x.dtype, cfg.thresh, cfg.decay, cfg.alpha, cfg.beta, cfg.ecs_tau)
+    _fail_on(fn(args.buffer_info()[0], consts), "launch", "ecs_lif_v2")
+    ecs_lif_fused_v2.launches += 1
+    return out
 
 
 def ecs_lif_fused_v2(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
                      act: bool = False, block_rows: int = 0) -> torch.Tensor:
     """ECS-LIF spikes of ``x`` ``[T, N, H, W, C]`` (float32 or bfloat16), any
-    shape and strides, with the recurrence's state held in shared memory
-    (``csrc/ecs_lif_v2.cu``; the counterpart of the JAX
+    shape and strides, with the recurrence's state held on chip where it
+    fits (``csrc/ecs_lif_v2.cu``; the counterpart of the JAX
     ``pallas_kernels.ecs_lif_fused_v2``).
 
     It computes :func:`ecs_lif_fused_rows`'s function, and its plain version
     is :func:`ecs_lif_rows_reference`.  ``block_rows`` > 0 sets the rows of
-    a tile's interior (clipped to H), as the JAX ``block_rows``; 0 lets
-    :func:`plan_v2` choose rows and columns for the card.  The result does
-    not depend on the tiling.  A ``block_rows`` whose tile does not fit a
-    block's shared memory raises ``ValueError`` naming the largest that fits
-    (:func:`max_block_rows`); on the CPU every ``block_rows`` >= 0 is taken.
+    an item (clipped to H), as the JAX ``block_rows``; 0 lets
+    :func:`plan_k3` choose.  The result does not depend on the tiling.  A
+    ``block_rows`` whose item does not fit a block's shared memory raises
+    ``ValueError`` naming the largest that fits (:func:`max_block_rows`);
+    on the CPU every ``block_rows`` >= 0 is taken.  The spread parameters
+    have the JAX shapes and are cast to x's dtype (no copy where they have
+    it) and read through their strides.
     """
     if isinstance(block_rows, bool) or not isinstance(block_rows, int) or block_rows < 0:
         raise ValueError(f"block_rows must be an int >= 0, got {block_rows!r}")
@@ -473,53 +637,14 @@ def ecs_lif_fused_v2(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
                                       pw_bias, cfg, act)
     check_params(x, dw_kernel, dw_bias, pw_kernel, pw_bias, "ecs_lif_fused_v2")
     t, n, h, w, c = x.shape
-    if n > 65535:
-        raise ValueError(f"N = {n} exceeds the 65535 images one launch takes "
-                         "(the grid's z extent)")
+    if x.numel() == 0:
+        return torch.empty((t, n, h, w, c), dtype=x.dtype, device=x.device)
+    plan_k3(n, h, w, c, 132, x.dtype, block_rows)   # an item that cannot fit raises here
     dt = x.dtype
-    out = torch.empty((t, n, h, w, c), dtype=dt, device=x.device)
-    if out.numel() == 0:
-        return out
-    item = x.element_size()
-    plan_v2(tuple(x.shape), item, block_rows, 1)      # a tile that cannot fit raises here
-    from .. import _build
-
-    lib = _build.load("ecs_lif_v2")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    cs, cl, pitch, br, bc = plan_v2(tuple(x.shape), item, block_rows, sms)
-    if math.ceil(h / br) > 65535 or math.ceil(w / bc) * cs > 2 ** 31 - 1:
-        raise ValueError(f"{math.ceil(h / br)} x {math.ceil(w / bc)} tiles exceed "
-                         "the grid's extents")
-    fn = lib.ecs_lif_v2_fwd
-    vp, ll, ci, cf = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [ci, vp, ll, ll, ll, ll, ll, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                   ci, ci, ci, ci, ci, ci, ci, cf, cf, cf, cf, cf, ci, ci, vp]
-    fn.restype = ci
-    lib.ecs_lif_v2_error_string.argtypes = [ci]
-    lib.ecs_lif_v2_error_string.restype = ctypes.c_char_p
-
-    cp = cs * cl                              # channels, padded to the split
-    dw = dw_kernel.to(dt).contiguous()
-    dwb = dw_bias.to(dt).contiguous()
-    pwb = pw_bias.to(dt).contiguous()
-    pw = pw_kernel.to(dt).reshape(c, c)       # [Cin, Cout]
-    if dt == torch.bfloat16:
-        pw = pw.t()                           # tensor-core B operand: [Cout, Cin]
-    pwp = torch.zeros((cp, cp), dtype=dt, device=x.device)
-    pwp[:c, :c] = pw
-    smem = 3 * _window(h, br, t - 1) * _window(w, bc, t - 1) * pitch * item
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(DTYPE_CODES[dt], x.data_ptr(), *x.stride(), out.data_ptr(),
-             dw.data_ptr(), dwb.data_ptr(), pwp.data_ptr(), pwb.data_ptr(),
-             t, n, h, w, c, cs, cl, pitch, br, bc, t - 1,
-             float(cfg.thresh), _const(cfg.decay, x), _const(cfg.alpha, x),
-             _const(cfg.beta, x), _const(1.0 - 1.0 / cfg.ecs_tau, x),
-             int(act), smem, stream)
-    if err != 0:
-        raise RuntimeError("ecs_lif_v2 kernel launch failed: "
-                           + lib.ecs_lif_v2_error_string(err).decode())
-    ecs_lif_fused_v2.launches += 1
-    return out
+    dw, dwb, pw, pwb = (p if p.dtype == dt else p.to(dt)
+                        for p in (dw_kernel, dw_bias, pw_kernel, pw_bias))
+    _entry("ecs_lif_v2", "ecs_lif_v2_fwd", _K3_ARGTYPES)            # built and bound first
+    return _launch_k3(x, dw, dwb, pw, pwb, cfg, act, k3_launch_plan(x, block_rows))
 
 
 ecs_lif_fused_v2.launches = 0

@@ -184,15 +184,16 @@ def test_a_kernel_that_cannot_build_raises_and_nothing_falls_back(name, monkeypa
         with pytest.raises(ValueError, match="pw_kernel"):
             getattr(FZ, name)(*ts[:3], ts[3][..., :2], ts[4], CFG)
     if name == "ecs_lif_fused_v2":
-        # a tile that cannot fit a block's shared memory, before any build
+        # a site no Cout slice fits, and an item whose state cannot fit a
+        # block's shared memory, refused before any build
         def site(h, w, c):
             return (torch.zeros(4, 1, h, w, c), torch.zeros(3, 3, 1, c), torch.zeros(c),
-                    torch.zeros(1, 1, c, c), torch.zeros(c))
+                    torch.zeros(1, 1, 1, 1).expand(1, 1, c, c), torch.zeros(c))
 
-        with pytest.raises(ValueError, match="no tile"):
-            FZ.ecs_lif_fused_v2(*site(8, 8, 408), CFG)
-        with pytest.raises(ValueError, match="largest block_rows that fits is 14$"):
-            FZ.ecs_lif_fused_v2(*site(30, 8, 1024), CFG, block_rows=15)
+        with pytest.raises(ValueError, match="no Cout slice fits"):
+            FZ.ecs_lif_fused_v2(*site(8, 8, 4000), CFG)
+        with pytest.raises(ValueError, match="largest block_rows that fits is 12$"):
+            FZ.ecs_lif_fused_v2(*site(40, 40, 384), CFG, block_rows=13)
 
 
 # --- MemUpdate's dispatch ----------------------------------------------------------
