@@ -23,16 +23,32 @@ the port's paths at full width with random weights from a seed:
 * serving: ``ecs_yolo_tpu_torch.detect.run`` on synthetic images (bf16), with
   every neuron site checked against the plain version on its real input, and
   a timed batched forward;
+* serving with the conv/bn pairs folded (``models/utils.fuse_conv_bn``,
+  phase ``fuse``): the calibrated model fused and unfused in float32 and
+  bf16, ms and kernels a b8 forward, the elementwise device time left, the
+  share of spikes the fold flips per site (gated by the kernel gates'
+  bounds), and the folded-pair count held to the JAX function's;
 * training: one float32 step on the kernel route against the same step under
   ``plain_kernels()``, then a few bf16 steps of
-  ``ecs_yolo_tpu_torch.train.trainer.make_train_step`` with SGD;
+  ``ecs_yolo_tpu_torch.train.trainer.make_train_step`` with SGD; then
+  (phase ``train_run``) ``ecs_yolo_tpu_torch.train.driver.train`` itself:
+  64 synthetic images from ``--seed``, mosaic on, nbs 64 (accumulate 8),
+  autoanchor, bf16, two epochs with a val pass each on the EMA copy, then a
+  resume from ``last.pt`` for a third, whose restored state is held bit for
+  bit to the file; per epoch the loop, val and checkpoint seconds, loop
+  img/s with the loader in it and its wait share, launches per micro-step
+  (57 binary_dw3_conv + 15 packed_spread, no eval kernel) and per val
+  forward (24 ecs_lif_fused), applies and EMA updates (every 8th
+  micro-step), and the second loop's device time and idle share;
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
   and the plain-LIF model (``ecs=False``); each again under
   ``plain_kernels()``, which must give the same detections and metrics, and
-  each model's batch-8 forward timed alone and profiled; and the metric
-  half alone on a perfect detector;
+  each model's batch-8 forward timed alone and profiled; the ECS-LIF
+  pass again with its weights folded (``--fuse``, phase ``val_fuse``),
+  recorded beside the unfused one; and the metric half alone on a perfect
+  detector;
 * the shared-state ECS-LIF kernel's own entry point,
   ``snn.fused.ecs_lif_fused_v2``, at the 24 site shapes of one res10@640
   forward (bf16, N=8), after its checks at every site shape against the
@@ -102,6 +118,11 @@ LIF_SILU_ATOL_F32, LIF_SILU_ULPS_BF16 = 2e-4, 2.0
 # rounding of the spread): recorded, with the JAX test's 2 % as the ceiling
 ROWS_VS_TENSOR_CORE_CEILING = 0.02
 VAL_IMAGES = 32
+TRAIN_IMAGES, TRAIN_EPOCHS, NBS = 64, 2, 64   # the train_run phase: 2 epochs + 1 resumed
+PROFILED_STEPS = 4         # train_run: micro-steps profiled at the end of the second epoch
+#: conv/bn pairs the JAX ``fuse_conv_bn`` folds in res10 (the Conv_1 stem;
+#: counted against JAX in tests/test_torch_port_fuse.py)
+FOLDED_PAIRS = 1
 VAL_SIZES = [(480, 640), (375, 500), (640, 640), (720, 1280)]
 # H100 SXM: HBM 3.35 TB/s; dense fp32 (CUDA cores) 67 TFLOP/s, bf16 989
 HBM_BPS = 3.35e12
@@ -953,8 +974,8 @@ def phase_bench_path(BD, BV3, counters: dict, log) -> dict:
     return counts
 
 
-def write_val_set(root: Path, seed: int) -> Path:
-    """A synthetic val split from ``seed``: ``VAL_IMAGES`` images of mixed
+def write_val_set(root: Path, seed: int, images: int = VAL_IMAGES) -> Path:
+    """A synthetic labelled split from ``seed``: ``images`` images of mixed
     native sizes (noise with flat boxes), 1-12 labelled boxes of ``NC``
     classes each, numeric file stems.  Returns the image directory."""
     from PIL import Image
@@ -962,7 +983,7 @@ def write_val_set(root: Path, seed: int) -> Path:
     rng = np.random.RandomState(seed)
     (root / "images").mkdir(parents=True)
     (root / "labels").mkdir(parents=True)
-    for i in range(VAL_IMAGES):
+    for i in range(images):
         h, w = VAL_SIZES[i % len(VAL_SIZES)]
         im = (rng.rand(h, w, 3) * 96 + 64).astype(np.uint8)
         rows = []
@@ -1002,6 +1023,7 @@ def phase_val(seed: int, log) -> dict:
     from ecs_yolo_tpu_torch import val as val_mod
     from ecs_yolo_tpu_torch.config import SNNConfig
     from ecs_yolo_tpu_torch.data.dataset import Dataset
+    from ecs_yolo_tpu_torch.models.utils import fuse_conv_bn
     from ecs_yolo_tpu_torch.models.yolo import build_model, cast_params
     from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
     from ecs_yolo_tpu_torch.ops.cocoeval import dataset_to_coco_gt, evaluate_json
@@ -1140,11 +1162,41 @@ def phase_val(seed: int, log) -> dict:
             return res, outs
 
         ecs_ref = lambda fn: lambda m, xin: fn(xin, *m.spread_params(), m.snn, m.act)
-        model = cast_params(make(SNNConfig(time_window=T)), torch.bfloat16)
+        model = make(SNNConfig(time_window=T))
+        state32 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        model = cast_params(model, torch.bfloat16)
         res_a, outs_a = val_pass("ecs_lif", model, "ecs_lif_fused", True,
                          ecs_ref(K.ecs_lif_reference))
         state = model.state_dict()
         del model
+
+        # val (a) again, its float32 weights folded before the cast (--fuse);
+        # recorded beside the unfused pass, whose NMS gates stay as they are
+        model = make(SNNConfig(time_window=T), state32)
+        folded = fuse_conv_bn(model)
+        cast_params(model, torch.bfloat16)
+        K.ecs_lif_fused.launches = 0
+        t0 = time.perf_counter()
+        res_f, outs_f = recorded_nms(val_mod, lambda: one_pass(model, "ecs_lif_fuse"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = K.ecs_lif_fused.launches
+        rec = {"phase": "val_fuse", "folded_pairs": len(folded), "forwards": len(outs_f),
+               "seen": res_f["seen"], "seen_unfused": res_a["seen"],
+               "map50": res_f["map50"], "map50_unfused": res_a["map50"],
+               "map": res_f["map"], "map_unfused": res_a["map"],
+               "wall_seconds": wall, "images_per_s": VAL_IMAGES / wall,
+               "ecs_lif_launches_per_forward": k1 / max(len(outs_f), 1),
+               "nms_rows_differing_share_vs_unfused": sum(
+                   int(((a - b).abs().amax(-1) > 0).sum())
+                   for (a, _), (b, _) in zip(outs_f, outs_a)) / sum(
+                   a.shape[0] * a.shape[1] for a, _ in outs_a)}
+        emit(rec, log)
+        if (res_f["seen"] != VAL_IMAGES or len(folded) != FOLDED_PAIRS
+                or k1 != 24 * len(outs_f) or len(outs_f) != VAL_IMAGES // N
+                or not all(math.isfinite(res_f[k]) for k in ("map50", "map", "fitness"))):
+            raise AssertionError(f"val pass with --fuse failed its checks: {rec}")
+        del model, state32
         model = cast_params(make(SNNConfig(time_window=T, fused_inference=True), state),
                             torch.bfloat16)
         res_b, outs_b = val_pass("ecs_lif_fused_inference", model, "ecs_lif_fused_rows",
@@ -1328,6 +1380,258 @@ def phase_train(log) -> dict:
     return {"binary_dw3_conv": launches[1], "packed_spread": launches[2]}
 
 
+def phase_fuse(state32: dict, xb: torch.Tensor, log) -> dict:
+    """Serving with the conv/bn pairs folded (``models/utils.fuse_conv_bn``)
+    against the same calibrated weights unfused: res10@640, b8, T=4, in
+    float32 and bfloat16 (folded in float32, then cast).  Per dtype: ms a
+    forward (unfused, fused, fused, unfused, averaged), kernels and
+    elementwise device ms a forward from the profiler, and the share of
+    spikes that differ per site.
+
+    The sites that read a folded pair's output directly (the stem's, through
+    the first block's residual and its max-pool shortcut) are held to the
+    kernel gates' bounds: there the fold's rounding meets a threshold.  A
+    spike flipped there changes the convolutions behind it, and the flips
+    multiply down the net, so the whole-run shares of the later sites are
+    recorded, not bounded (as in ``phase_train``)."""
+    from ecs_yolo_tpu_torch.models.utils import fuse_conv_bn
+    from ecs_yolo_tpu_torch.models.yolo import build_model, cast_params
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        models = []
+        for fold in (False, True):
+            m = build_model("resnet10.yaml", nc=NC)
+            m.load_state_dict(state32, strict=True)
+            folded = fuse_conv_bn(m) if fold else []
+            models.append((cast_params(m, dtype), folded))
+        (plain, _), (fused, folded) = models
+        spikes = []
+        for m, _ in models:
+            sites = [s for s in m.modules() if isinstance(s, MemUpdate)]
+            with torch.no_grad():
+                _, seen = hooked_sites(sites, lambda: m(xb))
+            names = {id(mod): n for n, mod in m.named_modules()}
+            spikes.append([(names[id(mod)], o) for mod, _, o in seen])
+        shares = [float((a != b).float().mean()) for (_, a), (_, b) in zip(*spikes)]
+        # the sites fed by the folded stem: the first block's own inputs
+        direct = [sh for (name, _), sh in zip(spikes[0], shares)
+                  if name in ("model.1.residual_function.0", "model.1.shortcut.1")]
+        del spikes
+        with torch.no_grad():
+            times = {"unfused": [], "fused": []}
+            for name in ("unfused", "fused", "fused", "unfused"):
+                m = plain if name == "unfused" else fused
+                times[name].append(cuda_ms(lambda: m(xb), reps=10))
+            prof = {name: profile_step(lambda: m(xb))
+                    for name, m in (("unfused", plain), ("fused", fused))}
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        rec = {"phase": "fuse", "dtype": dname(dtype), "batch": int(xb.shape[0]),
+               "imgsz": IMGSZ, "T": T, "folded_pairs": len(folded), "folded": folded,
+               "ms_per_forward_unfused": ms["unfused"], "ms_per_forward_fused": ms["fused"],
+               "ms_runs": times,
+               "images_per_s_unfused": xb.shape[0] / ms["unfused"] * 1e3,
+               "images_per_s_fused": xb.shape[0] / ms["fused"] * 1e3,
+               "direct_site_spike_flip_shares": direct,
+               "site_spike_flip_shares_whole_run": shares,
+               **{f"{k}_{name}": p.get(k) for name, p in prof.items()
+                  for k in ("kernel_calls", "device_ms", "elementwise_device_ms",
+                            "idle_share")},
+               "top_kernels_fused": prof["fused"].get("top_kernels")}
+        emit(rec, log)
+        out[dname(dtype)] = rec
+        if (len(folded) != FOLDED_PAIRS or len(shares) != 24 or len(direct) != 2
+                or max(direct) > SPIKE_BOUND[dtype]):
+            raise AssertionError(f"fused model ({dname(dtype)}) failed its checks: {rec}")
+        del models, plain, fused
+    return out
+
+
+def phase_train_run(seed: int, log) -> dict:
+    """The training main path: ``train.driver.train`` at full width, res10,
+    nc 13, 640 px, T=4, batch 8, bf16, HYP_SCRATCH (mosaic 1.0), nbs 64
+    (accumulate 8), autoanchor on, 4 loader threads, over ``TRAIN_IMAGES``
+    synthetic images with the 32-image val split validated every epoch;
+    ``TRAIN_EPOCHS`` epochs, then a resume from ``last.pt`` for one more.
+    The launch counters are set to 0 at each epoch's start and read at its
+    end (the loop) and around each val pass; the second epoch's last
+    ``PROFILED_STEPS`` micro-steps are profiled.  The first run loads on 4
+    threads, the resumed epoch in the loop's own thread, so that its
+    ``step_issue_s`` is the steps' host time with no loader beside them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import fused as FZ
+    from ecs_yolo_tpu_torch.snn import spread as S
+    from ecs_yolo_tpu_torch.train import driver, trainer
+    from ecs_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+    from ecs_yolo_tpu_torch.utils.general import Callbacks
+    from ecs_yolo_tpu_torch.utils.loggers import LOG_KEYS
+
+    counters = {"binary_dw3_conv": S.binary_dw3_conv, "packed_spread": S.packed_spread,
+                "ecs_lif_fused": K.ecs_lif_fused, "ecs_lif_fused_rows": FZ.ecs_lif_fused_rows,
+                "lif_fused": FZ.lif_fused}
+    loops, vals, ema_calls, checks = [], [], [0], []
+    prof = {}
+
+    def reset():
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        return {k: f.launches for k, f in counters.items()}
+
+    def epoch_start(epoch):
+        reset()
+        prof["epoch"] = epoch
+
+    def batch_end(nb):
+        # the second epoch's last PROFILED_STEPS micro-steps, loader running
+        if prof["epoch"] == 1 and nb == TRAIN_IMAGES // N - PROFILED_STEPS:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+
+    def epoch_end(epoch):
+        loops.append(dict(epoch=epoch, launches=read()))
+        if "p" in prof:
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - prof["t0"]) * 1e3
+            prof["p"].__exit__(None, None, None)
+            rows = [(e.self_device_time_total / 1e3, e.key) for e in prof["p"].key_averages()
+                    if str(e.device_type).endswith("CUDA")]
+            dev_ms = sum(r[0] for r in rows)
+            prof["rec"] = {"epoch": 1, "micro_steps": PROFILED_STEPS,
+                           "profiled_wall_ms": wall, "device_ms": dev_ms,
+                           "idle_share": max(0.0, 1 - dev_ms / wall) if rows else None,
+                           "top_kernels": [{"name": k[:90], "ms": v}
+                                           for v, k in sorted(rows, reverse=True)[:8]]}
+            del prof["p"]
+
+    def val_end(results):
+        vals.append(dict(launches=read(), seen=results["seen"]))
+
+    real_ema = trainer.ema_update
+
+    def counted_ema(*a, **k):
+        ema_calls[0] += 1
+        return real_ema(*a, **k)
+
+    def callbacks():
+        cb = Callbacks()
+        cb.register_action("on_train_epoch_start", callback=epoch_start)
+        cb.register_action("on_train_batch_end", callback=batch_end)
+        cb.register_action("on_train_epoch_end", callback=epoch_end)
+        cb.register_action("on_val_start", callback=reset)
+        cb.register_action("on_val_end", callback=val_end)
+        return cb
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        train_src = write_val_set(tmp / "train", seed + 100, TRAIN_IMAGES)
+        val_src = write_val_set(tmp / "val", seed)
+        write_s = time.perf_counter() - t0
+        kw = dict(cfg="resnet10.yaml", train_path=str(train_src), val_path=str(val_src),
+                  nc=NC, batch_size=N, imgsz=IMGSZ, nbs=NBS, bf16=True,
+                  autoanchor=True, seed=seed, loggers_include=("csv",))
+        trainer.ema_update = counted_ema
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, best, hist = driver.train(epochs=TRAIN_EPOCHS, callbacks=callbacks(),
+                                             save_dir=str(tmp / "run"), workers=4, **kw)
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            steps, ema_first = int(state.step), ema_calls[0]
+            w = tmp / "run" / "weights"
+            files = sorted(p.name for p in w.iterdir())
+            header = (tmp / "run" / "results.csv").read_text().splitlines()[0].split(",")
+            saved, meta = load_checkpoint(w / "last.pt")
+            del state
+
+            def restored(st):
+                same = lambda a, b: torch.equal(a.detach().cpu(), b)
+                o, so = st.opt_state.tensors(), saved["opt_state"]
+                checks.append({
+                    "step": int(st.step) == saved["step"],
+                    "params": all(same(v, saved["model"][k]) for k, v in st.params.items()),
+                    "buffers": all(same(v, saved["model"][k])
+                                   for k, v in st.batch_stats.items()),
+                    "ema": all(same(v, saved["ema"][k]) for k, v in st.ema_params.items()),
+                    "opt_state": (all(same(v, so["mu"][k]) for k, v in o["mu"].items())
+                                  and all(same(v, so["acc"][k]) for k, v in o["acc"].items())
+                                  and same(o["count"], so["count"])
+                                  and same(o["errors"], so["errors"])
+                                  and o["mini_step"] == so["mini_step"]
+                                  and o["nu"] is None and so["nu"] is None)})
+
+            cb = callbacks()
+            cb.register_action("on_train_start", callback=restored)
+            t0 = time.perf_counter()
+            # the resumed epoch loads in the loop's own thread (workers 0): its
+            # step_s is the step's host issue with no loader thread beside it
+            state2, _, hist2 = driver.train(epochs=TRAIN_EPOCHS + 1, callbacks=cb,
+                                            resume=str(w / "last.pt"), workers=0,
+                                            save_dir=str(tmp / "run2"), **kw)
+            resume_s = time.perf_counter() - t0
+            steps2 = int(state2.step)
+            del state2
+        finally:
+            trainer.ema_update = real_ema
+
+    hists = hist + hist2
+    per_epoch = []
+    for h, loop, v in zip(hists, loops, vals):
+        n_img = h["micro_steps"] * N
+        per_epoch.append({
+            "epoch": h["epoch"], "epoch_s": h["epoch_s"], "train_loop_s": h["train_s"],
+            "val_s": h["val_s"], "checkpoint_s": h["ckpt_s"],
+            "workers": 4 if h["epoch"] < TRAIN_EPOCHS else 0,
+            "loader_wait_s": h["wait_s"], "loader_wait_share": h["wait_s"] / h["train_s"],
+            "step_issue_s": h["step_s"], "step_issue_ms_per_micro_step":
+            h["step_s"] / h["micro_steps"] * 1e3,
+            "train_images_per_s": n_img / h["train_s"], "micro_steps": h["micro_steps"],
+            "applies": h["applies"], "applied": h["applied"], "mloss": h["mloss"],
+            "loss_finite": h["loss_finite"], "map50": h["map50"], "fitness": h["fitness"],
+            "seen": h["seen"], "profiled_last_micro_steps": PROFILED_STEPS
+            if h["epoch"] == 1 else 0, "loop_launches": loop["launches"],
+            "loop_launches_per_micro_step": {k: c / h["micro_steps"]
+                                             for k, c in loop["launches"].items()},
+            "val_launches": v["launches"]})
+    applies = sum(h["applies"] for h in hists)
+    rec = {"phase": "train_run", "cfg": "resnet10.yaml", "nc": NC, "imgsz": IMGSZ,
+           "T": T, "batch": N, "nbs": NBS, "accumulate": NBS // N, "dtype": "bfloat16",
+           "train_images": TRAIN_IMAGES, "val_images": VAL_IMAGES,
+           "write_sets_s": write_s, "run_s": run_s, "resume_run_s": resume_s,
+           "peak_memory_gb": peak, "micro_steps": steps2, "applies": applies,
+           "ema_updates": ema_calls[0], "best_fitness": best, "files": files,
+           "results_csv_header": header, "resume_checks": checks,
+           "epochs": per_epoch, "profiled_loop": prof.get("rec")}
+    emit(rec, log)
+    per_forward = [v["launches"]["ecs_lif_fused"] / math.ceil(VAL_IMAGES / N) for v in vals]
+    ok = (len(hists) == TRAIN_EPOCHS + 1 and [h["epoch"] for h in hist2] == [TRAIN_EPOCHS]
+          and all(h["loss_finite"] for h in hists)
+          and applies == steps2 // (NBS // N) and steps == TRAIN_EPOCHS * TRAIN_IMAGES // N
+          and ema_first == steps // (NBS // N) and ema_calls[0] == applies
+          and all(e["loop_launches_per_micro_step"] == {
+              "binary_dw3_conv": 57, "packed_spread": 15, "ecs_lif_fused": 0,
+              "ecs_lif_fused_rows": 0, "lif_fused": 0} for e in per_epoch)
+          and all(p == 24 for p in per_forward)
+          and all(v["launches"]["binary_dw3_conv"] == v["launches"]["packed_spread"] == 0
+                  for v in vals)
+          and all(h["seen"] == VAL_IMAGES for h in hists)
+          and {"best.pt", "last.pt"} <= set(files)
+          and set(LOG_KEYS) <= set(header) and len(checks) == 1 and all(checks[0].values()))
+    if not ok:
+        raise AssertionError(f"train_run failed its checks: {rec}")
+    return {"binary_dw3_conv": sum(e["loop_launches"]["binary_dw3_conv"] for e in per_epoch),
+            "packed_spread": sum(e["loop_launches"]["packed_spread"] for e in per_epoch),
+            "ecs_lif_fused": sum(v["launches"]["ecs_lif_fused"] for v in vals)}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1420,6 +1724,7 @@ def main(argv=None) -> int:
 
         # --- the detect path at full width -------------------------------------
         calibrate_bn(model, torch.from_numpy(np.concatenate(ims)).cuda(), _BN)
+        state32 = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
         # end to end in float32: kernel route against the plain route
         with torch.no_grad():
@@ -1477,13 +1782,18 @@ def main(argv=None) -> int:
         with torch.no_grad():
             ms = cuda_ms(lambda: model(xb), reps=10)
             prof = profile_step(lambda: model(xb))
-    emit({"phase": "throughput", "batch": int(xb.shape[0]), "imgsz": IMGSZ,
-          "T": T, "dtype": "bfloat16", "ms_per_forward": ms,
-          "images_per_s": xb.shape[0] / ms * 1e3, **prof}, log)
-    del model, xb, x1
+        emit({"phase": "throughput", "batch": int(xb.shape[0]), "imgsz": IMGSZ,
+              "T": T, "dtype": "bfloat16", "ms_per_forward": ms,
+              "images_per_s": xb.shape[0] / ms * 1e3, **prof}, log)
+        del model, x1
 
-    # --- the training main path ------------------------------------------------
+        # --- serving with the conv/bn pairs folded, same weights ---------------
+        phase_fuse(state32, xb, log)
+    del xb, state32
+
+    # --- the training main paths: train steps, then train() with resume -------
     spread_launches = phase_train(log)
+    run_launches = phase_train_run(opt.seed, log)
 
     # --- the validation main path ----------------------------------------------
     val_launches = phase_val(opt.seed, log)
@@ -1504,11 +1814,13 @@ def main(argv=None) -> int:
             work=f"the 24 neuron sites of one res10@640 forward, N={N}, T={T}, "
                  "bf16; launches over the 4 detect forwards (the val pass on "
                  f"the default route adds {val_launches['ecs_lif_fused']})",
-            library_note="no single PyTorch call computes the ECS-LIF recurrence"),
+            library_note="no single PyTorch call computes the ECS-LIF recurrence",
+            train_run_launches=run_launches["ecs_lif_fused"]),
         aggs["binary_dw3_conv"].entry(
             name="binary_dw3_conv", route="cuda", source=csrc + "spread_dw3.cu",
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:73",
             launches=spread_launches["binary_dw3_conv"],
+            train_run_launches=run_launches["binary_dw3_conv"],
             work=f"the 57 launches (19 sites x {T - 1} steps) of {fwd}; launches "
                  f"over the {TRAIN_STEPS} train steps; ms is the device time of "
                  "binary_dw3_conv (one launch a call) from calls replayed in a CUDA "
@@ -1521,6 +1833,7 @@ def main(argv=None) -> int:
             name="packed_spread", route="cuda", source=csrc + "spread_gemm.cu",
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:218",
             launches=spread_launches["packed_spread"],
+            train_run_launches=run_launches["packed_spread"],
             work=f"the 15 launches (5 sites x {T - 1} steps) of {fwd}; launches "
                  f"over the {TRAIN_STEPS} train steps; ms is the kernel alone, "
                  "wrapper_ms the autograd.Function as the train path calls it",
@@ -1639,6 +1952,7 @@ def profile_step(run) -> dict:
         ("spread_gemm_device_ms", "spread_gemm_"))}
     return {"profiled_wall_ms": wall_ms, "device_ms": total,
             "kernel_calls": sum(r[2] for r in rows), **own,
+            "elementwise_device_ms": sum(r[0] for r in rows if "elementwise" in r[1]),
             "idle_share": max(0.0, 1 - total / wall_ms),
             "top_kernels": [{"name": k[:90], "ms": ms, "calls": c}
                             for ms, k, c in rows[:12]]}

@@ -1,5 +1,5 @@
-"""Validation dataset: images + YOLO-format txt labels (counterpart of
-``ecs_yolo_tpu/data/dataset.py``, the val half).
+"""Training and validation dataset: images + YOLO-format txt labels
+(counterpart of ``ecs_yolo_tpu/data/dataset.py``).
 
 Label discovery through the images -> labels path convention, letterbox to a
 square canvas (or to a few aspect-ratio buckets in ``rect`` mode), labels
@@ -8,9 +8,19 @@ last one zero-padded, and the per-image ``meta`` that maps the canvas back to
 the native image.  Images come out channels-last, uint8 (``uint8_out``, divide
 on the device) or float32 in [0, 1].
 
-The train half (``augment=True``: mosaic, perspective, HSV, flips; the image
-caches; ``quad`` collate; ``host_shard``; ``SegmentDataset``) is not ported
-yet (ROADMAP Queue 1 item 7) and raises ``NotImplementedError``.
+The train half (``augment=True``): 4-image mosaic with a random perspective
+warp, mixup, Albumentations (the identity without the package), HSV jitter
+and flips, with ``hyp`` copied per instance (so ``close_mosaic`` can switch
+mosaic off on one dataset), ``mosaic_border`` and ``indices`` (resampled for
+image weights); decoded images cached in RAM or on disk (``cache_images``).
+
+Deviation: each sample's ``random.Random`` is drawn from ``(seed, epoch,
+index)`` (``sample_rng``; the trainer sets ``epoch``), so an epoch's
+augmentation can be reproduced.  The JAX package seeds it from the process id
+and the global ``random`` state, which cannot be.
+
+Not ported yet: the ``quad`` collate, ``host_shard`` (ROADMAP Queue 1 item
+7) and ``SegmentDataset`` (item 11); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,16 +28,19 @@ from __future__ import annotations
 import hashlib
 import os
 import queue
+import random
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from PIL import Image
 
-from .augment import letterbox
+from ..utils.general import LOGGER
+from .augment import (Albumentations, augment_hsv, flip_lr, flip_ud, letterbox,
+                      mixup, random_perspective)
 
 IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
 _TRAIN_HALF = "is part of the train data path, not ported yet (ROADMAP Queue 1 item 7)"
@@ -98,13 +111,14 @@ def load_label_file(path: str) -> np.ndarray:
 
 
 class Dataset:
-    """Image+label dataset for evaluation (``augment=False``)."""
+    """Image+label dataset with cached labels and the YOLO augmentations."""
 
     def __init__(
         self,
         path,
         img_size: int = 640,
         augment: bool = False,
+        hyp: Optional[Dict] = None,
         stride: int = 32,
         max_labels: int = 300,
         cache_dir: Optional[str] = None,
@@ -113,24 +127,48 @@ class Dataset:
         rect_buckets: int = 4,
         cache_images: Optional[str] = None,
         uint8_out: bool = False,
+        seed: int = 0,
     ):
-        if augment:
-            raise NotImplementedError(f"augment=True {_TRAIN_HALF}")
-        if cache_images is not None:
-            raise NotImplementedError(f"cache_images {_TRAIN_HALF}")
         self.img_files = find_images(path)
         if not self.img_files:
             raise FileNotFoundError(f"no images found in {path}")
         self.label_files = [img2label_path(p) for p in self.img_files]
         self.img_size = img_size
-        self.augment = False
+        self.augment = augment
+        self.hyp = dict(hyp or {})
         self.stride = stride
         self.max_labels = max_labels
         self.single_cls = single_cls
         self.uint8_out = uint8_out
+        self.seed, self.epoch = seed, 0
         self.labels = self._load_labels(cache_dir)
+        self.albumentations = Albumentations() if augment else None
         self.n = len(self.img_files)
         self.indices = np.arange(self.n)
+        self.mosaic_border = [-img_size // 2, -img_size // 2]
+
+        # decoded-image cache (reference --cache ram|disk): holds what
+        # load_image returns (decoded and resized to img_size).  'ram' fills
+        # on first access, unless the estimated footprint exceeds 80 % of the
+        # available memory; 'disk' writes .npy files on first miss.
+        self.cache_images = cache_images
+        self.ims: Optional[list] = None
+        self._im_hw0: Optional[list] = None
+        if cache_images == "ram":
+            if not self._cache_ram_ok():
+                LOGGER.warning("image RAM cache would exceed 80% of available "
+                               "memory; loading uncached")
+                self.cache_images = None
+            else:
+                self.ims = [None] * self.n
+                self._im_hw0 = [None] * self.n
+        elif cache_images == "disk":
+            base = Path(cache_dir) if cache_dir else (
+                Path(self.img_files[0]).parent.parent / ".npy_cache")
+            base.mkdir(parents=True, exist_ok=True)
+            self._npy_dir = base
+        elif cache_images is not None:
+            raise ValueError(f"cache_images must be ram|disk, got {cache_images}")
 
         # rect mode: aspect ratios quantize into a few letterbox buckets, so
         # that a val pass sees a few static batch shapes
@@ -221,9 +259,21 @@ class Dataset:
             ratio_pad=((h / h0 * r, w / w0 * r), pad),
         )
 
-    def load_image(self, i: int):
-        """Decode + resize the longest side to img_size (keeps the ratio).
-        Returns (image uint8, native (h0, w0), resized (h, w))."""
+    def _cache_ram_ok(self, frac: float = 0.8) -> bool:
+        """The RAM cache's footprint, estimated from one image, against
+        MemAvailable (reference check_cache_ram)."""
+        try:
+            h0, w0 = self._image_hw(self.img_files[0])
+            r = self.img_size / max(h0, w0)
+            need = self.n * 3 * min(1.0, r) ** 2 * h0 * w0
+            with open("/proc/meminfo") as f:
+                avail = next(int(ln.split()[1]) * 1024 for ln in f
+                             if ln.startswith("MemAvailable"))
+            return need < frac * avail
+        except (OSError, StopIteration):
+            return True  # no meminfo: trust the caller
+
+    def _decode_resize(self, i: int):
         with Image.open(self.img_files[i]) as fh:
             im = np.asarray(fh.convert("RGB"))
         h0, w0 = im.shape[:2]
@@ -234,17 +284,138 @@ class Dataset:
                     (int(w0 * r), int(h0 * r)), Image.BILINEAR
                 )
             )
-        return im, (h0, w0), im.shape[:2]
+        return im, (h0, w0)
+
+    def load_image(self, i: int):
+        """Decode + resize the longest side to img_size (keeps the ratio).
+        Returns (image uint8, native (h0, w0), resized (h, w)).  Served from
+        the RAM/disk cache when one is on; an entry cached at another
+        img_size (multi-scale epochs) is decoded afresh, not served stale."""
+        if self.ims is not None:
+            hit = self.ims[i]
+            # _decode_resize leaves max(shape) == img_size, so a mismatch
+            # means the entry was cached for another scale
+            if hit is not None and max(hit.shape[:2]) == self.img_size:
+                return hit, self._im_hw0[i], hit.shape[:2]
+            im, hw0 = self._decode_resize(i)
+            # one-element list writes are atomic under the interpreter lock:
+            # safe from the loader threads of batches()
+            self.ims[i], self._im_hw0[i] = im, hw0
+            return im, hw0, im.shape[:2]
+        if self.cache_images == "disk":
+            p = self._npy_dir / f"{Path(self.img_files[i]).stem}_{i}_{self.img_size}.npy"
+            hw_p = p.with_suffix(".hw0.npy")
+            if p.exists():
+                im = np.load(p)
+                hw0 = tuple(int(v) for v in np.load(hw_p)) if hw_p.exists() \
+                    else im.shape[:2]
+                return im, hw0, im.shape[:2]
+            im, hw0 = self._decode_resize(i)
+            try:
+                np.save(p, im)
+                np.save(hw_p, np.asarray(hw0))
+            except OSError:
+                pass  # disk full: keep training uncached
+            return im, hw0, im.shape[:2]
+        im, hw0 = self._decode_resize(i)
+        return im, hw0, im.shape[:2]
 
     def __len__(self):
         return self.n
 
-    def __getitem__(self, index: int):
-        """Returns (image [H,W,3], labels [max_labels,5] normalised to the
-        canvas, mask [max_labels])."""
+    # -- augmentation ---------------------------------------------------------
+
+    def sample_rng(self, index: int) -> random.Random:
+        """The generator of one sample's augmentation, from (seed, epoch,
+        index)."""
+        state = np.random.SeedSequence([self.seed, self.epoch, index])
+        return random.Random(int(state.generate_state(1, np.uint64)[0]))
+
+    def load_mosaic(self, index: int, rng) -> Tuple[np.ndarray, np.ndarray]:
+        """4-image mosaic (reference utils/datasets.py:681-750), then the
+        random perspective warp back to img_size.  Labels come out as (cls,
+        x1, y1, x2, y2) in pixels."""
+        s = self.img_size
+        yc = int(rng.uniform(-self.mosaic_border[0], 2 * s + self.mosaic_border[0]))
+        xc = int(rng.uniform(-self.mosaic_border[1], 2 * s + self.mosaic_border[1]))
+        idxs = [index] + [int(rng.choice(self.indices)) for _ in range(3)]
+        img4 = np.full((s * 2, s * 2, 3), 114, dtype=np.uint8)
+        labels4 = []
+        for i, idx in enumerate(idxs):
+            img, _, (h, w) = self.load_image(idx)
+            if i == 0:  # top-left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+                x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+                x2b, y2b = w, h
+            elif i == 1:  # top-right
+                x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, s * 2), yc
+                x1b, y1b, x2b, y2b = 0, h - (y2a - y1a), min(w, x2a - x1a), h
+            elif i == 2:  # bottom-left
+                x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(s * 2, yc + h)
+                x1b, y1b = w - (x2a - x1a), 0
+                x2b, y2b = w, min(y2a - y1a, h)
+            else:  # bottom-right
+                x1a, y1a, x2a, y2a = xc, yc, min(xc + w, s * 2), min(s * 2, yc + h)
+                x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
+            img4[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
+            padw, padh = x1a - x1b, y1a - y1b
+            lb = self.labels[idx].copy()
+            if len(lb):
+                # normalised xywh -> mosaic-canvas xyxy
+                xy = lb[:, 1:5].copy()
+                lb[:, 1] = w * (xy[:, 0] - xy[:, 2] / 2) + padw
+                lb[:, 2] = h * (xy[:, 1] - xy[:, 3] / 2) + padh
+                lb[:, 3] = w * (xy[:, 0] + xy[:, 2] / 2) + padw
+                lb[:, 4] = h * (xy[:, 1] + xy[:, 3] / 2) + padh
+            labels4.append(lb)
+        labels4 = np.concatenate(labels4, 0)
+        labels4[:, 1:] = labels4[:, 1:].clip(0, 2 * s)
+
+        hyp = self.hyp
+        return random_perspective(
+            img4,
+            labels4,
+            degrees=hyp.get("degrees", 0.0),
+            translate=hyp.get("translate", 0.1),
+            scale=hyp.get("scale", 0.5),
+            shear=hyp.get("shear", 0.0),
+            perspective=hyp.get("perspective", 0.0),
+            border=self.mosaic_border,
+            rng=rng,
+        )
+
+    def _augmented(self, index: int):
+        """Image and normalised labels of one augmented sample (reference
+        utils/datasets.py:553-624; the JAX ``__getitem__``'s train branch)."""
+        hyp = self.hyp
+        rng = self.sample_rng(index)
+        if rng.random() < hyp.get("mosaic", 1.0):
+            img, labels_xyxy = self.load_mosaic(index, rng)
+            if rng.random() < hyp.get("mixup", 0.0):
+                img2, labels2 = self.load_mosaic(int(rng.choice(self.indices)), rng)
+                img, labels_xyxy = mixup(img, labels_xyxy, img2, labels2, rng=rng)
+            h = w = img.shape[0]
+            labels = labels_xyxy.copy()
+            if len(labels):
+                labels[:, 1] = ((labels_xyxy[:, 1] + labels_xyxy[:, 3]) / 2) / w
+                labels[:, 2] = ((labels_xyxy[:, 2] + labels_xyxy[:, 4]) / 2) / h
+                labels[:, 3] = (labels_xyxy[:, 3] - labels_xyxy[:, 1]) / w
+                labels[:, 4] = (labels_xyxy[:, 4] - labels_xyxy[:, 2]) / h
+        else:
+            img, labels = self._letterboxed(index, scaleup=True)
+        img, labels = self.albumentations(img, labels, rng=rng)
+        img = augment_hsv(img, hyp.get("hsv_h", 0.015), hyp.get("hsv_s", 0.7),
+                          hyp.get("hsv_v", 0.4), rng=rng)
+        if rng.random() < hyp.get("flipud", 0.0):
+            img, labels = flip_ud(img, labels)
+        if rng.random() < hyp.get("fliplr", 0.5):
+            img, labels = flip_lr(img, labels)
+        return img, labels
+
+    def _letterboxed(self, index: int, scaleup: bool):
         img, _, (h, w) = self.load_image(index)
         shape = tuple(self.batch_shape[index]) if self.rect else self.img_size
-        img, ratio, pad = letterbox(img, shape, auto=False, scaleup=False)
+        img, ratio, pad = letterbox(img, shape, auto=False, scaleup=scaleup)
         labels = self.labels[index].copy()
         if len(labels):
             # renormalize to the letterboxed canvas
@@ -253,7 +424,15 @@ class Dataset:
             labels[:, 2] = (labels[:, 2] * h * ratio[1] + pad[1]) / nh
             labels[:, 3] = labels[:, 3] * w * ratio[0] / nw
             labels[:, 4] = labels[:, 4] * h * ratio[1] / nh
+        return img, labels
 
+    def __getitem__(self, index: int):
+        """Returns (image [H,W,3], labels [max_labels,5] normalised to the
+        canvas, mask [max_labels])."""
+        if self.augment:
+            img, labels = self._augmented(index)
+        else:
+            img, labels = self._letterboxed(index, scaleup=False)
         out_l = np.zeros((self.max_labels, 5), np.float32)
         mask = np.zeros((self.max_labels,), bool)
         n = min(len(labels), self.max_labels)
@@ -402,4 +581,5 @@ class SegmentDataset:
     """Instance-mask dataset of the JAX package: not ported yet."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"SegmentDataset {_TRAIN_HALF}")
+        raise NotImplementedError("SegmentDataset is not ported yet (ROADMAP "
+                                  "Queue 1 item 7; segment heads item 11)")

@@ -8,7 +8,7 @@ to the native image -> drawn / saved.
 CLI::
 
     python -m ecs_yolo_tpu_torch.detect --cfg resnet10.yaml --source imgs/ \
-        [--weights model.pt] [--device cuda|cpu] [--dtype bf16|fp32]
+        [--weights model.pt] [--device cuda|cpu] [--dtype bf16|fp32] [--fuse]
 
 Without ``--weights`` the model is a seeded random init (``--seed``).
 """
@@ -125,12 +125,16 @@ def parse_opt(argv=None):
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
                    help="parameter/compute dtype (BN statistics stay fp32)")
     p.add_argument("--seed", type=int, default=0, help="init seed")
+    p.add_argument("--fuse", action="store_true",
+                   help="fold the conv/bn pairs before inference "
+                        "(models/utils.fuse_conv_bn)")
     return p.parse_args(argv)
 
 
 def main(opt):
     import yaml
 
+    from .models.utils import fuse_conv_bn
     from .models.yolo import build_model, cast_params
     from .utils.checkpoint import eval_state_dict, load_checkpoint
 
@@ -144,6 +148,8 @@ def main(opt):
     if opt.weights:
         tree, _ = load_checkpoint(opt.weights)
         model.load_state_dict(eval_state_dict(tree, opt.use_ema), strict=True)
+    if opt.fuse:
+        fuse_conv_bn(model)
     cast_params(model, DTYPES[opt.dtype])
     results = run(model, opt.source, imgsz=opt.imgsz,
                   conf_thres=opt.conf_thres, iou_thres=opt.iou_thres,

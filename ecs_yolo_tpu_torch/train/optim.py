@@ -13,6 +13,23 @@ a step whose gradients are not finite is skipped, and both are decided on
 the device from 0-d tensors, so a step never waits for the device.  The
 schedules are evaluated in float32 at the count of applied steps before the
 current one, in the JAX package's order of operations.
+
+Gradient accumulation (``accumulate=k > 1``) has the semantics of the JAX
+package's ``optax.MultiSteps(optax.apply_if_finite(tx, 100),
+every_k_schedule=k)``: ``update`` keeps the running mean of a window's k
+micro-gradients (``acc + (g - acc) / (n + 1)``) and applies it on the k-th;
+a non-finite micro-gradient makes the mean non-finite, so that window's
+apply is skipped and counted in ``errors``.  The schedules count applies
+(``steps_per_epoch / k``, warm-up floor ``warmup_floor / k``).  Where the
+window is known to be whole is counted on the host (``mini_step``), since it
+depends only on the number of calls.
+
+Deviations: the mean is reset to zero after every apply, a skipped one too,
+so a non-finite micro-gradient poisons its own window only.  ``MultiSteps``
+resets it as ``0 * mean``, which keeps a NaN, so there every later window
+is skipped as well (and after 100 of them applied non-finite, by
+``apply_if_finite``'s ``max_consecutive_errors``).  The port never applies a
+non-finite update.
 """
 
 from __future__ import annotations
@@ -97,11 +114,40 @@ def param_group_label(name: str, param: torch.Tensor) -> str:
 @dataclasses.dataclass
 class OptState:
     """count: steps applied so far (0-d int64); mu: momentum / first moment
-    per parameter; nu: Adam's second moment (None for SGD)."""
+    per parameter; nu: Adam's second moment (None for SGD); errors: applies
+    skipped because a gradient was not finite (0-d int64); acc: the running
+    mean of the current window's micro-gradients (None without
+    accumulation); mini_step: micro-steps taken into the window."""
 
     count: torch.Tensor
     mu: Dict[str, torch.Tensor]
     nu: Optional[Dict[str, torch.Tensor]]
+    errors: torch.Tensor
+    acc: Optional[Dict[str, torch.Tensor]] = None
+    mini_step: int = 0
+
+    def tensors(self) -> Dict[str, object]:
+        """The state as plain containers (a checkpoint's ``opt_state``)."""
+        return {"count": self.count, "mu": dict(self.mu), "nu": self.nu,
+                "errors": self.errors, "acc": self.acc,
+                "mini_step": self.mini_step}
+
+    def load(self, saved: Mapping[str, object]) -> None:
+        """Copy a saved ``tensors()`` into this state, in place."""
+        with torch.no_grad():
+            for key in ("count", "errors"):
+                getattr(self, key).copy_(saved[key])
+            for key in ("mu", "nu", "acc"):
+                mine, theirs = getattr(self, key), saved.get(key)
+                if (mine is None) != (theirs is None):
+                    raise ValueError(f"optimizer state {key!r}: the saved state "
+                                     "was made by another optimizer")
+                if mine is not None:
+                    if set(mine) != set(theirs):
+                        raise KeyError(f"optimizer state {key!r}: other parameters")
+                    for k, t in mine.items():
+                        t.copy_(theirs[k])
+        self.mini_step = int(saved["mini_step"])
 
 
 class Optimizer:
@@ -109,21 +155,46 @@ class Optimizer:
     parameters; ``apply`` updates parameters and state in place."""
 
     def __init__(self, labels: Mapping[str, str], name: str, lr_fns, mom_fn,
-                 momentum: float, weight_decay: float):
+                 momentum: float, weight_decay: float, accumulate: int = 1):
         self.labels = dict(labels)
         self.name = name
         self.lr_fns = lr_fns            # group -> lr_fn
         self.mom_fn = mom_fn            # SGD only
         self.momentum = momentum        # Adam's b1
         self.decay = {"g0": 0.0, "g1": weight_decay, "g2": 0.0}
+        self.accumulate = accumulate
 
     def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
         if set(params) != set(self.labels):
             raise KeyError("the optimizer was built for other parameters")
         dev = next(iter(params.values())).device
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
-        return OptState(torch.zeros((), dtype=torch.int64, device=dev), zeros(),
-                        None if self.name == "sgd" else zeros())
+        scalar = lambda: torch.zeros((), dtype=torch.int64, device=dev)
+        return OptState(scalar(), zeros(), None if self.name == "sgd" else zeros(),
+                        scalar(), zeros() if self.accumulate > 1 else None)
+
+    @torch.no_grad()
+    def update(self, params: Mapping[str, torch.Tensor],
+               grads: Mapping[str, torch.Tensor], state: OptState):
+        """One micro-step: ``(applied, boundary)``.  Without accumulation
+        every call applies (``apply``); with it the micro-gradient joins the
+        window's running mean, and the k-th call of a window applies the
+        mean.  ``boundary`` (a bool) says whether this call closed a window;
+        ``applied`` is ``apply``'s 0-d flag there, else None."""
+        if self.accumulate == 1:
+            return self.apply(params, grads, state), True
+        names = list(state.acc)
+        acc = [state.acc[k] for k in names]
+        gs = [grads[k].to(a.dtype) for k, a in zip(names, acc)]
+        torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(gs, acc),
+                                                    float(state.mini_step + 1)))
+        if state.mini_step < self.accumulate - 1:
+            state.mini_step += 1
+            return None, False
+        applied = self.apply(params, state.acc, state)
+        torch._foreach_zero_(acc)
+        state.mini_step = 0
+        return applied, True
 
     @torch.no_grad()
     def apply(self, params: Mapping[str, torch.Tensor],
@@ -188,6 +259,7 @@ class Optimizer:
             keep(mus, mu)
             torch._foreach_add_(ps, torch._foreach_mul(u, -lr))
         count.add_(finite.to(count.dtype))
+        state.errors.add_((~finite).to(state.errors.dtype))
         return finite
 
 
@@ -208,22 +280,26 @@ def build_optimizer(
     warmup_floor: float = 1000.0,
 ) -> Optimizer:
     """The three-group optimizer with its warm-up schedules.  ``params``
-    (torch name -> tensor) only labels the groups."""
-    if accumulate != 1:
-        raise NotImplementedError("gradient accumulation (accumulate > 1) is "
-                                  "not ported yet")
+    (torch name -> tensor) only labels the groups.  With ``accumulate=k``
+    the schedules count applies: ``steps_per_epoch`` and ``warmup_floor``
+    are in micro-steps and are divided by k, as the JAX function does."""
+    if accumulate < 1:
+        raise ValueError(f"accumulate must be >= 1, got {accumulate}")
     kind = name.lower()
     if kind == "lion":
-        raise NotImplementedError("the Lion optimizer is not ported yet")
+        raise NotImplementedError("the Lion optimizer is not ported yet "
+                                  "(ROADMAP Queue 1 item 8)")
     if kind not in ("sgd", "adam", "adamw"):
         raise KeyError(f"unknown optimizer {name!r}")
+    sched_spe = steps_per_epoch / accumulate
+    min_warmup = warmup_floor / accumulate
     lr_fns = {
-        g: make_lr_fn(lr0, lrf, epochs, steps_per_epoch, cos_lr, warmup_epochs,
+        g: make_lr_fn(lr0, lrf, epochs, sched_spe, cos_lr, warmup_epochs,
                       warmup_bias_lr, is_bias=(g == "g2"),
-                      min_warmup_steps=warmup_floor)
+                      min_warmup_steps=min_warmup)
         for g in GROUPS}
-    nw = max(warmup_epochs * steps_per_epoch, warmup_floor)
+    nw = max(warmup_epochs * sched_spe, min_warmup)
     labels = {k: param_group_label(k, p) for k, p in params.items()}
     return Optimizer(labels, kind, lr_fns,
                      make_momentum_fn(momentum, warmup_momentum, nw),
-                     momentum, weight_decay)
+                     momentum, weight_decay, accumulate)

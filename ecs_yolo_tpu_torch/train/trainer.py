@@ -129,27 +129,37 @@ def make_train_step(
     device: Optional[Union[str, torch.device]] = None,
 ):
     """Build the train step ``step(state, images, targets, t_mask) ->
-    (state, {"loss", "items", "applied"})``.
+    (state, {"loss", "items", "applied", "boundary"})``.
 
     Batch: images ``[B,H,W,C]`` float 0-1 or uint8 (divided by 255 on the
     device), or an event batch ``[B,T,H,W,C]``; targets ``[B,M,5]`` (cls, x,
     y, w, h normalised); t_mask ``[B,M]``.  The metrics are tensors on the
     device; nothing in the step waits for it.
+
+    ``accumulate=k`` must be the optimizer's: every call is a micro-step
+    (the BN running statistics move on each), the optimizer applies on every
+    k-th (``boundary`` True, ``applied`` its 0-d flag; else None), and the
+    EMA moves only there, with ``step // k`` applies as its decay ramp
+    counter (reference ModelEMA updates once per optimizer step).
     """
-    if accumulate != 1:
-        raise NotImplementedError("gradient accumulation (accumulate > 1) is "
-                                  "not ported yet")
     if sr > 0 or with_masks or with_semantic:
         raise NotImplementedError("the sparsity term, instance masks and "
-                                  "semantic maps are not ported yet")
+                                  "semantic maps are not ported yet (ROADMAP "
+                                  "Queue 1 items 8 and 11)")
+    if accumulate != tx.accumulate:
+        raise ValueError(f"accumulate={accumulate}, but the optimizer was built "
+                         f"with accumulate={tx.accumulate}")
     _check_device(model, device)
     grad_fn = make_grad_fn(model, hyp, compute_dtype)
 
     def step_fn(state: TrainState, images, targets, t_mask):
         total, items, grads = grad_fn(state, images, targets, t_mask)
-        applied = tx.apply(state.params, grads, state.opt_state)
+        applied, boundary = tx.update(state.params, grads, state.opt_state)
         state.step += 1
-        ema_update(state.ema_params, state.params, state.step, decay=ema_decay)
-        return state, {"loss": total, "items": items, "applied": applied}
+        if boundary:
+            applies = torch.div(state.step, accumulate, rounding_mode="floor")
+            ema_update(state.ema_params, state.params, applies, decay=ema_decay)
+        return state, {"loss": total, "items": items, "applied": applied,
+                       "boundary": boundary}
 
     return step_fn

@@ -18,7 +18,7 @@ CLI::
 
     python -m ecs_yolo_tpu_torch.val --weights last.pt --cfg resnet10.yaml \
         --data data/kitti.yaml [--no-ecs] [--fused-inference] \
-        [--device cuda|cpu] [--dtype bf16|fp32]
+        [--device cuda|cpu] [--dtype bf16|fp32] [--fuse]
 
 Not carried over from the JAX ``run``: ``mesh``, ``fuse_post``,
 ``chain_batches`` and ``jit_cache`` (devices of the TPU's dispatch), and the
@@ -259,8 +259,8 @@ def parse_opt(argv=None):
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bf16",
                    help="parameter/compute dtype (BN statistics stay fp32)")
     p.add_argument("--fuse", action="store_true",
-                   help="fold BN into the convolutions before eval (not "
-                        "ported yet)")
+                   help="fold the conv/bn pairs before eval "
+                        "(models/utils.fuse_conv_bn)")
     return p.parse_args(argv)
 
 
@@ -268,12 +268,10 @@ def main(opt) -> Dict:
     import yaml
 
     from .config import SNNConfig
+    from .models.utils import fuse_conv_bn
     from .models.yolo import build_model
     from .utils.checkpoint import eval_state_dict, load_checkpoint
 
-    if opt.fuse:
-        raise NotImplementedError("--fuse needs fuse_conv_bn, which is not "
-                                  "ported yet (ROADMAP Queue 1 item 13)")
     with open(opt.data) as fh:
         data = yaml.safe_load(fh)
     root = Path(data.get("path", "."))
@@ -283,6 +281,8 @@ def main(opt) -> Dict:
     model = build_model(opt.cfg, nc=data["nc"], snn=snn, device=opt.device)
     tree, _ = load_checkpoint(opt.weights)
     model.load_state_dict(eval_state_dict(tree, opt.use_ema), strict=True)
+    if opt.fuse:
+        fuse_conv_bn(model)
     results = run(
         model, str(root / split), imgsz=opt.imgsz, batch_size=opt.batch_size,
         conf_thres=opt.conf_thres, iou_thres=opt.iou_thres,

@@ -240,8 +240,6 @@ def test_optimizer_updates_match_optax_f64(name):
 
 def test_unported_optimizer_options_raise():
     p = {"m.0.weight": torch.zeros(2, 2)}
-    with pytest.raises(NotImplementedError, match="accumulate"):
-        PO.build_optimizer(p, accumulate=2)
     with pytest.raises(NotImplementedError, match="Lion"):
         PO.build_optimizer(p, name="lion")
     with pytest.raises(KeyError):
@@ -412,8 +410,6 @@ def test_training_needs_a_card_unless_cpu_is_asked(port_model, monkeypatch):
         PT.create_train_state(pm, tx)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PT.make_train_step(pm, tx, HYP)
-    with pytest.raises(NotImplementedError, match="accumulate"):
-        PT.make_train_step(pm, tx, HYP, accumulate=2, device="cpu")
     for kw in ({"sr": 0.01}, {"with_masks": True}, {"with_semantic": True}):
         with pytest.raises(NotImplementedError):
             PT.make_train_step(pm, tx, HYP, device="cpu", **kw)
