@@ -39,7 +39,17 @@ the port's paths at full width with random weights from a seed:
   img/s with the loader in it and its wait share, launches per micro-step
   (57 binary_dw3_conv + 15 packed_spread, no eval kernel) and per val
   forward (24 ecs_lif_fused), applies and EMA updates (every 8th
-  micro-step), and the second loop's device time and idle share;
+  micro-step), and the second loop's device time and idle share; then
+  (phase ``train_opts``) the driver's options: one step each with ``remat``
+  and ``remat_neuron`` held to the plain step (parameters, EMA, BN
+  statistics; peak memory, time and launches of each, the recompute's
+  launches counted), a batch augmented on the card (``device_augment``)
+  held to the CPU on the same draws on both routes and timed, one 64-image
+  epoch of ``train.driver.train(device_augment=True)`` beside the host
+  mosaic's, ``train.driver.dispatch`` of 4 batches under
+  ``torch.cuda.set_sync_debug_mode("error")`` held to 4 single steps and
+  timed against them, and three Lion steps with the ``sr`` term held to the
+  same update on the CPU;
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
@@ -1448,7 +1458,7 @@ def phase_fuse(state32: dict, xb: torch.Tensor, log) -> dict:
     return out
 
 
-def phase_train_run(seed: int, log) -> dict:
+def phase_train_run(seed: int, train_src: Path, log) -> tuple:
     """The training main path: ``train.driver.train`` at full width, res10,
     nc 13, 640 px, T=4, batch 8, bf16, HYP_SCRATCH (mosaic 1.0), nbs 64
     (accumulate 8), autoanchor on, 4 loader threads, over ``TRAIN_IMAGES``
@@ -1456,9 +1466,9 @@ def phase_train_run(seed: int, log) -> dict:
     ``TRAIN_EPOCHS`` epochs, then a resume from ``last.pt`` for one more.
     The launch counters are set to 0 at each epoch's start and read at its
     end (the loop) and around each val pass; the second epoch's last
-    ``PROFILED_STEPS`` micro-steps are profiled.  The first run loads on 4
-    threads, the resumed epoch in the loop's own thread, so that its
-    ``step_issue_s`` is the steps' host time with no loader beside them."""
+    ``PROFILED_STEPS`` micro-steps are profiled.  Both runs load on 4
+    threads.  ``train_src``: the train set (``write_val_set`` from ``seed +
+    100``), shared with ``phase_train_opts``."""
     from torch.profiler import ProfilerActivity, profile
 
     from ecs_yolo_tpu_torch.snn import ecs_lif as K
@@ -1531,7 +1541,6 @@ def phase_train_run(seed: int, log) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        train_src = write_val_set(tmp / "train", seed + 100, TRAIN_IMAGES)
         val_src = write_val_set(tmp / "val", seed)
         write_s = time.perf_counter() - t0
         kw = dict(cfg="resnet10.yaml", train_path=str(train_src), val_path=str(val_src),
@@ -1571,10 +1580,8 @@ def phase_train_run(seed: int, log) -> dict:
             cb = callbacks()
             cb.register_action("on_train_start", callback=restored)
             t0 = time.perf_counter()
-            # the resumed epoch loads in the loop's own thread (workers 0): its
-            # step_s is the step's host issue with no loader thread beside it
             state2, _, hist2 = driver.train(epochs=TRAIN_EPOCHS + 1, callbacks=cb,
-                                            resume=str(w / "last.pt"), workers=0,
+                                            resume=str(w / "last.pt"), workers=4,
                                             save_dir=str(tmp / "run2"), **kw)
             resume_s = time.perf_counter() - t0
             steps2 = int(state2.step)
@@ -1589,7 +1596,7 @@ def phase_train_run(seed: int, log) -> dict:
         per_epoch.append({
             "epoch": h["epoch"], "epoch_s": h["epoch_s"], "train_loop_s": h["train_s"],
             "val_s": h["val_s"], "checkpoint_s": h["ckpt_s"],
-            "workers": 4 if h["epoch"] < TRAIN_EPOCHS else 0,
+            "workers": 4,
             "loader_wait_s": h["wait_s"], "loader_wait_share": h["wait_s"] / h["train_s"],
             "step_issue_s": h["step_s"], "step_issue_ms_per_micro_step":
             h["step_s"] / h["micro_steps"] * 1e3,
@@ -1605,7 +1612,7 @@ def phase_train_run(seed: int, log) -> dict:
     rec = {"phase": "train_run", "cfg": "resnet10.yaml", "nc": NC, "imgsz": IMGSZ,
            "T": T, "batch": N, "nbs": NBS, "accumulate": NBS // N, "dtype": "bfloat16",
            "train_images": TRAIN_IMAGES, "val_images": VAL_IMAGES,
-           "write_sets_s": write_s, "run_s": run_s, "resume_run_s": resume_s,
+           "write_val_set_s": write_s, "run_s": run_s, "resume_run_s": resume_s,
            "peak_memory_gb": peak, "micro_steps": steps2, "applies": applies,
            "ema_updates": ema_calls[0], "best_fitness": best, "files": files,
            "results_csv_header": header, "resume_checks": checks,
@@ -1629,7 +1636,309 @@ def phase_train_run(seed: int, log) -> dict:
         raise AssertionError(f"train_run failed its checks: {rec}")
     return {"binary_dw3_conv": sum(e["loop_launches"]["binary_dw3_conv"] for e in per_epoch),
             "packed_spread": sum(e["loop_launches"]["packed_spread"] for e in per_epoch),
-            "ecs_lif_fused": sum(v["launches"]["ecs_lif_fused"] for v in vals)}
+            "ecs_lif_fused": sum(v["launches"]["ecs_lif_fused"] for v in vals)}, rec
+
+
+def host_batches(k: int, seed: int):
+    """``k`` host batches as the loader yields them: uint8 images
+    [N,640,640,3] (``train_batch``'s, scaled), targets [N,M,5], masks."""
+    out = []
+    for j in range(k):
+        ims, tg, mk = train_batch(seed + j)
+        out.append(((ims * 255).round().to(torch.uint8).cpu().numpy(),
+                    tg.cpu().numpy(), mk.cpu().numpy()))
+    return out
+
+
+def max_diff(a: dict, b: dict) -> float:
+    """Largest elementwise difference between two dicts of tensors."""
+    return max(float((a[k].double() - b[k].double()).abs().max()) if a[k].numel() else 0.0
+               for k in a)
+
+
+def phase_train_opts(seed: int, train_src: Path, run_rec: dict, log) -> dict:
+    """The options of the training main path at res10@640, b8, bf16, T=4
+    (``HYP_SCRATCH``; cuDNN in its deterministic mode, so that two runs of
+    the same step can be held to each other):
+
+    * ``remat`` / ``remat_neuron``: one step each from the same state and
+      batch as a plain step (an SGD state past its warm-up, so that every
+      group moves), after a first plain step kept apart (``warmup``), and
+      the plain step once more for the run-to-run floor;
+      parameters, BN statistics and EMA held to the plain step's (equal,
+      or within twice the floor if the plain step does not repeat itself
+      bit for bit), the BN statistics exactly (the forward repeats itself);
+      peak memory, step time and launches of each (a recompute launches the
+      spread kernels again: those counts include it);
+    * ``device_augment``: a batch augmented on the card against the same
+      functions on the CPU given the same draws, on the fast route (b8) and
+      the generic one (b2), and its time a batch; then one epoch of
+      ``train_run``'s train set through ``train.driver.train(device_augment=
+      True)`` (4 loader threads, no val, the YAML's anchors, which
+      ``train_run``'s autoanchor keeps) beside ``train_run``'s epochs with the
+      host mosaic;
+    * ``steps_per_call = 4``: ``train.driver.dispatch`` of 4 batches (with
+      the device augmentation) under ``torch.cuda.set_sync_debug_mode("error")``
+      from the same state as 4 single dispatches (run twice, for the floor),
+      state equal; host and wall time a step both ways;
+    * Lion with ``sr``: three steps of ``make_train_step(sr=...)`` on the
+      card, every step's gradients (before the term) taken to the CPU, where
+      the same term and Lion update run on CPU copies of the state.
+    """
+    from ecs_yolo_tpu_torch.data import device_augment as DA
+    from ecs_yolo_tpu_torch.data.hyps import HYP_SCRATCH
+    from ecs_yolo_tpu_torch.models.yolo import build_model
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate
+    from ecs_yolo_tpu_torch.snn import spread as S
+    from ecs_yolo_tpu_torch.train import driver, trainer
+    from ecs_yolo_tpu_torch.train.optim import build_optimizer
+    from ecs_yolo_tpu_torch.train.sparsity import sparsity_rate
+    from ecs_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    hyp = dict(HYP_SCRATCH)
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    counters = {"binary_dw3_conv": S.binary_dw3_conv, "packed_spread": S.packed_spread}
+    model = build_model("resnet10.yaml", nc=NC, generator=torch.Generator().manual_seed(5))
+    sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+    sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt_kw = dict(lr0=hyp["lr0"], lrf=hyp["lrf"], momentum=hyp["momentum"],
+                  weight_decay=hyp["weight_decay"], epochs=300, steps_per_epoch=1000,
+                  warmup_epochs=hyp["warmup_epochs"], warmup_momentum=hyp["warmup_momentum"],
+                  warmup_bias_lr=hyp["warmup_bias_lr"])
+    PAST_WARMUP = 4000          # applied steps: the schedules past their warm-up
+
+    def fresh(tx):
+        model.load_state_dict(sd0)
+        state = create_train_state(model, tx)
+        state.opt_state.count.fill_(PAST_WARMUP)
+        return state
+
+    def snapshot(state) -> dict:
+        return {**{f"sd.{k}": v.detach().clone() for k, v in model.state_dict().items()},
+                **{f"ema.{k}": v.detach().clone() for k, v in state.ema_params.items()}}
+
+    def configure(remat: bool, remat_neuron: bool) -> None:
+        model.remat = remat
+        for m in sites:
+            m.snn = m.snn.replace(remat_neuron=remat_neuron)
+
+    rec = {"phase": "train_opts", "cfg": "resnet10.yaml", "batch": N, "imgsz": IMGSZ,
+           "T": T, "dtype": "bfloat16", "cudnn_deterministic": True}
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        # --- remat / remat_neuron against the plain step -----------------------
+        batch = train_batch(seed=7)
+        tx = build_optimizer(dict(model.named_parameters()), name="SGD", **opt_kw)
+        runs, snaps = {}, {}
+        # a first plain step (cuDNN's deterministic plans, first calls) is
+        # kept apart as "warmup"
+        for name, remat, rn in (("warmup", False, False), ("plain", False, False),
+                                ("remat", True, False), ("remat_neuron", False, True),
+                                ("plain_again", False, False)):
+            configure(remat, rn)
+            state = fresh(tx)
+            step = make_train_step(model, tx, hyp, compute_dtype=bf16)
+            for f in counters.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            t0 = time.perf_counter()
+            state, metrics = step(state, *batch)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            e1.record()
+            torch.cuda.synchronize()
+            runs[name] = {"step_ms": e0.elapsed_time(e1), "host_ms": host_ms,
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "loss": float(metrics["loss"]),
+                          "launches": {k: f.launches for k, f in counters.items()}}
+            snaps[name] = snapshot(state)
+            del state, step, metrics
+        configure(False, False)
+        start = {f"sd.{k}": v for k, v in sd0.items()}
+        stats = [k for k in snaps["plain"] if k.endswith(("running_mean", "running_var"))]
+        floor = max_diff(snaps["plain_again"], snaps["plain"])
+        for name in ("remat", "remat_neuron"):
+            runs[name]["max_abs_diff_to_plain"] = max_diff(snaps[name], snaps["plain"])
+            runs[name]["bn_stats_equal_to_plain"] = all(
+                torch.equal(snaps[name][k], snaps["plain"][k]) for k in stats)
+        runs["plain_again"]["max_abs_diff_to_plain"] = floor
+        runs["warmup"]["max_abs_diff_to_plain"] = max_diff(snaps["warmup"], snaps["plain"])
+        moved = all(not torch.equal(snaps["plain"][k], start[k]) for k in stats)
+        rec["remat"] = runs
+        rec["remat_bound"] = 2 * floor
+        rec["bn_stats_moved"] = moved
+        del snaps
+
+        # --- device_augment: the card against the CPU on the same draws ---------
+        hb = host_batches(4, seed=11)
+        gen = torch.Generator(device=dev)
+        u8, tg, mk = (torch.from_numpy(a).to(dev) for a in hb[0])
+        aug = []
+        for route, h, b in (("fast", hyp, N), ("generic", dict(hyp, degrees=5.0, shear=2.0), 2)):
+            gen.manual_seed(seed + 123)
+            im = u8[:b].to(torch.float32) / 255.0
+            draws = DA.draw_augment(b, (IMGSZ, IMGSZ), gen, h, dev)
+            got = DA.apply_augment(im, tg[:b], mk[:b], draws, h)
+            want = DA.apply_augment(im.cpu(), tg[:b].cpu(), mk[:b].cpu(),
+                                    {k: v.cpu() for k, v in draws.items()}, h)
+            err = (got[0].cpu() - want[0]).abs()
+            both = got[2].cpu() & want[2]
+            aug.append({
+                "route": route, "batch": b, "rows": int(got[1].shape[1]),
+                "kept_rows": int(want[2].sum()),
+                "pixel_max_abs_err": float(err.max()),
+                "pixel_share_over_1e-4": float((err > 1e-4).float().mean()),
+                "mask_mismatch_share": float((got[2].cpu() != want[2]).float().mean()),
+                "label_max_abs_err": float((got[1].cpu() - want[1])[both].abs().max())
+                if bool(both.any()) else 0.0,
+                "ms_per_batch": cuda_ms(lambda: DA.augment_batch(im, tg[:b], mk[:b], gen, h),
+                                        reps=10)})
+        rec["device_augment_check"] = aug
+        del u8, tg, mk, got, want, err
+
+        # --- steps_per_call = 4: one sync-free chunk against 4 single steps -----
+        tx = build_optimizer(dict(model.named_parameters()), name="SGD", **opt_kw)
+        step = make_train_step(model, tx, hyp, compute_dtype=bf16)
+
+        def augment(n, im, tg, mk):
+            gen.manual_seed(driver._augment_seed(seed, 0, n))
+            return DA.augment_batch(im.to(torch.float32) / 255.0, tg, mk, gen, hyp)
+
+        state = fresh(tx)
+        state, _ = driver.dispatch(state, step, hb[:1], dev, augment)  # warm caches
+        chunk = {}
+        for name in ("chunk", "single", "single_again"):
+            state = fresh(tx)
+            torch.cuda.synchronize()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            t0 = time.perf_counter()
+            if name == "chunk":
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state, ms = driver.dispatch(state, step, hb, dev, augment)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                for j in range(len(hb)):
+                    state, ms = driver.dispatch(state, step, hb[j:j + 1], dev, augment,
+                                                first=j)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            e1.record()
+            torch.cuda.synchronize()
+            chunk[name] = {"host_ms_per_step": host_ms / len(hb),
+                           "wall_ms_per_step": e0.elapsed_time(e1) / len(hb),
+                           "snap": snapshot(state), "step": int(state.step)}
+        spc_floor = max_diff(chunk["single_again"]["snap"], chunk["single"]["snap"])
+        spc_diff = max_diff(chunk["chunk"]["snap"], chunk["single"]["snap"])
+        rec["steps_per_call"] = {
+            "k": len(hb), "sync_debug_mode": "error", "max_abs_diff_to_single": spc_diff,
+            "single_floor": spc_floor,
+            **{name: {k: v for k, v in c.items() if k != "snap"} for name, c in chunk.items()}}
+        del chunk, state
+
+        # --- Lion with sr: the card against the CPU's arithmetic ----------------
+        sr, total = 1e-3, 30
+        lion_kw = dict(opt_kw, lr0=1e-4)
+        tx = build_optimizer(dict(model.named_parameters()), name="Lion", **lion_kw)
+        state = fresh(tx)
+        cpu_p = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+        ctx = build_optimizer(cpu_p, name="Lion", **lion_kw)
+        cst = ctx.init(cpu_p)
+        cst.count.fill_(PAST_WARMUP)
+        seen = []
+        real_term = trainer.add_l1_subgradient
+
+        def spy(grads, params, srtmp, sr_):
+            seen.append(({k: g.detach().cpu() for k, g in grads.items()}, srtmp.cpu()))
+            return real_term(grads, params, srtmp, sr_)
+
+        step = make_train_step(model, tx, hyp, compute_dtype=bf16, sr=sr,
+                               sr_total_steps=total)
+        trainer.add_l1_subgradient = spy
+        losses = []
+        try:
+            for j in range(3):
+                state, m = step(state, *train_batch(seed=20 + j))
+                losses.append(float(m["loss"]))
+        finally:
+            trainer.add_l1_subgradient = real_term
+        srtmp_ok = True
+        for j, (g, srtmp) in enumerate(seen):
+            want_srtmp = sparsity_rate(sr, torch.tensor(j, dtype=torch.float32) / total)
+            srtmp_ok &= bool(torch.equal(srtmp, want_srtmp))
+            ctx.update(cpu_p, real_term(g, cpu_p, want_srtmp, sr), cst)
+        err = {k: (state.params[k].detach().cpu() - v).abs() for k, v in cpu_p.items()}
+        n_el = sum(e.numel() for e in err.values())
+        rec["lion_sr"] = {
+            "steps": len(seen), "sr": sr, "sr_total_steps": total, "lr0": lion_kw["lr0"],
+            "losses": losses, "srtmp_equal": srtmp_ok,
+            "params_finite": all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+            "max_abs_err": max(float(e.max()) for e in err.values()),
+            "share_over_1e-6": sum(int((e > 1e-6).sum()) for e in err.values()) / n_el,
+            "applied": int(state.opt_state.count) - PAST_WARMUP}
+        del state, seen, err
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        configure(False, False)
+    del model
+
+    # --- one train_run-sized epoch with the device augmentation -------------------
+    reset = lambda: [setattr(f, "launches", 0) for f in counters.values()]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, hist = driver.train(
+            cfg="resnet10.yaml", train_path=str(train_src), val_path=None, nc=NC,
+            batch_size=N, imgsz=IMGSZ, nbs=NBS, bf16=True, autoanchor=False, seed=seed,
+            loggers_include=("csv",), epochs=1, workers=4, device_augment=True,
+            save_dir=str(tmp / "run"))
+        launches = {k: f.launches for k, f in counters.items()}
+    h = hist[0]
+    rec["device_augment_epoch"] = {
+        "micro_steps": h["micro_steps"], "loss_finite": h["loss_finite"],
+        "mloss": h["mloss"], "train_loop_s": h["train_s"],
+        "train_images_per_s": h["micro_steps"] * N / h["train_s"],
+        "loader_wait_share": h["wait_s"] / h["train_s"],
+        "step_issue_ms_per_micro_step": h["step_s"] / h["micro_steps"] * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_micro_step": {k: c / max(h["micro_steps"], 1)
+                                    for k, c in launches.items()},
+        "host_mosaic_epochs": [{k: e[k] for k in (
+            "epoch", "train_images_per_s", "loader_wait_share",
+            "step_issue_ms_per_micro_step")} for e in run_rec["epochs"]]}
+    emit(rec, log)
+
+    r, spc, ls = rec["remat"], rec["steps_per_call"], rec["lion_sr"]
+    exact = rec["remat_bound"] == 0.0
+    ok = (all(math.isfinite(v["loss"]) for v in r.values()) and rec["bn_stats_moved"]
+          and all(r[n]["bn_stats_equal_to_plain"] for n in ("remat", "remat_neuron"))
+          and all(r[n]["max_abs_diff_to_plain"] <= rec["remat_bound"]
+                  for n in ("remat", "remat_neuron"))
+          and r["plain"]["launches"] == {"binary_dw3_conv": 57, "packed_spread": 15}
+          and all(r[n]["launches"]["binary_dw3_conv"] >= 57
+                  and r[n]["launches"]["packed_spread"] >= 15 for n in ("remat", "remat_neuron")))
+    ok &= all(a["mask_mismatch_share"] <= 1e-2 and a["pixel_share_over_1e-4"] <= 1e-4
+              and a["pixel_max_abs_err"] <= 0.1 and a["label_max_abs_err"] <= 1e-3
+              and a["kept_rows"] > 0 for a in rec["device_augment_check"])
+    ok &= (spc["chunk"]["step"] == spc["single"]["step"] == 4
+           and (spc["max_abs_diff_to_single"] == 0.0 if spc["single_floor"] == 0.0
+                else spc["max_abs_diff_to_single"] <= 2 * spc["single_floor"]))
+    ok &= (ls["steps"] == 3 and ls["applied"] == 3 and ls["srtmp_equal"] and ls["params_finite"]
+           and all(math.isfinite(v) for v in ls["losses"]) and ls["share_over_1e-6"] <= 1e-4
+           and ls["max_abs_err"] <= 2 * 3 * ls["lr0"] + 1e-5)
+    e = rec["device_augment_epoch"]
+    ok &= (e["micro_steps"] == TRAIN_IMAGES // N and e["loss_finite"]
+           and e["launches_per_micro_step"] == {"binary_dw3_conv": 57, "packed_spread": 15})
+    if not ok:
+        raise AssertionError(f"train_opts failed its checks (remat exact: {exact}): {rec}")
+    return {k: {n: r[n]["launches"][k] for n in ("plain", "remat", "remat_neuron")}
+            for k in counters}
 
 
 def main(argv=None) -> int:
@@ -1793,7 +2102,17 @@ def main(argv=None) -> int:
 
     # --- the training main paths: train steps, then train() with resume -------
     spread_launches = phase_train(log)
-    run_launches = phase_train_run(opt.seed, log)
+    with tempfile.TemporaryDirectory() as sets:
+        t0 = time.perf_counter()
+        train_src = write_val_set(Path(sets) / "train", opt.seed + 100, TRAIN_IMAGES)
+        emit({"phase": "train_set", "images": TRAIN_IMAGES,
+              "seconds": time.perf_counter() - t0}, log)
+        t0 = time.perf_counter()
+        run_launches, run_rec = phase_train_run(opt.seed, train_src, log)
+        t1 = time.perf_counter()
+        opts_launches = phase_train_opts(opt.seed, train_src, run_rec, log)
+        emit({"phase": "train_seconds", "train_run": t1 - t0,
+              "train_opts": time.perf_counter() - t1}, log)
 
     # --- the validation main path ----------------------------------------------
     val_launches = phase_val(opt.seed, log)
@@ -1821,6 +2140,11 @@ def main(argv=None) -> int:
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:73",
             launches=spread_launches["binary_dw3_conv"],
             train_run_launches=run_launches["binary_dw3_conv"],
+            train_opts_launches_per_step=opts_launches["binary_dw3_conv"],
+            recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
+                           "remat_neuron; the remat counts include the launches of the "
+                           "backward pass's recompute; launches and train_run_launches "
+                           "run no recompute",
             work=f"the 57 launches (19 sites x {T - 1} steps) of {fwd}; launches "
                  f"over the {TRAIN_STEPS} train steps; ms is the device time of "
                  "binary_dw3_conv (one launch a call) from calls replayed in a CUDA "
@@ -1834,6 +2158,11 @@ def main(argv=None) -> int:
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:218",
             launches=spread_launches["packed_spread"],
             train_run_launches=run_launches["packed_spread"],
+            train_opts_launches_per_step=opts_launches["packed_spread"],
+            recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
+                           "remat_neuron; the remat counts include the launches of the "
+                           "backward pass's recompute; launches and train_run_launches "
+                           "run no recompute",
             work=f"the 15 launches (5 sites x {T - 1} steps) of {fwd}; launches "
                  f"over the {TRAIN_STEPS} train steps; ms is the kernel alone, "
                  "wrapper_ms the autograd.Function as the train path calls it",

@@ -44,8 +44,13 @@ class SNNConfig:
         takes its plain version.
       stem_dedup: run the T-invariant stem once at T=1 for a static image and
         broadcast the result over T (exact; see ``models/yolo.py``).
+      remat_neuron: recompute every neuron recurrence (the training T-loop)
+        in the backward pass instead of keeping its activations
+        (``nn/blocks.checkpointed``), as the JAX package's
+        ``jax.checkpoint`` of its scans does; the BN running statistics still
+        move once a step.
       packed_spread, packed_c64, bn_custom_vjp, int8_spike_transport,
-      int8_reset_gate, pallas_dw_spread, pallas_packed_spread, remat_neuron:
+      int8_reset_gate, pallas_dw_spread, pallas_packed_spread:
         TPU layout, residual and kernel switches of the JAX package.
         Accepted and ignored: the port runs the canonical layout, chooses
         its spread kernel by the site's width, and always saves the

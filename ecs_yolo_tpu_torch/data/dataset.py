@@ -489,6 +489,24 @@ class Dataset:
             return ims, np.stack(lbs), np.stack(ms), len(idxs)
         return ims, np.stack(lbs), np.stack(ms)
 
+    @staticmethod
+    def _quadify(ims, lbs, ms):
+        """Quad collate (reference ``--quad``, utils/datasets.py:659
+        collate_fn4, as the JAX package tiles it): every 4 samples become one
+        2x canvas, a quarter of the batch at twice the side; the labels shift
+        and halve into their quadrant.  The tiling is deterministic (the
+        reference's random upscaled tile is not taken over, as in JAX)."""
+        b, h, w, c = ims.shape
+        q = ims.reshape(b // 4, 2, 2, h, w, c)
+        q = q.transpose(0, 1, 3, 2, 4, 5).reshape(b // 4, 2 * h, 2 * w, c)
+        lbs = lbs.reshape(b // 4, 4, *lbs.shape[1:]).copy()
+        col = np.array([0, 1, 0, 1], np.float32)[None, :, None]
+        row = np.array([0, 0, 1, 1], np.float32)[None, :, None]
+        lbs[..., 1] = (lbs[..., 1] + col) / 2
+        lbs[..., 2] = (lbs[..., 2] + row) / 2
+        lbs[..., 3:5] /= 2
+        return q, lbs.reshape(b // 4, -1, 5), ms.reshape(b // 4, -1)
+
     def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0,
                 drop_last: bool = True, yield_count: bool = False,
                 yield_idx: bool = False, workers: int = 0, prefetch: int = 2,
@@ -504,9 +522,20 @@ class Dataset:
         ``workers > 0`` decodes on a thread pool (PIL releases the
         interpreter lock while it decodes and resizes) and keeps
         ``prefetch`` assembled batches ahead of the consumer, so the card
-        does not wait for the host's image decode."""
+        does not wait for the host's image decode.
+
+        ``quad`` yields the quad collate of full batches (``batch_size % 4 ==
+        0``; train-time only, so no ``yield_count``/``yield_idx``)."""
         if quad:
-            raise NotImplementedError(f"quad collate {_TRAIN_HALF}")
+            if yield_count or yield_idx:
+                raise ValueError("quad collate carries no eval metadata")
+            if batch_size % 4:
+                raise ValueError(f"quad needs batch % 4 == 0, got {batch_size}")
+            for ims, lbs, ms in self.batches(
+                    batch_size, shuffle=shuffle, seed=seed, drop_last=True,
+                    workers=workers, prefetch=prefetch, host_shard=host_shard):
+                yield self._quadify(ims, lbs, ms)
+            return
         if host_shard is not None:
             raise NotImplementedError(f"host_shard {_TRAIN_HALF}")
         plan = self._batch_plan(batch_size, shuffle, seed, drop_last)

@@ -9,7 +9,8 @@ Covers the rows of ``resnet10.yaml`` and ``resnet34.yaml``: ``Conv_1``,
 ``build_model`` parses the YAML, probes the head strides with a forward on
 the ``meta`` device (shapes only, like ``jax.eval_shape``), builds the final
 module on the ``meta`` device, moves it to the target device and draws every
-parameter from a ``torch.Generator``.
+parameter from a ``torch.Generator``.  ``remat=True`` recomputes every
+non-head layer in the backward pass (the JAX ``nn.remat`` of each layer).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 import yaml
 from torch import nn
+from torch.func import functional_call
 
 from ..config import DEFAULT_SNN, SNNConfig
 from ..device import resolve_device
@@ -171,14 +173,26 @@ def _construct(name: str, c1, args: Tuple, snn: SNNConfig) -> nn.Module:
     return Detect(nc, anchors, strides, c1, snn)
 
 
+def _remat_call(layer: nn.Module, x):
+    """``layer(x)`` recomputed in the backward pass.  The recompute runs
+    after any ``functional_call`` around the model has put the module's own
+    parameters back, so it binds the tensors this forward read (the bf16
+    casts of a bf16 step) again."""
+    bound = dict(layer.named_parameters())
+    return B.checkpointed(lambda x_: functional_call(layer, bound, (x_,)), x)
+
+
 class DetectionModel(nn.Module):
-    """Graph-walking detection model (reference ``Model._forward_once``)."""
+    """Graph-walking detection model (reference ``Model._forward_once``).
+    With ``remat`` a layer other than the head runs under
+    ``nn/blocks.checkpointed`` while autograd is on."""
 
     def __init__(self, spec, save, chs, ch: int, snn: SNNConfig,
-                 tinv_prefix: int = 0):
+                 tinv_prefix: int = 0, remat: bool = False):
         super().__init__()
         self.spec, self.save, self.snn = spec, save, snn
         self.tinv_prefix = tinv_prefix
+        self.remat = remat
         layers = []
         for i, (f, n, name, args) in enumerate(spec):
             c1 = _c_in(f, i, ch, chs)
@@ -200,6 +214,12 @@ class DetectionModel(nn.Module):
             return x.permute(1, 0, 2, 3, 4).contiguous()
         raise ValueError(f"expected 4-D or 5-D input, got {tuple(x.shape)}")
 
+    def _layer(self, i: int, x):
+        layer = self.model[i]
+        if self.remat and self.spec[i][2] not in HEADS and torch.is_grad_enabled():
+            return _remat_call(layer, x)
+        return layer(x)
+
     def forward(self, x: torch.Tensor):
         x = x.to(next(self.parameters()).dtype)
         start = 0
@@ -208,7 +228,7 @@ class DetectionModel(nn.Module):
             # broadcast over T (stride 0; the fused neuron kernel reads it)
             x = x[None]
             for i in range(self.tinv_prefix):
-                x = self.model[i](x)
+                x = self._layer(i, x)
             x = x.expand((self.snn.time_window,) + tuple(x.shape[1:]))
             start = self.tinv_prefix
         else:
@@ -219,7 +239,7 @@ class DetectionModel(nn.Module):
             if f != -1:
                 x = (cache[f % i] if isinstance(f, int)
                      else [x if j == -1 else cache[j % i] for j in f])
-            x = self.model[i](x)
+            x = self._layer(i, x)
             if i in self.save:
                 cache[i] = x
         return x
@@ -272,10 +292,12 @@ def build_model(
     device: Optional[Union[str, torch.device]] = None,
     generator: Optional[torch.Generator] = None,
     ch: int = 3,
+    remat: bool = False,
 ) -> DetectionModel:
     """Parse -> stride probe on ``meta`` -> final model on ``device`` (the
     CUDA card unless ``device="cpu"``), weights drawn from ``generator``
-    (seed 0 when None).  The model is returned in eval mode, float32."""
+    (seed 0 when None).  The model is returned in eval mode, float32.
+    ``remat`` recomputes every non-head layer in the backward pass."""
     dev = resolve_device(device)
     d = load_cfg(cfg)
     if nc is not None:
@@ -297,7 +319,7 @@ def build_model(
         strides = tuple(float(_PROBE // f.shape[2]) for f in feats)
         head_info["strides"] = strides
         model = DetectionModel(_with_head(spec, head_info, strides), save, chs,
-                               ch, snn, tinv)
+                               ch, snn, tinv, remat)
     model.head_info = head_info
     model.to_empty(device=dev)
     init_weights(model, generator or torch.Generator().manual_seed(0))

@@ -15,15 +15,18 @@ package's parameter tree onto them.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+import threading
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import DEFAULT_SNN, SNNConfig, autopad
-from ..snn.ecs_lif import ecs_lif_fused, ecs_lif_reference, layout_refusal
-from ..snn.fused import ecs_lif_fused_rows, lif_fused, lif_reference
+from ..snn.ecs_lif import ecs_lif_fused, layout_refusal
+from ..snn.fused import ecs_lif_fused_rows, lif_fused
 from ..snn.neuron import ecs_lif_scan, firing_rate, lif_scan, make_spread
 from ..snn.spread import make_kernel_spread
 
@@ -36,6 +39,44 @@ def fold_t(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
 
 def unfold_t(x: torch.Tensor, t: int) -> torch.Tensor:
     return x.reshape((t, x.shape[0] // t) + tuple(x.shape[1:]))
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """True while ``checkpointed`` recomputes a forward in the backward pass
+    (on the thread that recomputes it)."""
+    return getattr(_RECOMPUTE, "on", False)
+
+
+@contextlib.contextmanager
+def _recompute_scope():
+    prev = recomputing()
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = prev
+
+
+def _checkpoint_contexts():
+    return contextlib.nullcontext(), _recompute_scope()
+
+
+def checkpointed(fn: Callable, *args):
+    """``fn(*args)`` whose activations are recomputed in the backward pass
+    instead of kept (``torch.utils.checkpoint``, non-reentrant): the JAX
+    package's ``jax.checkpoint`` / ``nn.remat``.
+
+    JAX's recompute is functional, so the BN running statistics move once a
+    step.  Here the forward is run a second time, and while it runs
+    (``recomputing()``) every ``_BN`` leaves its running statistics alone and
+    ``MemUpdate`` its ``firing_rate``: the first forward moved and set them.
+    A kernel wrapper called in the recompute launches its kernel again and
+    counts that launch too."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=_checkpoint_contexts)
 
 
 def _nchw(y: torch.Tensor) -> torch.Tensor:
@@ -64,7 +105,9 @@ class SnnConv(nn.Conv2d):
 
 class _BN(nn.Module):
     """Per-channel batch norm with the reference's state names
-    (``weight``, ``bias``, ``running_mean``, ``running_var``)."""
+    (``weight``, ``bias``, ``running_mean``, ``running_var``).  In training
+    mode the running statistics move once a forward, and not while
+    ``checkpointed`` recomputes it."""
 
     def __init__(self, c: int, gamma0: float, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -84,11 +127,12 @@ class _BN(nn.Module):
             dims = tuple(range(x.dim() - 1))
             m = xf.mean(dims)
             v = (xf * xf).mean(dims) - m * m          # biased, as the JAX BN
-            with torch.no_grad():
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    self.momentum * m.to(self.running_mean.dtype))
-                self.running_var.mul_(1 - self.momentum).add_(
-                    self.momentum * v.to(self.running_var.dtype))
+            if not recomputing():
+                with torch.no_grad():
+                    self.running_mean.mul_(1 - self.momentum).add_(
+                        self.momentum * m.to(self.running_mean.dtype))
+                    self.running_var.mul_(1 - self.momentum).add_(
+                        self.momentum * v.to(self.running_var.dtype))
         else:
             m, v = self.running_mean.to(dt), self.running_var.to(dt)
         mul = torch.rsqrt(v + self.eps) * self.weight.to(dt)
@@ -135,7 +179,9 @@ class MemUpdate(nn.Module):
 
     In training mode an ``act=False`` ECS-LIF site keeps its mean spike
     density in ``firing_rate``, a 0-d tensor on the device that costs no
-    host sync until it is read.
+    host sync until it is read.  With ``snn.remat_neuron`` the T-loop runs
+    under ``checkpointed``: its activations are recomputed in the backward
+    pass.
     """
 
     def __init__(self, c: int, act: bool = False, snn: SNNConfig = DEFAULT_SNN):
@@ -156,28 +202,35 @@ class MemUpdate(nn.Module):
                 pw.weight.permute(2, 3, 1, 0), pw.bias)
 
     def _eval_forward(self, x: torch.Tensor) -> torch.Tensor:
-        # the build's shape probe runs on the meta device, which no kernel
-        # wrapper takes
-        meta = x.device.type == "meta"
+        if x.device.type == "meta":
+            # the build's shape probe: a site's spikes have its input's shape
+            return torch.empty(x.shape, dtype=x.dtype, device=x.device)
         if not self.snn.ecs:
-            return (lif_reference if meta else lif_fused)(x, self.snn, self.act)
-        if meta:
-            fwd = ecs_lif_reference
-        elif self.snn.fused_inference or layout_refusal(x) is not None:
+            return lif_fused(x, self.snn, self.act)
+        if self.snn.fused_inference or layout_refusal(x) is not None:
             fwd = ecs_lif_fused_rows
         else:
             fwd = ecs_lif_fused
         return fwd(x, *self.spread_params(), self.snn, self.act)
 
+    def _lif(self, x: torch.Tensor) -> torch.Tensor:
+        return lif_scan(x, self.snn, self.act)
+
+    def _ecs_lif(self, x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
+        spread = make_spread(*params) if self.act else make_kernel_spread(*params)
+        return ecs_lif_scan(x, spread, self.snn, self.act)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training and not torch.is_grad_enabled():
             return self._eval_forward(x)
+        # snn.remat_neuron: the recurrence is recomputed in the backward pass
+        # (JAX wraps both scans in jax.checkpoint); the spread parameters are
+        # cast outside it, so the recompute reads the tensors this forward read
+        run = checkpointed if self.snn.remat_neuron else (lambda f, *a: f(*a))
         if not self.snn.ecs:
-            return lif_scan(x, self.snn, self.act)
-        params = [p.to(x.dtype) for p in self.spread_params()]
-        spread = make_spread(*params) if self.act else make_kernel_spread(*params)
-        spikes = ecs_lif_scan(x, spread, self.snn, self.act)
-        if self.training and not self.act:
+            return run(self._lif, x)
+        spikes = run(self._ecs_lif, x, *(p.to(x.dtype) for p in self.spread_params()))
+        if self.training and not self.act and not recomputing():
             self.firing_rate = firing_rate(spikes)
         return spikes
 

@@ -7,10 +7,8 @@ The flags are ``train.py``'s; the data and hyp YAMLs are read the same way
 (``path``/``train``/``val``/``nc``; ``close_mosaic`` popped from the hyp).
 ``--device`` names a torch device and defaults to the CUDA card.
 ``--single-cls`` also reaches the datasets (see ``train/driver.py``).  Flags
-of features not ported yet (``--events``, ``--evolve``, ``--quad``,
-``--device-augment``, ``--steps-per-call``, ``--model-parallel``,
-``--remat``, ``--remat-neuron``, ``--sr``, ``--optimizer Lion``) raise
-``NotImplementedError`` naming their ROADMAP item.
+of features not ported yet (``--events``, ``--evolve``, ``--model-parallel``)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,18 +38,25 @@ def parse_opt(argv=None):
     p.add_argument("--save-period", type=int, default=-1)
     p.add_argument("--noval", action="store_true")
     p.add_argument("--single-cls", action="store_true")
-    p.add_argument("--remat", action="store_true", help="not ported yet")
-    p.add_argument("--remat-neuron", action="store_true", help="not ported yet")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute every layer's activations in the backward pass")
+    p.add_argument("--remat-neuron", action="store_true",
+                   help="recompute only the neuron recurrences in the backward pass")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute with float32 master parameters and "
                         "BN statistics")
     p.add_argument("--workers", type=int, default=4,
                    help="loader threads (0 = synchronous)")
-    p.add_argument("--quad", action="store_true", help="not ported yet")
+    p.add_argument("--quad", action="store_true",
+                   help="quad collate: every 4 samples tiled into one 2x canvas")
     p.add_argument("--cache", choices=["ram", "disk"], default=None,
                    help="cache decoded + resized images")
-    p.add_argument("--device-augment", action="store_true", help="not ported yet")
-    p.add_argument("--steps-per-call", type=int, default=1, help="not ported yet (> 1)")
+    p.add_argument("--device-augment", action="store_true",
+                   help="mosaic, scale/translate, HSV and flips on the card; the "
+                        "host only decodes and letterboxes")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="move K batches to the card in one copy and issue their "
+                        "K steps back to back")
     p.add_argument("--model-parallel", type=int, default=1, help="not ported yet (> 1)")
     p.add_argument("--multi-scale", action="store_true",
                    help="vary the train image size 0.5-1.5x per epoch")
@@ -59,7 +64,8 @@ def parse_opt(argv=None):
                    help="class-aware image resampling")
     p.add_argument("--resume", default=None,
                    help="checkpoint file to resume from (weights/last.pt)")
-    p.add_argument("--sr", type=float, default=0.0, help="not ported yet (> 0)")
+    p.add_argument("--sr", type=float, default=0.0,
+                   help="BN-L1 sparsity rate (network slimming; 0 disables)")
     p.add_argument("--nbs", type=int, default=64,
                    help="nominal batch size for gradient accumulation")
     p.add_argument("--device", default=None,

@@ -14,6 +14,30 @@ Host and device: a batch goes to the device as uint8 from pinned memory and
 is divided there; the step's metrics stay on the device, and the loop reads
 them once an epoch, so the host never waits for the device inside an epoch.
 
+Options, as the JAX driver has them:
+
+* ``device_augment``: the train set is only decoded and letterboxed on the
+  host (``augment=False``); each batch is augmented on the device
+  (``data/device_augment.augment_batch``: mosaic, scale/translate or the
+  affine, HSV, flips) before its step, from a ``torch.Generator`` on the
+  device seeded from ``(seed, epoch, batches dispatched)``.  With ``quad``
+  it falls back to the host's augmentation with a warning, as JAX does
+  (and with events or a segment head, neither ported yet); ``flipud``,
+  ``mixup`` or ``copy_paste`` above 0 raise ``ValueError`` (the JAX module
+  drops them without a word).
+* ``steps_per_call=K``: K host batches are stacked and moved to the device
+  in one pinned, non-blocking copy, then their K steps (and augmentations)
+  are issued back to back; nothing in between reads the device.  An epoch's
+  tail shorter than K goes step by step.  The state after an epoch is the
+  same as with ``K=1``.
+* ``remat`` / ``remat_neuron``: the model recomputes its layers / its
+  neuron recurrences in the backward pass (``nn/blocks.checkpointed``);
+  the BN running statistics still move once a step.
+* ``sr``: the network-slimming L1 term in the step, decaying over
+  ``epochs * steps_per_epoch`` steps.
+* ``optimizer="Lion"``; ``quad``: the quad collate (``batch_size % 4 ==
+  0``; the step sees ``batch_size / 4`` images at twice the side).
+
 Deviations from the JAX driver:
 
 * ``single_cls`` reaches the datasets (the labels' classes become 0).  The
@@ -30,13 +54,13 @@ Deviations from the JAX driver:
   ``100 / accumulate``, where the optimizer it built uses ``1000 /
   accumulate`` for ``Detect``.
 * Each sample's augmentation is drawn from ``(seed, epoch, index)``
-  (``data/dataset.Dataset.sample_rng``).
+  (``data/dataset.Dataset.sample_rng``); each device-augmented batch's from
+  ``(seed, epoch, batches dispatched)`` by a ``torch.Generator``, where JAX
+  folds ``epoch * steps_per_epoch + batches dispatched`` into its key.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP Queue 1
 item): ``events`` (10), segment heads (11), other heads (9),
-``model_parallel > 1`` and multi-host (12), ``steps_per_call > 1`` (8, a
-CUDA graph of the step on the GPU), ``remat``, ``remat_neuron``, ``sr`` and
-Lion (8), ``device_augment`` and ``quad`` (7).
+``model_parallel > 1`` and multi-host (12).
 """
 
 from __future__ import annotations
@@ -53,6 +77,7 @@ import torch
 from .. import val as val_mod
 from ..config import SNNConfig
 from ..data.dataset import Dataset
+from ..data.device_augment import augment_batch, check_hyp
 from ..data.hyps import HYP_SCRATCH
 from ..device import resolve_device
 from ..models.yolo import build_model, load_cfg, parse_model
@@ -67,8 +92,7 @@ def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 {item})")
 
 
-def _check_ported(cfg, head: str, events, sr, remat, remat_neuron, model_parallel,
-                  quad, device_augment, steps_per_call, optimizer) -> None:
+def _check_ported(cfg, head: str, events, model_parallel) -> None:
     if events:
         _unported("event mode (events=True)", "item 10")
     if head in ("Segment", "Panoptic"):
@@ -78,18 +102,6 @@ def _check_ported(cfg, head: str, events, sr, remat, remat_neuron, model_paralle
     if model_parallel > 1 or (torch.distributed.is_available()
                               and torch.distributed.is_initialized()):
         _unported("model_parallel > 1 and multi-host training", "item 12")
-    if steps_per_call > 1:
-        _unported("steps_per_call > 1 (a CUDA graph of the step)", "item 8")
-    if remat or remat_neuron:
-        _unported("remat / remat_neuron", "item 8")
-    if sr > 0:
-        _unported("the sr BN-L1 sparsity term", "item 8")
-    if str(optimizer).lower() == "lion":
-        _unported("the Lion optimizer", "item 8")
-    if device_augment:
-        _unported("device_augment", "item 7")
-    if quad:
-        _unported("the quad collate", "item 7")
 
 
 def _autoanchor(d: Dict, train_ds: Dataset, imgsz: int, thr: float):
@@ -122,11 +134,48 @@ def _image_weights(train_ds: Dataset, nc: int, history, rng_seed: int) -> None:
         train_ds.n, size=train_ds.n, p=iw / iw.sum())
 
 
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    t = torch.from_numpy(a)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t
+def _to_device(arrays, dev: torch.device):
+    """The host arrays as tensors on ``dev``: on a CUDA device packed into
+    one pinned buffer (each array at a 16-byte aligned offset) and moved in
+    one non-blocking copy, then viewed back in their dtypes and shapes."""
+    ts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+    if dev.type != "cuda":
+        return ts
+    offs, n = [], 0
+    for t in ts:
+        offs.append(n)
+        n += -(-t.numel() * t.element_size() // 16) * 16
+    buf = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    for t, o in zip(ts, offs):
+        nb = t.numel() * t.element_size()
+        buf[o:o + nb] = t.reshape(-1).view(torch.uint8)
+    dbuf = buf.to(dev, non_blocking=True)
+    return [dbuf[o:o + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+            for t, o in zip(ts, offs)]
+
+
+def dispatch(state, step_fn, batches, dev: torch.device, augment=None, first: int = 0):
+    """Issue the steps of ``batches`` (host ``(images, targets, t_mask)``
+    tuples of one shape) back to back: stacked and moved to ``dev`` in one
+    copy, each augmented on the device first when ``augment(n, images,
+    targets, t_mask)`` is given (``n`` counts from ``first``).  Nothing here
+    reads a device value, so the host does not wait for the device between
+    the steps.  Returns ``(state, [metrics of each step])``."""
+    stacked = [np.stack(a) if len(a) > 1 else a[0][None] for a in zip(*batches)]
+    images, targets, t_mask = _to_device(stacked, dev)
+    out = []
+    for j in range(images.shape[0]):
+        batch = (images[j], targets[j], t_mask[j])
+        if augment is not None:
+            batch = augment(first + j, *batch)
+        state, metrics = step_fn(state, *batch)
+        out.append(metrics)
+    return state, out
+
+
+def _augment_seed(seed: int, epoch: int, n: int) -> int:
+    """Seed of the device augmentation of batch ``n`` of ``epoch``."""
+    return int(np.random.SeedSequence([seed, epoch, n]).generate_state(1)[0])
 
 
 def train(
@@ -189,8 +238,17 @@ def train(
     if nc is not None:
         d["nc"] = nc
     head = d["head"][-1][2] if d.get("head") else ""
-    _check_ported(cfg, head, events, sr, remat, remat_neuron, model_parallel, quad,
-                  device_augment, steps_per_call, optimizer)
+    _check_ported(cfg, head, events, model_parallel)
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    if quad and batch_size % 4:
+        raise ValueError(f"quad needs batch % 4 == 0, got {batch_size}")
+    if device_augment and quad:
+        LOGGER.warning("device_augment supports the plain detection pipeline only "
+                       "- falling back to host augmentation")
+        device_augment = False
+    if device_augment:
+        check_hyp(hyp)
     tree = meta = None
     if resume:
         tree, meta = load_checkpoint(resume)
@@ -201,7 +259,7 @@ def train(
     w = Path(save_dir) / "weights"
     w.mkdir(parents=True, exist_ok=True)
 
-    train_ds = Dataset(train_path, img_size=imgsz, augment=True, hyp=hyp,
+    train_ds = Dataset(train_path, img_size=imgsz, augment=not device_augment, hyp=hyp,
                        max_labels=max_labels, cache_images=cache, uint8_out=True,
                        single_cls=single_cls, seed=seed)
     val_ds = (Dataset(val_path, img_size=imgsz, augment=False,
@@ -218,7 +276,9 @@ def train(
     if anchors is not None:
         d["anchors"] = anchors
 
-    model = build_model(d, snn=snn, device=dev,
+    if remat_neuron:
+        snn = (snn or SNNConfig()).replace(remat_neuron=True)
+    model = build_model(d, snn=snn, device=dev, remat=remat,
                         generator=torch.Generator().manual_seed(seed))
     model_nc = model.head_info["nc"]
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
@@ -237,7 +297,9 @@ def train(
     state = create_train_state(model, tx, device=dev)
     step_fn = make_train_step(model, tx, hyp, ema_decay=ema_decay,
                               compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+                              sr=sr, sr_total_steps=epochs * steps_per_epoch,
                               accumulate=accumulate, device=dev)
+    aug_gen = torch.Generator(device=dev) if device_augment else None
     # the val pass's model: a copy in eval mode that takes the EMA parameters
     # and the BN statistics each epoch; the training module is never cast
     eval_model = copy.deepcopy(model).eval() if val_ds is not None else None
@@ -292,23 +354,40 @@ def train(
         items_sum = torch.zeros(3, dtype=torch.float32, device=dev)
         losses, nb, applies, wait, step_s = [], 0, 0, 0.0, 0.0
         count0 = int(state.opt_state.count)
+        aug_hyp = dict(hyp, mosaic=train_ds.hyp.get("mosaic", 1.0))
+
+        def augment(n, im, tg, mk):
+            aug_gen.manual_seed(_augment_seed(seed, epoch, n))
+            return augment_batch(im.to(torch.float32) / 255.0, tg, mk, aug_gen, aug_hyp)
+
+        def issue(chunk):
+            nonlocal state, nb, applies, items_sum, step_s
+            t_step = time.perf_counter()
+            state, ms = dispatch(state, step_fn, chunk, dev,
+                                 augment if aug_gen is not None else None, first=nb)
+            for metrics in ms:
+                items_sum += metrics["items"][:3].float()
+                losses.append(metrics["loss"])
+                nb += 1
+                applies += int(metrics["boundary"])
+                callbacks.run("on_train_batch_end", nb)
+            step_s += time.perf_counter() - t_step
+
         batches = train_ds.batches(batch_size, shuffle=True, seed=seed + epoch,
-                                   workers=workers)
+                                   workers=workers, quad=quad)
+        chunk = []
         while True:
             t_wait = time.perf_counter()
             batch = next(batches, None)
             wait += time.perf_counter() - t_wait
             if batch is None:
                 break
-            t_step = time.perf_counter()
-            images, targets, t_mask = (_to_device(a, dev) for a in batch)
-            state, metrics = step_fn(state, images, targets, t_mask)
-            step_s += time.perf_counter() - t_step
-            items_sum += metrics["items"][:3].float()
-            losses.append(metrics["loss"])
-            nb += 1
-            applies += int(metrics["boundary"])
-            callbacks.run("on_train_batch_end", nb)
+            chunk.append(batch)
+            if len(chunk) == steps_per_call:
+                issue(chunk)
+                chunk = []
+        for batch in chunk:         # an epoch's tail shorter than K, step by step
+            issue([batch])
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         train_s = time.perf_counter() - t_epoch

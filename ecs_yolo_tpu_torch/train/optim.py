@@ -3,9 +3,10 @@
 
 Three parameter groups: g0 norm scales (no weight decay), g1 kernels (weight
 decay), g2 biases and 1-D leftovers (no decay, warm-up from
-``warmup_bias_lr``).  SGD with Nesterov momentum, Adam or AdamW; linear or
-one-cycle learning rate; the warm-up interpolates both the learning rate and
-the SGD momentum.
+``warmup_bias_lr``).  SGD with Nesterov momentum, Adam, AdamW or Lion
+(``optax.lion`` with ``b1=momentum``, ``b2=0.99`` and the group's decay);
+linear or one-cycle learning rate; the warm-up interpolates both the
+learning rate and the SGD momentum.
 
 The update is written out here rather than handed to ``torch.optim``: the
 schedules change the learning rate and the momentum per step and per group,
@@ -160,7 +161,7 @@ class Optimizer:
         self.name = name
         self.lr_fns = lr_fns            # group -> lr_fn
         self.mom_fn = mom_fn            # SGD only
-        self.momentum = momentum        # Adam's b1
+        self.momentum = momentum        # Adam's and Lion's b1
         self.decay = {"g0": 0.0, "g1": weight_decay, "g2": 0.0}
         self.accumulate = accumulate
 
@@ -170,7 +171,8 @@ class Optimizer:
         dev = next(iter(params.values())).device
         zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
         scalar = lambda: torch.zeros((), dtype=torch.int64, device=dev)
-        return OptState(scalar(), zeros(), None if self.name == "sgd" else zeros(),
+        return OptState(scalar(), zeros(),
+                        None if self.name in ("sgd", "lion") else zeros(),
                         scalar(), zeros() if self.accumulate > 1 else None)
 
     @torch.no_grad()
@@ -220,6 +222,8 @@ class Optimizer:
         count = state.count
         if self.name == "sgd":
             mom = self.mom_fn(count)
+        elif self.name == "lion":
+            b1, b2 = self.momentum, 0.99
         else:
             b1, b2, eps = self.momentum, 0.999, 1e-8
             t = (count + 1).to(torch.float64)   # bias corrections in full precision
@@ -241,6 +245,15 @@ class Optimizer:
                     gs = torch._foreach_add(gs, ps, alpha=decay)
                 mu = torch._foreach_add(torch._foreach_mul(mus, mom), gs)
                 u = torch._foreach_add(torch._foreach_mul(mu, mom), gs)
+            elif self.name == "lion":
+                # optax.lion: u = sign((1-b1) g + b1 mu) + decay p, and the
+                # moment moves with b2
+                u = torch._foreach_sign(torch._foreach_add(
+                    torch._foreach_mul(gs, 1 - b1), torch._foreach_mul(mus, b1)))
+                if decay:
+                    u = torch._foreach_add(u, ps, alpha=decay)
+                mu = torch._foreach_add(torch._foreach_mul(gs, 1 - b2),
+                                        torch._foreach_mul(mus, b2))
             else:
                 nus = [state.nu[k] for k in ks]
                 if decay and self.name == "adam":
@@ -286,10 +299,7 @@ def build_optimizer(
     if accumulate < 1:
         raise ValueError(f"accumulate must be >= 1, got {accumulate}")
     kind = name.lower()
-    if kind == "lion":
-        raise NotImplementedError("the Lion optimizer is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
-    if kind not in ("sgd", "adam", "adamw"):
+    if kind not in ("sgd", "adam", "adamw", "lion"):
         raise KeyError(f"unknown optimizer {name!r}")
     sched_spe = steps_per_epoch / accumulate
     min_warmup = warmup_floor / accumulate

@@ -27,6 +27,7 @@ from ..models.yolo import DetectionModel
 from .ema import ema_update
 from .loss_v1 import compute_loss_v1
 from .optim import OptState, Optimizer
+from .sparsity import add_l1_subgradient, sparsity_rate
 
 
 @dataclasses.dataclass
@@ -123,6 +124,7 @@ def make_train_step(
     ema_decay: float = 0.9999,
     compute_dtype: torch.dtype = torch.float32,
     sr: float = 0.0,
+    sr_total_steps: int = 1,
     accumulate: int = 1,
     with_masks: bool = False,
     with_semantic: bool = False,
@@ -141,11 +143,16 @@ def make_train_step(
     k-th (``boundary`` True, ``applied`` its 0-d flag; else None), and the
     EMA moves only there, with ``step // k`` applies as its decay ramp
     counter (reference ModelEMA updates once per optimizer step).
+
+    ``sr > 0`` adds the network-slimming L1 subgradient to every
+    micro-gradient before the optimizer (``train/sparsity.py``): ``srtmp *
+    sign(p)`` on the BN scales, ``srtmp = sr * (1 - 0.9 * clip(step /
+    sr_total_steps, 0, 1))`` from the device ``step``, and ``10 * sr *
+    sign(p)`` on the BN biases.
     """
-    if sr > 0 or with_masks or with_semantic:
-        raise NotImplementedError("the sparsity term, instance masks and "
-                                  "semantic maps are not ported yet (ROADMAP "
-                                  "Queue 1 items 8 and 11)")
+    if with_masks or with_semantic:
+        raise NotImplementedError("instance masks and semantic maps are not "
+                                  "ported yet (ROADMAP Queue 1 item 11)")
     if accumulate != tx.accumulate:
         raise ValueError(f"accumulate={accumulate}, but the optimizer was built "
                          f"with accumulate={tx.accumulate}")
@@ -154,6 +161,10 @@ def make_train_step(
 
     def step_fn(state: TrainState, images, targets, t_mask):
         total, items, grads = grad_fn(state, images, targets, t_mask)
+        if sr > 0:
+            srtmp = sparsity_rate(sr, state.step.to(torch.float32)
+                                  / max(sr_total_steps, 1))
+            grads = add_l1_subgradient(grads, state.params, srtmp, sr)
         applied, boundary = tx.update(state.params, grads, state.opt_state)
         state.step += 1
         if boundary:

@@ -257,3 +257,22 @@ def test_check_and_kmean_anchors_match_jax():
         assert gc == wc
         np.testing.assert_allclose(ga, wa, rtol=1e-6)
     assert gc    # the scaled-up anchors are refit
+
+
+def test_quad_collate_matches_jax(split):
+    """``batches(quad=True)`` on the val half (no augmentation, so both sides
+    load the same pixels): each 2x canvas and its labels equal JAX's, and a
+    batch not divisible by 4 or eval metadata are refused as there."""
+    pd_ = PD.Dataset(split, img_size=32, augment=False, max_labels=5, uint8_out=True)
+    jd = JD.Dataset(split, img_size=32, augment=False, max_labels=5, uint8_out=True)
+    got = list(pd_.batches(4, shuffle=True, seed=2, quad=True))
+    want = list(jd.batches(4, shuffle=True, seed=2, quad=True))
+    assert len(got) == len(want) == 1
+    for a, b in zip(got[0], want[0]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    ims, lbs, ms = got[0]
+    assert ims.shape == (1, 64, 64, 3) and lbs.shape == (1, 20, 5) and ms.shape == (1, 20)
+    assert ms.any() and (lbs[ms][:, 1:3] <= 1).all()
+    for kw in (dict(batch_size=6), dict(batch_size=4, yield_count=True)):
+        with pytest.raises(ValueError):
+            next(pd_.batches(quad=True, **kw))

@@ -352,8 +352,11 @@ def _root_train_parse(argv, monkeypatch):
 @pytest.mark.parametrize("argv", [[], ["--epochs", "3", "--batch-size", "4", "--bf16",
                                        "--single-cls", "--cache", "ram", "--nbs", "32",
                                        "--linear-lr", "--noautoanchor", "--resume",
-                                       "w.pt", "--multi-scale", "--image-weights"]],
-                         ids=["defaults", "flags"])
+                                       "w.pt", "--multi-scale", "--image-weights"],
+                                  ["--device-augment", "--steps-per-call", "4", "--remat",
+                                   "--remat-neuron", "--sr", "0.01", "--optimizer", "Lion",
+                                   "--quad"]],
+                         ids=["defaults", "flags", "options"])
 def test_cli_flags_match_root_train_py(argv, monkeypatch):
     want = _root_train_parse(argv, monkeypatch)
     got = vars(PCLI.parse_opt(argv))
@@ -370,8 +373,11 @@ def test_cli_passes_single_cls_to_the_datasets(tmp_path, monkeypatch):
     seen = {}
     monkeypatch.setattr(PDR, "train", lambda **kw: seen.update(kw))
     PCLI.main(PCLI.parse_opt(["--data", str(data), "--hyp", str(hyp), "--single-cls",
-                              "--device", "cpu"]))
+                              "--device", "cpu", "--device-augment", "--steps-per-call",
+                              "3", "--remat-neuron", "--sr", "0.02", "--optimizer", "Lion"]))
     assert seen["single_cls"] and seen["nc"] == 1 and seen["device"] == "cpu"
+    assert seen["device_augment"] and seen["steps_per_call"] == 3 and seen["sr"] == 0.02
+    assert seen["remat_neuron"] and not seen["remat"] and seen["optimizer"] == "Lion"
     assert seen["hyp"] == {"lr0": 0.02} and seen["close_mosaic"] == 3
     assert seen["val_path"] == str(tmp_path / "va")
 
@@ -398,24 +404,178 @@ def test_train_builds_its_datasets_with_single_cls(monkeypatch, tmp_path):
     assert seen[0]["augment"] and not seen[1]["augment"]
 
 
+def _head(name):
+    d = _narrow("resnet10.yaml")
+    d["head"][-1] = d["head"][-1][:2] + [name] + d["head"][-1][3:]
+    return d
+
+
 UNPORTED = [("events", dict(events=True), "item 10"),
             ("model_parallel", dict(model_parallel=2), "item 12"),
-            ("steps_per_call", dict(steps_per_call=4), "item 8"),
-            ("remat", dict(remat=True), "item 8"),
-            ("remat_neuron", dict(remat_neuron=True), "item 8"),
-            ("sr", dict(sr=0.01), "item 8"),
-            ("lion", dict(optimizer="Lion"), "item 8"),
-            ("device_augment", dict(device_augment=True), "item 7"),
-            ("quad", dict(quad=True), "item 7")]
+            ("segment_head", dict(cfg=_head("Segment")), "item 11"),
+            ("tal_head", dict(cfg=_head("DDetect")), "item 9")]
 
 
 @pytest.mark.parametrize("kw,item", [u[1:] for u in UNPORTED],
                          ids=[u[0] for u in UNPORTED])
 def test_unported_features_raise_naming_their_item(kw, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
+        PDR.train(**{"cfg": _narrow("resnet10.yaml"), **kw}, train_path=tmp_path,
+                  device="cpu", save_dir=str(tmp_path / "r"))
+    assert not (tmp_path / "r").exists()
+
+
+REFUSED = [("flipud", dict(device_augment=True, hyp=dict(flipud=0.5)), "flipud"),
+           ("mixup", dict(device_augment=True, hyp=dict(mixup=0.1)), "mixup"),
+           ("copy_paste", dict(device_augment=True, hyp=dict(copy_paste=0.3)), "copy_paste"),
+           ("steps_per_call_0", dict(steps_per_call=0), "steps_per_call"),
+           ("quad_batch_6", dict(quad=True, batch_size=6), "quad")]
+
+
+@pytest.mark.parametrize("kw,what", [u[1:] for u in REFUSED], ids=[u[0] for u in REFUSED])
+def test_refused_options_raise_before_anything_is_written(kw, what, tmp_path):
+    """The hyps the device pipeline lacks (the JAX module drops them without
+    a word), a step count under 1, a quad batch not divisible by 4."""
+    with pytest.raises(ValueError, match=what):
         PDR.train(_narrow("resnet10.yaml"), tmp_path, device="cpu",
                   save_dir=str(tmp_path / "r"), **kw)
     assert not (tmp_path / "r").exists()
+
+
+def _state(st):
+    o = st.opt_state.tensors()
+    return dict(params=st.params, stats=st.batch_stats, ema=st.ema_params, mu=o["mu"],
+                acc=o["acc"], scalars=dict(step=st.step, count=o["count"],
+                                           errors=o["errors"]))
+
+
+@pytest.fixture(scope="module")
+def k2_run(tmp_path_factory):
+    """``train()`` with ``device_augment`` and ``steps_per_call=2`` over 3
+    micro-batches of a narrowed res10 at 32 px, batch 1, on one thread (the
+    CPU convolutions' weight gradients are not bit-reproducible across
+    thread schedules): its state, history, each ``dispatch`` call's host
+    batches, the initial state and the arguments of the step's pieces."""
+    tmp = tmp_path_factory.mktemp("k2")
+    tr = write_split(tmp / "tr", sizes=[(48, 80), (64, 64), (100, 37)], nc=3)
+    seen = {"dispatch": [], "built": []}
+    real = {k: getattr(PDR, k) for k in ("dispatch", "Dataset", "build_model",
+                                          "build_optimizer", "make_train_step")}
+
+    def dispatch(state, fn, batches, *a, **k):
+        seen["dispatch"].append([tuple(np.copy(x) for x in b) for b in batches])
+        return real["dispatch"](state, fn, batches, *a, **k)
+
+    def keep(name):
+        def wrapped(*a, **k):
+            seen[name] = (a, k)
+            out = real[name](*a, **k)
+            if name == "build_model":
+                seen["model"] = out
+            return out
+        return wrapped
+
+    patch = pytest.MonkeyPatch()
+    patch.setattr(PDR, "dispatch", dispatch)
+    patch.setattr(PDR, "Dataset", lambda *a, **k: seen["built"].append(k["augment"])
+                  or real["Dataset"](*a, **k))
+    for name in ("build_model", "build_optimizer", "make_train_step"):
+        patch.setattr(PDR, name, keep(name))
+    cb = PG.Callbacks()
+    cb.register_action("on_train_start", callback=lambda st: seen.update(start={
+        k: v.detach().clone() for k, v in seen["model"].state_dict().items()}))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        state, _, hist = PDR.train(
+            _narrow("resnet10.yaml"), tr, None, nc=3, batch_size=1, imgsz=32, nbs=2,
+            epochs=1, workers=0, autoanchor=False, device_augment=True, steps_per_call=2,
+            snn=SNNConfig(time_window=T), loggers_include=("csv",), device="cpu",
+            save_dir=str(tmp / "k2"), callbacks=cb)
+    finally:
+        torch.set_num_threads(threads)
+        patch.undo()
+    seen.update(real=real, hist=hist, state={
+        n: {k: v.clone() for k, v in part.items()} for n, part in _state(state).items()})
+    return seen
+
+
+def test_steps_per_call_dispatches_chunks_then_the_tail(k2_run):
+    """Three micro-batches at ``steps_per_call=2``: one dispatch of 2, then
+    the tail of 1; the train set built without host augmentation; every
+    batch's augmentation drawn from its own seed."""
+    assert [len(c) for c in k2_run["dispatch"]] == [2, 1]
+    assert k2_run["built"] == [False] and k2_run["hist"][0]["micro_steps"] == 3
+    assert int(k2_run["state"]["scalars"]["step"]) == 3 and k2_run["hist"][0]["loss_finite"]
+    assert len({PDR._augment_seed(0, e, n) for e in (0, 1) for n in range(3)}) == 6
+
+
+def test_steps_per_call_leaves_the_state_of_single_steps(k2_run):
+    """The state ``train()`` left at ``steps_per_call=2`` against the same
+    batches dispatched one at a time from the same initial state, as
+    ``steps_per_call=1`` dispatches them (``driver.dispatch``, each batch
+    augmented from its own draws): parameters, BN statistics, EMA,
+    optimizer state and step count bit-equal (one thread)."""
+    seen, real = k2_run, k2_run["real"]
+    model = seen["model"]
+    model.load_state_dict(seen["start"])
+    tx = real["build_optimizer"](*seen["build_optimizer"][0], **seen["build_optimizer"][1])
+    one = PT.create_train_state(model, tx, device="cpu")
+    step = real["make_train_step"](model, tx, *seen["make_train_step"][0][2:],
+                                   **seen["make_train_step"][1])
+    gen = torch.Generator()
+    hyp = dict(HYP_SCRATCH)
+
+    def augment(n, im, tg, mk):
+        gen.manual_seed(PDR._augment_seed(0, 0, n))
+        return PDR.augment_batch(im.to(torch.float32) / 255.0, tg, mk, gen, hyp)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for n, batch in enumerate(b for c in seen["dispatch"] for b in c):
+            one, _ = real["dispatch"](one, step, [batch], torch.device("cpu"), augment,
+                                      first=n)
+    finally:
+        torch.set_num_threads(threads)
+    got, want = seen["state"], _state(one)
+    for part in want:
+        assert set(got[part]) == set(want[part])
+        for k, v in want[part].items():
+            assert torch.equal(got[part][k], v), (part, k)
+    assert any(not torch.equal(seen["start"][k], v) for k, v in want["params"].items())
+
+
+def test_options_reach_the_model_step_optimizer_and_dataset(tmp_path, monkeypatch):
+    """``remat``, ``remat_neuron``, ``sr``, Lion and ``quad`` through
+    ``train()``: one quad batch of 4 (one 64 px canvas) takes a step."""
+    tr = write_split(tmp_path / "tr", sizes=[(48, 80), (64, 64), (100, 37), (30, 45)],
+                     nc=3)
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            seen[name] = k
+            return fn(*a, **k)
+        monkeypatch.setattr(PDR, name, wrapped)
+
+    for name in ("build_model", "build_optimizer", "make_train_step"):
+        spy(name, getattr(PDR, name))
+    shapes = []
+    real_dispatch = PDR.dispatch
+    monkeypatch.setattr(PDR, "dispatch", lambda st, fn, batches, *a, **k: shapes.append(
+        batches[0][0].shape) or real_dispatch(st, fn, batches, *a, **k))
+    state, _, hist = PDR.train(
+        _narrow("resnet10.yaml"), tr, None, nc=3, batch_size=4, imgsz=32, nbs=4,
+        epochs=1, workers=0, autoanchor=False, remat=True, remat_neuron=True, sr=0.01,
+        optimizer="Lion", quad=True, snn=SNNConfig(time_window=T),
+        loggers_include=("csv",), device="cpu", save_dir=str(tmp_path / "r"))
+    assert seen["build_model"]["remat"] and seen["build_model"]["snn"].remat_neuron
+    assert seen["build_optimizer"]["name"] == "Lion"
+    assert seen["make_train_step"]["sr"] == 0.01
+    assert seen["make_train_step"]["sr_total_steps"] == 1 * 1
+    assert shapes == [(1, 64, 64, 3)] and int(state.step) == 1
+    assert state.opt_state.nu is None and all(h["loss_finite"] for h in hist)
 
 
 def test_training_needs_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
