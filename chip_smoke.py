@@ -50,6 +50,20 @@ the port's paths at full width with random weights from a seed:
   ``torch.cuda.set_sync_debug_mode("error")`` held to 4 single steps and
   timed against them, and three Lion steps with the ``sr`` term held to the
   same update on the CPU;
+* the anchor-free heads (phase ``heads``, after ``train_opts``):
+  ``res10v8.yaml`` (ASFF_DDetect with the TAL loss) at b8, bf16: every
+  neuron site of a forward against the plain version of its kernel on its
+  real input, ``detect.run``, a timed and profiled forward with K1's time at
+  the head's sites, one float32 step against its ``plain_kernels()`` rerun
+  with every site teacher-forced (each parameter's gradient; a planted wrong
+  K4 int8 plane must fail that gate), three timed bf16 steps (K4 / K5
+  launches, peak memory, the TAL assigner's device time) and one more under
+  ``torch.cuda.set_sync_debug_mode("error")``, one 64-image epoch of ``train.driver.train`` whose val pass
+  on the EMA copy must give ``plain_kernels()``'s detections; the K1, K4 and
+  K5 shapes the heads add (C = 8; K5 at 40x40x64 and 20x20x64) in their own
+  kernel_check records; the other four anchor-free YAMLs at b2 (a checked
+  detect batch, ``detect.run``, a float32 step; ``res10v10`` one
+  ``val.run``);
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
@@ -508,7 +522,8 @@ def phase_spread(S, BS, plain_kernels, sites: Counter, log) -> dict:
                         timed["profiler_kernel_ms"] = BS.profiled_ms(call, "spread_dw3_kernel")
                 else:
                     ms = cuda_ms(kernel, reps)
-                    timed = {"wrapper_ms": cuda_ms(wrapper, reps)}
+                    timed = {"wrapper_ms": cuda_ms(wrapper, reps),
+                             "plan": S.plan_gemm(N, h, w, c, SMS)._asdict()}
                 library_ms = cuda_ms(lib, reps)
             rec = {"phase": "kernel_check", "kernel": name, "dtype": dname(dtype),
                    "shape": list(shape), "sites": count,
@@ -525,14 +540,17 @@ def phase_spread(S, BS, plain_kernels, sites: Counter, log) -> dict:
     return aggs
 
 
-def phase_spread_grads(S, log) -> None:
+def phase_spread_grads(S, log, shapes=((N, 40, 40, 256), (N, 160, 160, 64))) -> None:
     """Each spread kernel's autograd.Function against autograd through its
-    plain version, float32, one main-path shape each."""
-    for name, fn, ref, shape, nparam in (
-            ("binary_dw3_conv", S.binary_dw3_conv, S.binary_dw3_conv_reference,
-             (N, 40, 40, 256), 2),
-            ("packed_spread", S.packed_spread, S.packed_spread_reference,
-             (N, 160, 160, 64), 4)):
+    plain version, float32, at ``shapes`` (by default one main-path shape
+    each; ``spread_route`` picks the kernel of a shape)."""
+    for shape in shapes:
+        if S.spread_route(shape[-1], shape[2]) == "dw3":
+            name, fn, ref, nparam = ("binary_dw3_conv", S.binary_dw3_conv,
+                                     S.binary_dw3_conv_reference, 2)
+        else:
+            name, fn, ref, nparam = ("packed_spread", S.packed_spread,
+                                     S.packed_spread_reference, 4)
         args = spread_inputs(shape, torch.float32, seed=7)[:1 + nparam]
         gy = rand_fn(8)(*shape) - 0.5
         worst = {}
@@ -1941,6 +1959,485 @@ def phase_train_opts(seed: int, train_src: Path, run_rec: dict, log) -> dict:
             for k in counters}
 
 
+#: the anchor-free YAMLs of the ``heads`` phase, and per YAML its neuron
+#: sites and the launches of the fused spread product and of the depthwise
+#: kernel in a T=4 training forward (tests/test_torch_port_spread.py holds
+#: this table against the models' hooks on the CPU)
+HEAD_CFG = "res10v8.yaml"
+HEAD_OTHERS = ("res10v10.yaml", "res10-dual.yaml", "res10-triple.yaml",
+               "res10-dualplain.yaml")
+HEAD_SITES = {"res10v8.yaml": (44, 21, 111), "res10v10.yaml": (60, 27, 153),
+              "res10-dual.yaml": (44, 27, 105), "res10-triple.yaml": (52, 33, 123),
+              "res10-dualplain.yaml": (40, 15, 57)}
+HEAD_OTHER_BATCH = 2       # the four other YAMLs: one detect batch, one step at b2
+HEAD_STEPS = 3             # timed bf16 steps of res10v8
+HEAD_VAL_IMAGES = 16
+#: the float32 step of a head model: the kernel run against a plain rerun in
+#: which every site hands on the kernel run's output (teacher forcing), so
+#: that one spike flipped near a threshold does not cascade through the
+#: layers behind it and move the TAL assignment; each parameter's gradient
+#: is held to its plain value, relative.  Read on res10v8 b8: 3.9e-4 (one
+#: spike in 6.5e6 flips inside a plain site, where forcing cannot reach),
+#: the planted fault below 9.9e2 (PERF.md, Findings)
+HEAD_PARAM_GRAD_RTOL = 1e-2
+#: the planted fault that gate must see: K4 writing every PLANT_STRIDE-th
+#: element of the int8 spike plane its backward reads flipped
+PLANT_STRIDE = 997
+
+
+def captured_sites(sites, run):
+    """``run()`` with every site's input and output kept (raw)."""
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o: seen.append((m, i[0].detach(),
+                                                                  o.detach())))
+             for m in sites]
+    try:
+        out = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, seen
+
+
+def silu_err(got, want, xin) -> float:
+    """A SiLU site's largest error: float32 in absolute value, bfloat16 in
+    ulps of the larger of the plain output and the site's input (the
+    membrane sums the input: where it cancels to near zero, the input's
+    ulp is the rounding the sum carries)."""
+    diff = (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        return float(diff.max())
+    scale = torch.maximum(want.float().abs(), xin.float().abs()).clamp(min=1e-30)
+    return float((diff / torch.exp2(torch.floor(torch.log2(scale)) - 7)).max())
+
+
+def site_errors(seen, plain_kernels) -> tuple:
+    """Per site, its kernel output against the plain version of its kernel
+    on the same input: for a spiking site the share of spikes that differ
+    (held to ``SPIKE_BOUND``), for a SiLU site (``act``) ``silu_err`` (held
+    to ``SILU_ATOL`` in float32, ``LIF_SILU_ULPS_BF16`` in bfloat16, every
+    element).  Returns (spike shares, SiLU errors)."""
+    shares, silu = [], []
+    with plain_kernels(), torch.no_grad():
+        for m, xin, out in seen:
+            want = m(xin)
+            if m.act:
+                silu.append(silu_err(out, want, xin))
+            else:
+                shares.append(float((out != want).float().mean()))
+    return shares, silu
+
+
+def sites_ok(shares, silu, dtype) -> bool:
+    gate = SILU_ATOL if dtype == torch.float32 else LIF_SILU_ULPS_BF16
+    return max(shares, default=0.0) <= SPIKE_BOUND[dtype] and max(silu, default=0.0) <= gate
+
+
+def head_model(cfg: str, seed: int, xb: torch.Tensor, bn_cls):
+    """``cfg`` at full width, nc 13, random weights from ``seed``, its BN
+    statistics calibrated on ``xb`` in float32 (see ``calibrate_bn``)."""
+    from ecs_yolo_tpu_torch.models.yolo import build_model
+
+    model = build_model(cfg, nc=NC, generator=torch.Generator().manual_seed(seed))
+    calibrate_bn(model, xb, bn_cls)
+    return model
+
+
+def f32_step_check(model, batch, sites, plain_kernels, hyp, plant=False) -> tuple:
+    """One float32 training step's loss and gradients on the kernel route
+    against the same step under ``plain_kernels()`` from the same state, each
+    site of the plain rerun handing on the kernel run's output (its gradient
+    still flows through the site's own plain forward); each site's output
+    against its plain version on its real input.  With ``plant`` the kernel
+    step is run again with K4 writing a wrong int8 plane (``PLANT_STRIDE``),
+    which leaves the forward as it is and must move a gradient past
+    ``HEAD_PARAM_GRAD_RTOL``."""
+    from ecs_yolo_tpu_torch.snn import spread as S
+    from ecs_yolo_tpu_torch.train.optim import build_optimizer
+    from ecs_yolo_tpu_torch.train.trainer import create_train_state, make_grad_fn
+
+    tx = build_optimizer(dict(model.named_parameters()), name="SGD", lr0=hyp["lr0"],
+                         lrf=hyp["lrf"], momentum=hyp["momentum"],
+                         weight_decay=hyp["weight_decay"], epochs=300, steps_per_epoch=1000,
+                         warmup_epochs=hyp["warmup_epochs"],
+                         warmup_momentum=hyp["warmup_momentum"],
+                         warmup_bias_lr=hyp["warmup_bias_lr"], warmup_floor=100.0)
+    state = create_train_state(model, tx)
+    stats0 = {k: v.clone() for k, v in state.batch_stats.items()}
+    grad_fn = make_grad_fn(model, hyp)
+
+    def step():
+        for k, v in stats0.items():
+            state.batch_stats[k].copy_(v)
+        return grad_fn(state, *batch)
+
+    (loss_k, items_k, grads_k), seen = captured_sites(sites, step)
+    shares, silu = site_errors(seen, plain_kernels)
+    kept = iter(seen)
+    input_diff = []
+
+    def force(m, i, o):
+        _, xin, out = next(kept)
+        input_diff.append(float((i[0].detach() - xin).abs().max()))
+        return out + (o - o.detach())
+
+    hooks = [m.register_forward_hook(force) for m in sites]
+    try:
+        with plain_kernels():
+            loss_p, items_p, grads_p = step()
+    finally:
+        for h in hooks:
+            h.remove()
+    del seen, kept
+
+    def rel(grads):
+        return {k: float((grads[k] - grads_p[k]).norm() / grads_p[k].norm().clamp(min=1e-30))
+                for k in grads}
+
+    err = rel(grads_k)
+    rec = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "loss_rel_err": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+           "items": items_k.tolist(), "items_plain": items_p.tolist(),
+           "sites_checked": len(shares) + len(silu),
+           "worst_site_mismatch_share": max(shares, default=0.0),
+           "worst_site_silu_err": max(silu, default=0.0),
+           "forced_sites": len(input_diff),
+           "site_input_max_abs_diff_forced": max(input_diff, default=0.0),
+           "grads_finite": all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
+           "param_grad_rel_err_max": max(err.values()),
+           "worst_param_grad_rel_err": sorted(err.items(), key=lambda kv: -kv[1])[:6],
+           "param_grad_rtol": HEAD_PARAM_GRAD_RTOL}
+    ok = (len(shares) + len(silu) == len(input_diff) == len(sites)
+          and sites_ok(shares, silu, torch.float32) and rec["grads_finite"]
+          and rec["loss_rel_err"] <= HEAD_PARAM_GRAD_RTOL
+          and rec["param_grad_rel_err_max"] <= HEAD_PARAM_GRAD_RTOL)
+    if plant:
+        real = S._dw3_kernel
+
+        def planted(s, k, b):
+            out, s8 = real(s, k, b)
+            flat = s8.view(-1)[::PLANT_STRIDE]
+            flat.copy_(1 - flat)
+            return out, s8
+
+        S._dw3_kernel = planted
+        try:
+            loss_b, _, grads_b = step()
+        finally:
+            S._dw3_kernel = real
+        bad = rel(grads_b)
+        rec["planted"] = {"fault": f"K4's int8 plane, one element in {PLANT_STRIDE} flipped",
+                          "loss_equal": float(loss_b) == float(loss_k),
+                          "param_grad_rel_err_max": max(bad.values()),
+                          "params_over_rtol": sum(v > HEAD_PARAM_GRAD_RTOL
+                                                  for v in bad.values()),
+                          "worst_param_grad_rel_err": sorted(
+                              bad.items(), key=lambda kv: -kv[1])[:6]}
+        ok &= (rec["planted"]["loss_equal"]
+               and rec["planted"]["param_grad_rel_err_max"] > HEAD_PARAM_GRAD_RTOL)
+    rec["ok"] = ok
+    return rec, tx, state
+
+
+def phase_heads(seed: int, train_src: Path, val_root: Path, log) -> dict:
+    """The anchor-free heads' main paths on the card, bf16, T=4, nc 13, 640 px.
+
+    ``res10v8`` (ASFF_DDetect, the TAL loss) at b8: a forward with every
+    neuron site held to the plain version of its kernel on its real input;
+    ``detect.run`` over the synthetic images (K1 launches counted); a timed
+    and profiled b8 forward, with K1's device time at the head's own sites;
+    one float32 train step on the kernel route against the same step under
+    ``plain_kernels()`` (``f32_step_check``); ``HEAD_STEPS`` bf16 steps of
+    ``make_train_step`` timed (K4 / K5 launches a step, peak memory, the TAL
+    assigner's device time a step), and one more that must make no host
+    sync; one epoch of ``train.driver.train`` over the 64-image
+    train set with its val pass on the EMA copy, whose NMS output is held to
+    the same pass under ``plain_kernels()``.  Each of the four other
+    anchor-free YAMLs at b2: a detect batch with every site checked,
+    ``detect.run``, one float32 step against its plain rerun; ``res10v10``
+    also one ``val.run``.  The K1 sites the heads add (C = 8 among them) and
+    the K4 / K5 training sites (K5 at 40x40x64 and 20x20x64) get their own
+    kernel_check records."""
+    from ecs_yolo_tpu_torch import detect as detect_mod
+    from ecs_yolo_tpu_torch import val as val_mod
+    from ecs_yolo_tpu_torch.config import SNNConfig
+    from ecs_yolo_tpu_torch.data.hyps import HYP_SCRATCH
+    from ecs_yolo_tpu_torch.data.loaders import LoadImages
+    from ecs_yolo_tpu_torch.models.yolo import cast_params, head_predictions
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
+    from ecs_yolo_tpu_torch.scripts import bench_spread as BS
+    from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import fused as FZ
+    from ecs_yolo_tpu_torch.snn import spread as S
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.train import driver, loss_tal
+    from ecs_yolo_tpu_torch.train.trainer import make_train_step
+    from ecs_yolo_tpu_torch.utils.general import Callbacks
+
+    t_phase = time.perf_counter()
+    hyp = dict(HYP_SCRATCH)
+    counters = {"ecs_lif_fused": K.ecs_lif_fused, "ecs_lif_fused_rows": FZ.ecs_lif_fused_rows,
+                "lif_fused": FZ.lif_fused, "binary_dw3_conv": S.binary_dw3_conv,
+                "packed_spread": S.packed_spread}
+
+    def reset():
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        return {k: f.launches for k, f in counters.items()}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_images(Path(tmp))
+        ims = [im for _, im, _ in LoadImages(tmp, IMGSZ)]
+        xb = torch.from_numpy(np.concatenate(ims * 2)).cuda().float() / 255.0
+        batch = train_batch(seed=3)
+
+        # --- res10v8: serving ---------------------------------------------------
+        model = head_model(HEAD_CFG, seed, xb, _BN)
+        sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+        head_sites = set(m for m in model.model[-1].modules() if isinstance(m, MemUpdate))
+        n_sites, gemm_step, dw3_step = HEAD_SITES[HEAD_CFG]
+        state32 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        cast_params(model, torch.bfloat16)
+        reset()
+        with torch.no_grad():
+            _, seen = captured_sites(sites, lambda: model(xb))
+        fwd_launches = read()
+        shares, silu = site_errors(seen, plain_kernels)
+        head_inputs = [(m, xin) for m, xin, _ in seen if m in head_sites]
+        shapes = Counter(tuple(xin.shape[2:]) for _, xin, _ in seen)
+        del seen
+        rec = {"phase": "heads_sites", "cfg": HEAD_CFG, "batch": N, "dtype": "bfloat16",
+               "sites": len(shares) + len(silu), "head_sites": len(head_inputs),
+               "shapes": [[list(k), v] for k, v in sorted(shapes.items(), reverse=True)],
+               "launches_per_forward": fwd_launches, "worst_site_mismatch_share":
+               max(shares), "site_mismatch_shares": shares}
+        emit(rec, log)
+        if (len(shares) + len(silu) != n_sites or not sites_ok(shares, silu, torch.bfloat16)
+                or fwd_launches["ecs_lif_fused"] != n_sites
+                or sum(fwd_launches.values()) != n_sites):
+            raise AssertionError(f"res10v8: a site disagrees or left K1: {rec}")
+
+        reset()
+        t0 = time.perf_counter()
+        results = detect_mod.run(model, tmp, imgsz=IMGSZ)
+        torch.cuda.synchronize()
+        detect_s = time.perf_counter() - t0
+        dets = [d for _, d in results]
+        rec = {"phase": "heads_detect", "cfg": HEAD_CFG, "images": len(results),
+               "seconds": detect_s, "detections": [int(len(d)) for d in dets],
+               "finite": all(bool(np.isfinite(d).all()) for d in dets), "launches": read()}
+        emit(rec, log)
+        out["detect_launches"] = rec["launches"]["ecs_lif_fused"]
+        if (not rec["finite"] or len(results) != 4
+                or rec["launches"]["ecs_lif_fused"] != n_sites * 4):
+            raise AssertionError(f"res10v8 detect.run failed its checks: {rec}")
+
+        with torch.no_grad():
+            ms = cuda_ms(lambda: model(xb), reps=10)
+            prof = profile_step(lambda: model(xb))
+            k1_head = [(m, xin, cuda_ms(lambda: K.ecs_lif_fused(
+                xin, *m.spread_params(), m.snn, m.act), reps=5)) for m, xin in head_inputs]
+        k1_rows = Counter()
+        for m, xin, t in k1_head:
+            k1_rows[tuple(xin.shape[2:])] += t
+        rec = {"phase": "heads_throughput", "cfg": HEAD_CFG, "batch": N, "imgsz": IMGSZ,
+               "T": T, "dtype": "bfloat16", "ms_per_forward": ms,
+               "images_per_s": N / ms * 1e3, "k1_launches_per_forward":
+               fwd_launches["ecs_lif_fused"], "k2_launches_per_forward":
+               fwd_launches["ecs_lif_fused_rows"],
+               "k1_head_sites": len(k1_head), "k1_head_sites_ms": sum(t for *_, t in k1_head),
+               "k1_head_ms_by_shape": [[list(k), v] for k, v in sorted(k1_rows.items())],
+               **prof}
+        emit(rec, log)
+        out["forward_ms"] = ms
+        del head_inputs, k1_head
+
+        # --- the K1 / K4 / K5 shapes the heads add, their own records -----------
+        res10 = {(320, 320, 64), (160, 160, 64), (80, 80, 128), (40, 40, 384),
+                 (40, 40, 256), (20, 20, 1024), (20, 20, 512), (20, 20, 256),
+                 (20, 20, 128)}
+        new = Counter({k: v for k, v in shapes.items() if k not in res10})
+        new[(40, 40, 512)] = 2             # res10-triple's and res10-dualplain's
+        phase_k1(K, SNNConfig, new, set(), log)
+        phase_spread(S, BS, plain_kernels, new, log)
+        phase_spread_grads(S, log, [(N,) + k for k in sorted(new)])
+
+        # --- res10v8: training --------------------------------------------------
+        for p in model.parameters():
+            p.data = p.data.float()
+        model.load_state_dict(state32)
+        rec, tx, state = f32_step_check(model, batch, sites, plain_kernels, hyp, plant=True)
+        emit({"phase": "heads_train_step_fp32", "cfg": HEAD_CFG, "batch": N, **rec}, log)
+        if not rec["ok"]:
+            raise AssertionError(f"res10v8 float32 step: kernel route disagrees: {rec}")
+
+        step = make_train_step(model, tx, hyp, compute_dtype=torch.bfloat16)
+        state, _ = step(state, *batch)                 # first call, kept apart
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(HEAD_STEPS + 1)]
+        losses = []
+        events[0].record()
+        for i in range(HEAD_STEPS):
+            state, metrics = step(state, *batch)
+            events[i + 1].record()
+            losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        launches = read()
+        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(HEAD_STEPS)]
+        # one more step must make no host sync (the TAL assigner and losses
+        # keep static shapes): a sync raises here and fails the phase
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _ = step(state, *batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        prof = profile_step(lambda: step(state, *batch))
+        # the assigner's device time: the step's own calls recorded, replayed
+        calls = []
+        real = loss_tal.task_aligned_assigner
+        loss_tal.task_aligned_assigner = lambda *a, **k: (calls.append((a, k)), real(*a, **k))[1]
+        try:
+            step(state, *batch)
+        finally:
+            loss_tal.task_aligned_assigner = real
+        assigner_ms = sum(cuda_ms(lambda: real(*a, **k), reps=5) for a, k in calls)
+        rec = {"phase": "heads_train_step", "cfg": HEAD_CFG, "batch": N, "imgsz": IMGSZ,
+               "T": T, "dtype": "bfloat16", "steps": HEAD_STEPS,
+               "losses": [float(v) for v in losses], "step_ms": step_ms,
+               "ms_per_step": sum(step_ms) / HEAD_STEPS,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches_per_step": {k: v / HEAD_STEPS for k, v in launches.items()},
+               "assigner_calls_per_step": len(calls), "assigner_ms_per_step": assigner_ms,
+               "sync_free_step": "torch.cuda.set_sync_debug_mode('error')",
+               **prof}
+        emit(rec, log)
+        out["step"] = rec
+        if (not all(math.isfinite(v) for v in rec["losses"]) or len(calls) != 1
+                or launches["binary_dw3_conv"] != dw3_step * HEAD_STEPS
+                or launches["packed_spread"] != gemm_step * HEAD_STEPS
+                or launches["ecs_lif_fused"] or launches["lif_fused"]):
+            raise AssertionError(f"res10v8 bf16 steps failed their checks: {rec}")
+        del model, state, step, tx, calls
+
+        # --- res10v8: an epoch of train.driver.train, val on the EMA copy --------
+        val_src = write_val_set(val_root, seed + 200, HEAD_VAL_IMAGES)
+        passes = []
+        real_run = val_mod.run
+
+        def run(model, *a, **k):
+            res, outs = recorded_nms(val_mod, lambda: real_run(model, *a, **k))
+            passes.append((model, a, k, res, outs))
+            return res
+
+        cb = Callbacks()
+        epoch_launches = {}
+        cb.register_action("on_train_epoch_start", callback=lambda e: reset())
+        cb.register_action("on_train_epoch_end", callback=lambda e: epoch_launches.update(read()))
+        driver.val_mod.run = run
+        try:
+            t0 = time.perf_counter()
+            _, _, hist = driver.train(
+                HEAD_CFG, train_src, val_src, nc=NC, epochs=1, batch_size=N, imgsz=IMGSZ,
+                bf16=True, seed=seed, workers=4, save_dir=str(val_root.parent / "heads_run"),
+                loggers_include=("csv",),
+                callbacks=cb)
+            train_s = time.perf_counter() - t0
+        finally:
+            driver.val_mod.run = real_run
+        (vmodel, va, vk, res, outs), = passes
+        with plain_kernels():
+            res_p, outs_p = recorded_nms(val_mod, lambda: real_run(vmodel, *va, **vk))
+        rows = sum(o.shape[0] * o.shape[1] for o, _ in outs)
+        worst, off, masks_equal = 0.0, 0, True
+        for (o, v), (op, vp) in zip(outs, outs_p):
+            d = (o - op).abs().amax(-1)
+            worst, off = max(worst, float(d.max())), off + int((d > 0).sum())
+            masks_equal &= bool((v == vp).all())
+        metric_diff = max(abs(res[k] - res_p[k]) for k in ("mp", "mr", "map50", "map",
+                                                          "fitness"))
+        h = hist[0]
+        rec = {"phase": "heads_train_run", "cfg": HEAD_CFG, "images": TRAIN_IMAGES,
+               "batch": N, "accumulate": max(round(NBS / N), 1), "seconds": train_s,
+               "loop_s": h["train_s"], "wait_s": h["wait_s"], "val_s": h["val_s"],
+               "ckpt_s": h["ckpt_s"], "images_per_s": TRAIN_IMAGES / h["train_s"],
+               "micro_steps": h["micro_steps"], "applies": h["applies"],
+               "mloss": h["mloss"], "loss_finite": h["loss_finite"],
+               "launches": epoch_launches, "val_seen": res["seen"],
+               "val_forwards": len(outs),
+               "nms_output_max_abs_diff_vs_plain_kernels": worst,
+               "nms_rows_differing_share": off / max(rows, 1),
+               "nms_valid_masks_equal": masks_equal,
+               "metrics_max_abs_diff_vs_plain_kernels": metric_diff}
+        emit(rec, log)
+        out["train_run"] = rec
+        if (not h["loss_finite"] or h["micro_steps"] != TRAIN_IMAGES // N
+                or res["seen"] != HEAD_VAL_IMAGES or worst > 1e-3
+                or off / max(rows, 1) > 1e-3 or metric_diff > 1e-6
+                or epoch_launches["binary_dw3_conv"] != dw3_step * h["micro_steps"]
+                or epoch_launches["packed_spread"] != gemm_step * h["micro_steps"]):
+            raise AssertionError(f"res10v8 train() epoch failed its checks: {rec}")
+        del passes, vmodel
+
+        # --- the four other anchor-free YAMLs at b2 ------------------------------
+        b = HEAD_OTHER_BATCH
+        for j, cfg in enumerate(HEAD_OTHERS):
+            t0 = time.perf_counter()
+            n_sites, gemm_step, dw3_step = HEAD_SITES[cfg]
+            model = head_model(cfg, seed + 1 + j, xb[:b], _BN)
+            sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+            small = tuple(t[:b] for t in batch)
+            rec, _, _ = f32_step_check(model, small, sites, plain_kernels, hyp)
+            model.eval()
+            cast_params(model, torch.bfloat16)
+            reset()
+            with torch.no_grad():
+                pred_out, seen = captured_sites(sites, lambda: model(xb[:b]))
+            fwd = read()
+            shares, silu = site_errors(seen, plain_kernels)
+            del seen
+            pred = head_predictions(model.head_info["name"], pred_out)
+            reset()
+            results = detect_mod.run(model, tmp, imgsz=IMGSZ)
+            det_launches = read()
+            rec = {"phase": "heads_other", "cfg": cfg, "head": model.head_info["name"],
+                   "batch": b, "sites": len(shares) + len(silu),
+                   "worst_site_mismatch_share": max(shares, default=0.0),
+                   "silu_sites": len(silu), "worst_site_silu_err": max(silu, default=0.0),
+                   "silu_err_unit": "bf16 ulps", "silu_ulps_bound": LIF_SILU_ULPS_BF16,
+                   "launches_per_forward": fwd, "prediction_shape": list(pred.shape),
+                   "prediction_finite": bool(torch.isfinite(pred).all()),
+                   "detect_images": len(results), "detect_launches": det_launches,
+                   "detect_finite": all(bool(np.isfinite(d).all()) for _, d in results),
+                   "train_step_fp32": rec}
+            ok = (len(shares) + len(silu) == n_sites and sites_ok(shares, silu, torch.bfloat16)
+                  and fwd["ecs_lif_fused"] == n_sites and sum(fwd.values()) == n_sites
+                  and rec["prediction_finite"] and rec["detect_finite"]
+                  and det_launches["ecs_lif_fused"] == n_sites * len(results)
+                  and rec["train_step_fp32"]["ok"])
+            if cfg == "res10v10.yaml":
+                reset()
+                res = val_mod.run(model, str(val_src), imgsz=IMGSZ, batch_size=N,
+                                  workers=4)
+                vl = read()
+                rec["val"] = {k: res[k] for k in ("mp", "mr", "map50", "map", "fitness",
+                                                  "seen")}
+                rec["val"]["launches"] = vl
+                ok &= (res["seen"] == HEAD_VAL_IMAGES and vl["ecs_lif_fused"]
+                       == n_sites * -(-HEAD_VAL_IMAGES // N))
+            rec["seconds"] = time.perf_counter() - t0
+            emit(rec, log)
+            if not ok:
+                raise AssertionError(f"{cfg}: failed its checks: {rec}")
+            del model, sites
+    emit({"phase": "heads_seconds", "seconds": time.perf_counter() - t_phase}, log)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2111,8 +2608,10 @@ def main(argv=None) -> int:
         run_launches, run_rec = phase_train_run(opt.seed, train_src, log)
         t1 = time.perf_counter()
         opts_launches = phase_train_opts(opt.seed, train_src, run_rec, log)
+        t2 = time.perf_counter()
+        heads = phase_heads(opt.seed, train_src, Path(sets) / "heads_val", log)
         emit({"phase": "train_seconds", "train_run": t1 - t0,
-              "train_opts": time.perf_counter() - t1}, log)
+              "train_opts": t2 - t1, "heads": time.perf_counter() - t2}, log)
 
     # --- the validation main path ----------------------------------------------
     val_launches = phase_val(opt.seed, log)
@@ -2134,13 +2633,18 @@ def main(argv=None) -> int:
                  "bf16; launches over the 4 detect forwards (the val pass on "
                  f"the default route adds {val_launches['ecs_lif_fused']})",
             library_note="no single PyTorch call computes the ECS-LIF recurrence",
-            train_run_launches=run_launches["ecs_lif_fused"]),
+            train_run_launches=run_launches["ecs_lif_fused"],
+            heads_detect_launches=heads["detect_launches"],
+            heads_note="heads_detect_launches: detect.run of res10v8 (ASFF_DDetect, 44 "
+                       "sites) over the 4 synthetic images; the phase heads holds every "
+                       "site of the five anchor-free YAMLs to the plain version"),
         aggs["binary_dw3_conv"].entry(
             name="binary_dw3_conv", route="cuda", source=csrc + "spread_dw3.cu",
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:73",
             launches=spread_launches["binary_dw3_conv"],
             train_run_launches=run_launches["binary_dw3_conv"],
             train_opts_launches_per_step=opts_launches["binary_dw3_conv"],
+            heads_launches_per_step=heads["step"]["launches_per_step"]["binary_dw3_conv"],
             recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
                            "remat_neuron; the remat counts include the launches of the "
                            "backward pass's recompute; launches and train_run_launches "
@@ -2159,6 +2663,7 @@ def main(argv=None) -> int:
             launches=spread_launches["packed_spread"],
             train_run_launches=run_launches["packed_spread"],
             train_opts_launches_per_step=opts_launches["packed_spread"],
+            heads_launches_per_step=heads["step"]["launches_per_step"]["packed_spread"],
             recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
                            "remat_neuron; the remat counts include the launches of the "
                            "backward pass's recompute; launches and train_run_launches "

@@ -11,6 +11,12 @@ CLI::
         [--weights model.pt] [--device cuda|cpu] [--dtype bf16|fp32] [--fuse]
 
 Without ``--weights`` the model is a seeded random init (``--seed``).
+
+NMS takes the decoded one2one branch of ``v10Detect`` and ``ASFF_v10Detect``
+and the first output of every other head, as the JAX ``val.run`` does.  The
+JAX ``detect.run`` tests for ``v10Detect`` alone (``ecs_yolo_tpu/detect.py``
+line 76), so for the shipped ``res10v10.yaml`` (``ASFF_v10Detect``) it hands
+the one2many map list to NMS; the port does not copy that.
 """
 
 from __future__ import annotations
@@ -83,15 +89,19 @@ def run(
     """Returns ``[(path, detections [n, 6] native xyxy/conf/cls)]``, one per
     image.  ``model`` is a built ``DetectionModel``; it runs in eval mode on
     its own device and dtype."""
+    from .models.yolo import head_predictions
+
     model.eval()
     device = next(model.parameters()).device
+    head = model.head_info["name"]
     if save_dir:
         Path(save_dir).mkdir(parents=True, exist_ok=True)
     results = []
     for path, im, im0 in LoadImages(source, img_size=imgsz):
-        pred = model(torch.from_numpy(im).to(device))[0]
+        pred = head_predictions(head, model(torch.from_numpy(im).to(device)))
         out, valid = non_max_suppression(
-            pred, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det)
+            pred, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
+            has_obj=head == "Detect")
         dets = out[0][valid[0]].cpu().numpy()
         if len(dets):
             dets[:, :4] = scale_to_native(dets[:, :4], im.shape[1:3],

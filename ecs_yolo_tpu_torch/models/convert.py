@@ -10,6 +10,15 @@ pointwise ``[1,1,Cin,Cout]`` -> ``[Cout,Cin,1,1]``, Conv_7 ``[1,1,T,1]`` ->
 ``[1,T,1,1,1]``, BN scale/bias/mean/var -> weight/bias/running_mean/
 running_var.
 
+The blocks and heads ported since (``Conv``, ``Conv_B``, ``Conv_2/3/4``, the
+anchor-free heads with their towers, ``ASFF2``, ``GSConv``) carry the JAX
+module names as torch module names, so their leaves map path for path:
+``layers_11/det/cv2_0/1/act/spread_dw_kernel`` ->
+``model.11.det.cv2_0.1.act.spread.0.weight``, ``a_cv3_1/2/conv/bias`` ->
+``a_cv3_1.2.bias``, ``one2one_cv2_0/0/bn/bn/mean`` ->
+``one2one_cv2_0.0.bn.bn.running_mean``; grouped kernels HWIO -> OIHW as any
+conv.
+
 Every leaf of the JAX tree is mapped or the conversion raises, and
 ``load_state_dict(strict=True)`` on the port's model checks the other
 direction.
@@ -64,8 +73,21 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _path_name(block: str, path: str) -> str:
+    """Torch name of a leaf of a block named path for path: the module path
+    joined by dots, then the leaf's torch name."""
+    parts = path.split("/")
+    for n in (2, 1):
+        leaf = "/".join(parts[-n:])
+        if len(parts) > n and leaf in _LEAVES:
+            return ".".join(parts[:-n] + [_LEAVES[leaf]])
+    raise KeyError(f"{block}: no torch name for {path!r}")
+
+
 def _torch_name(block: str, path: str) -> str:
     """Torch name (relative to the block) of a JAX leaf path."""
+    if block not in _MODULES and block != "Detect":
+        return _path_name(block, path)
     if block == "Detect":
         m = re.fullmatch(r"m(\d+)/conv/(kernel|bias)", path)
         if m:

@@ -1,16 +1,22 @@
 """Model assembly: YAML -> ``nn.Module`` graph (counterpart of
 ``ecs_yolo_tpu/models/yolo.py``).
 
-Covers the rows of ``resnet10.yaml`` and ``resnet34.yaml``: ``Conv_1``,
-``BasicBlock_1``, ``BasicBlock_2``, ``Concat_res2``, ``Sample``, ``Concat``
-(repeated rows as ``nn.Sequential``) and the v1 ``Detect`` head.  Layers are
+Covers the rows of ``resnet10.yaml``, ``resnet34.yaml`` and the anchor-free
+``res10v8``, ``res10v10``, ``res10-dual``, ``res10-triple`` and
+``res10-dualplain``: ``Conv_1``, ``BasicBlock_1``, ``BasicBlock_2``,
+``Concat_res2``, ``Sample``, ``Concat`` (repeated rows as ``nn.Sequential``)
+and the nine detection heads of ``nn/heads.py`` (``Detect``, ``DDetect``,
+``DualDetect``, ``DualDDetect``, ``TripleDetect``, ``TripleDDetect``,
+``v10Detect``, ``ASFF_DDetect``, ``ASFF_v10Detect``).  Layers are
 ``model.{i}``, so parameter names are the reference's torch names.
 
-``build_model`` parses the YAML, probes the head strides with a forward on
-the ``meta`` device (shapes only, like ``jax.eval_shape``), builds the final
-module on the ``meta`` device, moves it to the target device and draws every
-parameter from a ``torch.Generator``.  ``remat=True`` recomputes every
-non-head layer in the backward pass (the JAX ``nn.remat`` of each layer).
+``build_model`` parses the YAML, probes the head strides with an eval
+forward on the ``meta`` device (shapes only, like ``jax.eval_shape``; JAX
+probes the training output, whose maps have the same shapes), builds the
+final module on the ``meta`` device, moves it to the target device and
+draws every parameter from a ``torch.Generator``.  ``remat=True``
+recomputes every non-head layer in the backward pass (the JAX ``nn.remat``
+of each layer).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from torch.func import functional_call
 from ..config import DEFAULT_SNN, SNNConfig
 from ..device import resolve_device
 from ..nn import blocks as B
-from ..nn.heads import Detect
+from ..nn import heads as H
 from ..nn.initializers import torch_conv_init_
 
 YAML_DIR = Path(__file__).parent / "yaml"
@@ -41,7 +47,19 @@ C2_BLOCKS = {
 }
 # blocks that keep the input channel count; args passed through verbatim
 PASS_BLOCKS = {"Sample": B.Sample}
-HEADS = {"Detect": Detect}
+HEADS = {
+    "Detect": H.Detect,
+    "DDetect": H.DDetect,
+    "DualDetect": H.DualDetect,
+    "DualDDetect": H.DualDDetect,
+    "TripleDetect": H.TripleDetect,
+    "TripleDDetect": H.TripleDDetect,
+    "v10Detect": H.v10Detect,
+    "ASFF_DDetect": H.ASFF_DDetect,
+    "ASFF_v10Detect": H.ASFF_v10Detect,
+}
+#: heads whose served output is the one2one branch (``V10Output``)
+V10_HEADS = ("v10Detect", "ASFF_v10Detect")
 
 # layers whose output on a T-replicated input is itself T-replicated (no
 # neuron recurrence, nothing across T): the T-invariant stem prefix
@@ -111,10 +129,11 @@ def parse_model(d: Dict[str, Any], ch: int):
             c2 = chs[f if isinstance(f, int) else f[0]]
             head_info = {"name": name, "f": f, "index": i, "nc": args[0],
                          "extra": tuple(args[1:])}
-            a = args[1]
-            if isinstance(a, int):  # e.g. `anchors: 2` anchor-free count
-                a = [list(range(a * 2))] * len(f)
-            head_info["anchors_px"] = a
+            if name == "Detect":
+                a = args[1]
+                if isinstance(a, int):  # e.g. `anchors: 2` anchor-free count
+                    a = [list(range(a * 2))] * len(f)
+                head_info["anchors_px"] = a
         elif name in PASS_BLOCKS:
             c2 = chs[f if isinstance(f, int) else f[0]]
         else:
@@ -169,8 +188,7 @@ def _construct(name: str, c1, args: Tuple, snn: SNNConfig) -> nn.Module:
         return PASS_BLOCKS[name](*args)
     if name == "Concat":
         return B.Concat(*args)
-    nc, anchors, strides = args
-    return Detect(nc, anchors, strides, c1, snn)
+    return HEADS[name](*args, ch=c1, snn=snn)
 
 
 def _remat_call(layer: nn.Module, x):
@@ -246,6 +264,10 @@ class DetectionModel(nn.Module):
 
 
 def _head_args(head_info, strides, probe: bool = False):
+    """The head's arguments: ``(nc, anchors in grid units, strides)`` for
+    ``Detect``, ``(nc, reg_max 16, strides)`` for the anchor-free heads."""
+    if head_info["name"] != "Detect":
+        return (head_info["nc"], 16, tuple(strides))
     a_grid = [[v / s for v in level]
               for level, s in zip(head_info["anchors_px"], strides)]
     if not probe:
@@ -258,6 +280,26 @@ def _with_head(spec, head_info, strides, probe=False):
     f, n, name, _ = rows[head_info["index"]]
     rows[head_info["index"]] = (f, n, name, _head_args(head_info, strides, probe))
     return tuple(rows)
+
+
+def head_feats(name: str, out) -> List[torch.Tensor]:
+    """The per-level maps of a head's eval output whose shapes give the
+    strides (JAX ``_head_feat_shapes``): the main branch of the dual heads,
+    the last of the triple ones, one2many of the v10 heads."""
+    if name in V10_HEADS:
+        return out.one2many
+    feats = out[1]
+    if name in ("DualDetect", "DualDDetect"):
+        return feats[1]
+    if name in ("TripleDetect", "TripleDDetect"):
+        return feats[-1]
+    return feats
+
+
+def head_predictions(name: str, out) -> torch.Tensor:
+    """What NMS takes from a head's eval output: the decoded one2one branch
+    of the v10 heads, else ``out[0]`` (JAX ``val.py``)."""
+    return out.one2one[0] if name in V10_HEADS else out[0]
 
 
 @torch.no_grad()
@@ -274,15 +316,38 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.running_var.fill_(1.0)
 
 
+#: the (box, class) tower prefixes of each DFL head (JAX ``init_head_biases``)
+_DFL_PREFIXES = {
+    "DDetect": [("cv2_", "cv3_")],
+    "DualDetect": [("a_cv2_", "a_cv3_"), ("b_cv2_", "b_cv3_")],
+    "DualDDetect": [("a_cv2_", "a_cv3_"), ("b_cv2_", "b_cv3_")],
+    "TripleDetect": [("a_cv2_", "a_cv3_"), ("b_cv2_", "b_cv3_"), ("c_cv2_", "c_cv3_")],
+    "TripleDDetect": [("a_cv2_", "a_cv3_"), ("b_cv2_", "b_cv3_"), ("c_cv2_", "c_cv3_")],
+    "v10Detect": [("cv2_", "cv3_"), ("one2one_cv2_", "one2one_cv3_")],
+}
+
+
 @torch.no_grad()
 def init_head_biases(model: "DetectionModel") -> None:
-    """v1 prior bias init (reference models/yolo.py:363-371): per level, obj
-    bias += log(8/(640/s)^2), cls biases += log(0.6/(nc-0.999999))."""
-    head = model.model[-1]
-    for conv, s in zip(head.m, head.strides):
-        b = conv.bias.view(head.na, head.no)
-        b[:, 4] += math.log(8 / (640 / s) ** 2)
-        b[:, 5:] += math.log(0.6 / (head.nc - 0.999999))
+    """Prior bias init.  v1 (reference models/yolo.py:363-371): per level,
+    obj bias += log(8/(640/s)^2), cls biases += log(0.6/(nc-0.999999)).
+    DFL heads (reference models/yolo_snn.py:133-139): the box tower's last
+    bias = 1.0, the class tower's ``[:nc]`` = log(5 / nc / (640/s)^2), for
+    every branch; the ASFF heads' inner head."""
+    head, name = model.model[-1], model.head_info["name"]
+    if name == "Detect":
+        for conv, s in zip(head.m, head.strides):
+            b = conv.bias.view(head.na, head.no)
+            b[:, 4] += math.log(8 / (640 / s) ** 2)
+            b[:, 5:] += math.log(0.6 / (head.nc - 0.999999))
+        return
+    if name.startswith("ASFF_"):
+        head, name = head.det, name[len("ASFF_"):]
+    for box_p, cls_p in _DFL_PREFIXES[name]:
+        for i, s in enumerate(head.strides):
+            getattr(head, f"{box_p}{i}")[-1].bias.fill_(1.0)
+            getattr(head, f"{cls_p}{i}")[-1].bias[:head.nc] = \
+                math.log(5 / head.nc / (640 / s) ** 2)
 
 
 def build_model(
@@ -304,19 +369,21 @@ def build_model(
         d["nc"] = nc
     snn = snn or DEFAULT_SNN
     spec, save, chs, head_info = parse_model(d, ch)
-    if head_info.get("name") != "Detect":
-        raise NotImplementedError("only the v1 Detect head is ported yet")
+    if not head_info:
+        raise ValueError("model YAML has no detection head")
     tinv = _t_invariant_prefix(spec, save) if snn.stem_dedup else 0
 
-    nl = len(head_info["anchors_px"])
+    f = head_info["f"]
+    nl = len(f) if isinstance(f, (list, tuple)) else 1
     with torch.device("meta"):
         placeholder = [float(2 ** (3 + i)) for i in range(nl)]
         probe_model = DetectionModel(
             _with_head(spec, head_info, placeholder, probe=True), save, chs,
             ch, snn, tinv).eval()
         with torch.no_grad():
-            _, feats = probe_model(torch.zeros(1, _PROBE, _PROBE, ch))
-        strides = tuple(float(_PROBE // f.shape[2]) for f in feats)
+            out = probe_model(torch.zeros(1, _PROBE, _PROBE, ch))
+        strides = tuple(float(_PROBE // f.shape[2])
+                        for f in head_feats(head_info["name"], out))
         head_info["strides"] = strides
         model = DetectionModel(_with_head(spec, head_info, strides), save, chs,
                                ch, snn, tinv, remat)

@@ -388,3 +388,68 @@ class Concat_res2(nn.Module):
         if self.shortcut is not None:
             x = torch.cat([_run(self.shortcut, x), x], dim=-1)
         return y + max_pool_t(x, self.s)
+
+
+class Conv(nn.Module):
+    """conv -> BN -> mem_update(act=True), the SiLU neuron (reference Conv):
+    the towers of the plain-``Conv`` dual and triple heads."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.conv = SnnConv(c1, c2, k, s, p, g)
+        self.bn = TBatchNorm(c2, 1.0, snn)
+        self.act = MemUpdate(c2, act=True, snn=snn)
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+class _PreAct(nn.Module):
+    """mem_update -> conv -> BN (gamma ``gamma_scale * thresh``)."""
+
+    gamma_scale = 1.0
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.act = MemUpdate(c1, snn=snn)
+        self.conv = SnnConv(c1, c2, k, s, p, g)
+        self.bn = TBatchNorm(c2, self.gamma_scale, snn)
+
+    def forward(self, x):
+        return self.bn(self.conv(self.act(x)))
+
+
+class Conv_B(_PreAct):
+    """mem_update -> conv -> BN: the towers of the DFL heads."""
+
+
+class Conv_2(_PreAct):
+    """mem_update -> conv -> BN (reference Conv_2)."""
+
+
+class Conv_3(_PreAct):
+    """Conv_2 under another name (reference Conv_3)."""
+
+
+class Conv_4(_PreAct):
+    """mem_update -> conv -> BN with gamma 0.2 * thresh (reference Conv_4)."""
+
+    gamma_scale = 0.2
+
+
+class DFL(nn.Module):
+    """Distribution focal decode: softmax over ``c1`` bins, then the
+    expectation over 0..c1-1, both in the input's dtype.  ``[N, 4*c1, A]``
+    -> ``[N, 4, A]``; no parameters."""
+
+    def __init__(self, c1: int = 16):
+        super().__init__()
+        self.c1 = c1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, _, a = x.shape
+        proj = torch.arange(self.c1, dtype=x.dtype, device=x.device)
+        x = torch.softmax(x.reshape(n, 4, self.c1, a), dim=2)
+        return torch.einsum("nkca,c->nka", x, proj)

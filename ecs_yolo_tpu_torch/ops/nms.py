@@ -132,3 +132,25 @@ def non_max_suppression(
         out[b, : len(keep)] = torch.where(ok[:, None], rows, 0.0)
         valid[b, : len(keep)] = ok
     return out, valid
+
+
+def v10_postprocess(prediction: torch.Tensor,
+                    max_det: int = 300) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NMS-free top-k of a v10 head (JAX ``ops/nms.py:v10_postprocess``):
+    every (anchor, class) score of an image ranked together and the
+    ``max_det`` best kept.  ``prediction`` ``[B, 4+nc, A]`` decoded xywh +
+    class scores; returns ``[B, max_det, 6]`` (x1, y1, x2, y2, conf, cls)
+    and a ``valid`` mask (score > 0).  Equal scores keep the lower flat
+    index first, as ``lax.top_k`` does (a stable descending sort)."""
+    pred = prediction.transpose(1, 2)
+    boxes = xywh2xyxy(pred[..., :4])
+    scores = pred[..., 4:]
+    b, a, nc = scores.shape
+    flat = scores.reshape(b, a * nc)
+    top, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    top, idx = top[:, :max_det], idx[:, :max_det]
+    a_idx = torch.div(idx, nc, rounding_mode="floor")
+    c_idx = (idx % nc).to(prediction.dtype)
+    bx = boxes.gather(1, a_idx[..., None].expand(-1, -1, 4))
+    out = torch.cat([bx, top[..., None], c_idx[..., None]], dim=-1)
+    return out, top > 0

@@ -3,7 +3,11 @@
     python -m ecs_yolo_tpu_torch.train --cfg resnet10.yaml --data data.yaml \\
         --hyp hyp.yaml --epochs 300 --batch-size 8 --bf16 [--device cpu]
 
-The flags are ``train.py``'s; the data and hyp YAMLs are read the same way
+``--cfg`` takes any YAML the port builds: ``resnet10.yaml`` and
+``resnet34.yaml`` (the v1 ``Detect`` head) and the anchor-free
+``res10v8.yaml``, ``res10v10.yaml``, ``res10-dual.yaml``,
+``res10-triple.yaml``, ``res10-dualplain.yaml`` (the TAL, v10, dual and
+triple losses).  The flags are ``train.py``'s; the data and hyp YAMLs are read the same way
 (``path``/``train``/``val``/``nc``; ``close_mosaic`` popped from the hyp).
 ``--device`` names a torch device and defaults to the CUDA card.
 ``--single-cls`` also reaches the datasets (see ``train/driver.py``).  Flags

@@ -1,5 +1,6 @@
 """The training loop (counterpart of ``ecs_yolo_tpu/train/driver.py``;
-reference train.py:73-760), for a v1 ``Detect`` head on one device.
+reference train.py:73-760), for every detection head of
+``models/yolo.HEADS`` on one device.
 
 Epochs of augmented batches (mosaic, perspective, HSV, flips, mixup) from a
 thread-pool loader, every batch a micro-step of ``train/trainer``'s step
@@ -13,6 +14,15 @@ checkpoint stripped of its optimizer at the end.
 Host and device: a batch goes to the device as uint8 from pinned memory and
 is divided there; the step's metrics stay on the device, and the loop reads
 them once an epoch, so the host never waits for the device inside an epoch.
+
+Heads, as the JAX driver treats them: autoanchor runs for the v1 ``Detect``
+head only; the optimizer's warm-up floor is 1000 iterations for ``Detect``
+(reference train.py:452) and 100 for the anchor-free heads (train2.py:238);
+the logged losses are the first three items of the step (the auxiliary
+branch's, for the dual and triple heads).  Under the default hyp
+(``HYP_SCRATCH``, box gain 0.05) a ``DDetect`` / ``ASFF_DDetect`` model
+trains with a TAL box gain of 0.05, as the JAX driver's does; the dual,
+triple and v10 losses fix theirs at 7.5.
 
 Options, as the JAX driver has them:
 
@@ -59,8 +69,8 @@ Deviations from the JAX driver:
   folds ``epoch * steps_per_epoch + batches dispatched`` into its key.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP Queue 1
-item): ``events`` (10), segment heads (11), other heads (9),
-``model_parallel > 1`` and multi-host (12).
+item): ``events`` (10), segment heads (11), ``model_parallel > 1`` and
+multi-host (12).
 """
 
 from __future__ import annotations
@@ -92,13 +102,11 @@ def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 {item})")
 
 
-def _check_ported(cfg, head: str, events, model_parallel) -> None:
+def _check_ported(head: str, events, model_parallel) -> None:
     if events:
         _unported("event mode (events=True)", "item 10")
     if head in ("Segment", "Panoptic"):
         _unported(f"the {head} head", "item 11")
-    if head != "Detect":
-        _unported(f"training the {head} head of {cfg}", "item 9")
     if model_parallel > 1 or (torch.distributed.is_available()
                               and torch.distributed.is_initialized()):
         _unported("model_parallel > 1 and multi-host training", "item 12")
@@ -238,7 +246,7 @@ def train(
     if nc is not None:
         d["nc"] = nc
     head = d["head"][-1][2] if d.get("head") else ""
-    _check_ported(cfg, head, events, model_parallel)
+    _check_ported(head, events, model_parallel)
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
     if quad and batch_size % 4:
@@ -269,7 +277,7 @@ def train(
     anchors = None
     if resume:
         anchors = meta.get("anchors")
-    elif autoanchor:
+    elif autoanchor and head == "Detect":
         anchors = _autoanchor(d, train_ds, imgsz, hyp.get("anchor_t", 4.0))
         if anchors is not None:
             LOGGER.info(f"autoanchor: new anchors {anchors}")
@@ -292,8 +300,9 @@ def train(
         warmup_epochs=hyp["warmup_epochs"],
         warmup_momentum=hyp["warmup_momentum"],
         warmup_bias_lr=hyp["warmup_bias_lr"], accumulate=accumulate,
-        # the v1 anchor trainer's warm-up floor (reference train.py:452)
-        warmup_floor=1000.0)
+        # the warm-up floor of the v1 anchor trainer (reference train.py:452),
+        # and of the TAL/v10/dual generation (train2.py:238)
+        warmup_floor=1000.0 if head == "Detect" else 100.0)
     state = create_train_state(model, tx, device=dev)
     step_fn = make_train_step(model, tx, hyp, ema_decay=ema_decay,
                               compute_dtype=torch.bfloat16 if bf16 else torch.float32,

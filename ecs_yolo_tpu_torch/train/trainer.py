@@ -12,6 +12,10 @@ gradients flow back through the casts onto the masters), the image is cast,
 BN keeps float32 statistics inside ``_BN``, and the head outputs return to
 float32 before the loss.  ``torch.autocast`` is not used: its per-operation
 policy is a different function.
+
+A parameter that takes no part in the loss gets a zero gradient, as under
+``jax.value_and_grad``: at ``time_window=1`` no step reads a spike of the
+step before, so the spread parameters of every ECS-LIF site are unused.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from torch.func import functional_call
 from ..device import resolve_device
 from ..models.yolo import DetectionModel
 from .ema import ema_update
+from .loss_tal import (compute_loss_dual, compute_loss_tal, compute_loss_triple,
+                       compute_loss_v10)
 from .loss_v1 import compute_loss_v1
 from .optim import OptState, Optimizer
 from .sparsity import add_l1_subgradient, sparsity_rate
@@ -69,22 +75,61 @@ def create_train_state(model: DetectionModel, tx: Optimizer,
 
 
 def make_loss_fn(model: DetectionModel, hyp: Mapping[str, float]) -> Callable:
-    """Head-appropriate loss closure.  Only the v1 anchor head is ported."""
+    """Head-appropriate loss closure ``loss(out, targets, t_mask) -> (total,
+    items)``, dispatched on the head name as JAX's: the v1 loss, the TAL loss
+    (``DDetect`` / ``ASFF_DDetect``, with the hyp's box/cls/dfl gains), the
+    v10 loss, the dual and the triple losses (their gains fixed, as JAX
+    has them)."""
     head = model.head_info["name"]
-    if head != "Detect":
-        raise KeyError(f"{head}: only the v1 Detect head's loss is ported")
-    det = model.model[-1]
-    nc = det.nc
-    anchors = {}    # per (dtype, device): made once, not copied over per step
+    nc = model.head_info["nc"]
+    strides = model.head_info["strides"]
+    if head == "Detect":
+        det = model.model[-1]
+        anchors = {}    # per (dtype, device): made once, not copied over per step
 
-    def loss(out, targets, t_mask):
-        key = (out[0].dtype, out[0].device)
-        if key not in anchors:
-            anchors[key] = torch.tensor(det.anchors, dtype=key[0],
-                                        device=key[1]).reshape(det.nl, -1, 2)
-        return compute_loss_v1(out, targets, t_mask, anchors[key], hyp, nc)
+        def loss(out, targets, t_mask):
+            key = (out[0].dtype, out[0].device)
+            if key not in anchors:
+                anchors[key] = torch.tensor(det.anchors, dtype=key[0],
+                                            device=key[1]).reshape(det.nl, -1, 2)
+            return compute_loss_v1(out, targets, t_mask, anchors[key], hyp, nc)
 
+    elif head in ("DDetect", "ASFF_DDetect"):
+        gains = (hyp.get("box", 7.5), hyp.get("cls", 0.5), hyp.get("dfl", 1.5))
+
+        def loss(out, targets, t_mask):
+            return compute_loss_tal(out, targets, t_mask, strides, nc, gains=gains)
+
+    elif head in ("v10Detect", "ASFF_v10Detect"):
+
+        def loss(out, targets, t_mask):
+            return compute_loss_v10(out, targets, t_mask, strides, nc)
+
+    elif head in ("DualDetect", "DualDDetect"):
+
+        def loss(out, targets, t_mask):
+            return compute_loss_dual(out[0], out[1], targets, t_mask, strides, nc)
+
+    elif head in ("TripleDetect", "TripleDDetect"):
+
+        def loss(out, targets, t_mask):
+            return compute_loss_triple(out, targets, t_mask, strides, nc)
+
+    else:
+        raise KeyError(f"{head}: its loss is not ported yet (ROADMAP Queue 1 item 11)")
     return loss
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a head output: nested lists, tuples and
+    named tuples (``V10Output``) keep their types."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
 
 
 def make_grad_fn(model: DetectionModel, hyp: Mapping[str, float],
@@ -107,11 +152,13 @@ def make_grad_fn(model: DetectionModel, hyp: Mapping[str, float],
             out = functional_call(model, apply_params,
                                   (images.to(compute_dtype),))
             if compute_dtype != f32:
-                out = [o.to(f32) if o.dtype == compute_dtype else o for o in out]
+                out = _tree_map(lambda o: o.to(f32) if o.dtype == compute_dtype else o,
+                                out)
             total, items = loss_fn(out, targets, t_mask)
             total = total.to(f32)
             names = list(state.params)
-            grads = torch.autograd.grad(total, [state.params[k] for k in names])
+            grads = torch.autograd.grad(total, [state.params[k] for k in names],
+                                        allow_unused=True, materialize_grads=True)
         return total.detach(), items, dict(zip(names, grads))
 
     return grad_fn

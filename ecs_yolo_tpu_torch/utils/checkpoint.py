@@ -12,8 +12,9 @@ can hold tensors and plain Python containers and nothing else.  Files
 without the training keys (written before they existed, or by
 ``strip_optimizer``) load the same way.
 
-Import of an orbax checkpoint of the JAX package is not ported yet (ROADMAP
-Queue 1 item 8); ``models/convert.py`` carries a JAX tree across in memory.
+A checkpoint directory of the JAX package becomes such a file through the
+root script ``import_orbax.py`` (no optimizer state: not a resume point);
+``models/convert.py`` carries a JAX tree across in memory.
 """
 
 from __future__ import annotations

@@ -23,6 +23,10 @@ CLI::
 Not carried over from the JAX ``run``: ``mesh``, ``fuse_post``,
 ``chain_batches`` and ``jit_cache`` (devices of the TPU's dispatch), and the
 exported-backend branch (``variables is None``).
+
+Every detection head is served as the JAX ``run`` serves it: NMS takes the
+decoded one2one branch of ``v10Detect`` and ``ASFF_v10Detect``, else the
+head's first output; scores carry an objectness only for ``Detect``.
 """
 
 from __future__ import annotations
@@ -159,7 +163,7 @@ def run(
     it there and cast its parameters first (BN statistics stay float32).
     ``speed`` is (pre-process, inference, NMS) in ms per image seen, each
     phase closed by a ``torch.cuda.synchronize()`` on the card."""
-    from .models.yolo import cast_params
+    from .models.yolo import cast_params, head_predictions
 
     if device is not None:
         model.to(torch.device(device))
@@ -169,7 +173,8 @@ def run(
     dev = next(model.parameters()).device
     ds = dataset or Dataset(data_path, img_size=imgsz, augment=False,
                             max_labels=max_labels, uint8_out=True)
-    has_obj = model.head_info["name"] == "Detect"
+    head = model.head_info["name"]
+    has_obj = head == "Detect"
     acc = MetricAccumulator(ds, save_json, coco91)
     dt = [0.0, 0.0, 0.0]
     on_card = dev.type == "cuda"
@@ -189,7 +194,7 @@ def run(
             if x.dtype == torch.uint8:
                 x = x.float() / 255.0
             t1 = clock()
-            pred = model(x)[0]
+            pred = head_predictions(head, model(x))
             t2 = clock()
             out, valid = non_max_suppression(
                 pred, conf_thres=conf_thres, iou_thres=iou_thres,

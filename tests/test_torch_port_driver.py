@@ -341,6 +341,60 @@ def test_train_end_to_end_on_the_cpu(tmp_path):
     assert [h["epoch"] for h in hist2] == want
 
 
+def test_train_an_anchor_free_head_on_the_cpu(tmp_path, monkeypatch):
+    """A narrowed res10v8 (ASFF_DDetect, the TAL loss), one epoch of 4
+    images with val on the EMA copy, as the JAX driver trains it: no
+    autoanchor, a warm-up floor of 100, the first three step items logged
+    (box, cls, dfl), the box gain of ``HYP_SCRATCH`` in the loss."""
+    tr = write_split(tmp_path / "tr", sizes=[(48, 80), (64, 64), (100, 37), (64, 50)],
+                     nc=3)
+    va = write_split(tmp_path / "va", sizes=[(64, 64)], seed=1, nc=3)
+    seen = {}
+
+    def no_autoanchor(*a, **k):
+        raise AssertionError("autoanchor runs for the Detect head only")
+
+    def build_optimizer(*a, **k):
+        seen["warmup_floor"] = k["warmup_floor"]
+        return PO.build_optimizer(*a, **k)
+
+    val_run = PDR.val_mod.run
+
+    def run(model, *a, **k):
+        seen["val_params"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return val_run(model, *a, **k)
+
+    def step_fn(*a, **k):
+        step = make_train_step(*a, **k)
+        seen["hyp_box"] = a[2]["box"]
+
+        def wrapped(state, *batch):
+            state, m = step(state, *batch)
+            seen.setdefault("items", []).append(m["items"].clone())
+            return state, m
+        return wrapped
+
+    make_train_step = PDR.make_train_step
+    monkeypatch.setattr(PDR, "_autoanchor", no_autoanchor)
+    monkeypatch.setattr(PDR, "build_optimizer", build_optimizer)
+    monkeypatch.setattr(PDR.val_mod, "run", run)
+    monkeypatch.setattr(PDR, "make_train_step", step_fn)
+    state, _, hist = PDR.train(_narrow("res10v8.yaml"), tr, va, nc=3, epochs=1,
+                               batch_size=2, imgsz=64, nbs=4, workers=0,
+                               snn=SNNConfig(time_window=T), loggers_include=("csv",),
+                               save_dir=str(tmp_path / "run"), device="cpu")
+    assert seen["warmup_floor"] == 100.0 and seen["hyp_box"] == HYP_SCRATCH["box"]
+    assert [tuple(i.shape) for i in seen["items"]] == [(3,), (3,)]
+    mean = torch.stack(seen["items"]).mean(0)
+    np.testing.assert_allclose(hist[0]["mloss"], mean.numpy(), rtol=1e-6)
+    assert hist[0]["micro_steps"] == 2 and hist[0]["applies"] == 1 and hist[0]["loss_finite"]
+    assert all(torch.equal(seen["val_params"][k], state.ema_params[k])
+               for k in state.ema_params)
+    assert hist[0]["seen"] == 1
+    _, meta = CK.load_checkpoint(tmp_path / "run" / "weights" / "last.pt")
+    assert meta["anchors"] is None
+
+
 def _root_train_parse(argv, monkeypatch):
     spec = importlib.util.spec_from_file_location("root_train", REPO / "train.py")
     mod = importlib.util.module_from_spec(spec)
@@ -413,7 +467,7 @@ def _head(name):
 UNPORTED = [("events", dict(events=True), "item 10"),
             ("model_parallel", dict(model_parallel=2), "item 12"),
             ("segment_head", dict(cfg=_head("Segment")), "item 11"),
-            ("tal_head", dict(cfg=_head("DDetect")), "item 9")]
+            ("panoptic_head", dict(cfg=_head("Panoptic")), "item 11")]
 
 
 @pytest.mark.parametrize("kw,item", [u[1:] for u in UNPORTED],

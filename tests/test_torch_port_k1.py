@@ -36,6 +36,10 @@ torch.set_num_threads(2)
 RES10_SITES = [(320, 320, 64), (160, 160, 64), (80, 80, 128), (40, 40, 384),
                (40, 40, 256), (20, 20, 1024), (20, 20, 512), (20, 20, 256),
                (20, 20, 128)]
+#: the neuron sites of the five anchor-free YAMLs at 640 px (res10v8, res10v10,
+#: res10-dual, res10-triple, res10-dualplain; N=8, dense x) beyond res10's [H, W, C]:
+#: the heads' towers, the ASFF fusion and GSConv's C = 8 cv2
+HEAD_SITES = [(40, 40, 512), (40, 40, 64), (40, 40, 8), (20, 20, 64), (20, 20, 8)]
 RAGGED = [(1, 20, 20, 1024), (2, 7, 9, 24), (8, 20, 20, 1024), (1, 16, 24, 8),
           (3, 9, 10, 136)]
 
@@ -52,7 +56,7 @@ def _dyadic(shape, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(8,) + s for s in RES10_SITES] + RAGGED)
+@pytest.mark.parametrize("shape", [(8,) + s for s in RES10_SITES + HEAD_SITES] + RAGGED)
 def test_plan_grid_covers_every_pixel_and_channel_once(shape, dtype):
     n, h, w, c = shape
     plan = K.plan_grid(n, h, w, c, 132, dtype)
@@ -78,6 +82,21 @@ def test_plan_grid_covers_every_pixel_and_channel_once(shape, dtype):
                 pairs[tile * plan.tile:(tile + 1) * plan.tile,
                       sl * plan.slice:(sl + 1) * plan.slice] += 1
         assert (pairs == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_takes_every_head_site(dtype):
+    """K1 takes every dense site of the anchor-free heads, none goes to K2;
+    at C = 8 (GSConv's cv2 in ASFF2) one 32-wide slice holds all of Cout and
+    the K-chunk its 8 channels (the rest of the chunk's 64 / 32 masked)."""
+    for h, w, c in HEAD_SITES + RES10_SITES:
+        x = torch.empty((4, 8, h, w, c), dtype=dtype, device="meta")
+        assert K.layout_refusal(x) is None, (h, w, c)
+    for h, w in ((40, 40), (20, 20)):
+        plan = K.plan_grid(8, h, w, 8, 132, dtype)
+        assert (plan.slice, plan.slices) == (32, 1)
+        assert plan.chunk == 128 // torch.tensor([], dtype=dtype).element_size()
+        assert plan.items == plan.tiles == 8 * h * w // K.K1_TILE
 
 
 def test_plan_grid_follows_the_occupancy_and_the_slice_rule():

@@ -39,6 +39,9 @@ torch.set_num_threads(2)
 RES10_SITES = [(320, 320, 64), (160, 160, 64), (80, 80, 128), (40, 40, 384),
                (40, 40, 256), (20, 20, 1024), (20, 20, 512), (20, 20, 256),
                (20, 20, 128)]
+#: the anchor-free heads' sites beyond res10's [H, W, C] (every site takes K2
+#: under fused_inference)
+HEAD_SITES = [(40, 40, 512), (40, 40, 64), (40, 40, 8), (20, 20, 64), (20, 20, 8)]
 #: [N, H, W, C] of sites the tensor-core kernel (K1) refuses (C % 8 != 0)
 K1_REFUSED = [(2, 29, 6, 4), (2, 20, 20, 12), (2, 29, 6, 12)]
 
@@ -55,7 +58,7 @@ def _inputs(shape, seed, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(8,) + s for s in RES10_SITES] + K1_REFUSED)
+@pytest.mark.parametrize("shape", [(8,) + s for s in RES10_SITES + HEAD_SITES] + K1_REFUSED)
 def test_plan_k2_covers_every_pixel_and_channel_once(shape, dtype):
     n, h, w, c = shape
     plan = FZ.plan_k2(n, h, w, c, 132, dtype)

@@ -186,9 +186,41 @@ def test_res10_sites_and_launch_counts_come_from_the_model():
     assert by_route == {"gemm": 15, "dw3": 57}
 
 
+ANCHOR_FREE = ("res10v8.yaml", "res10v10.yaml", "res10-dual.yaml", "res10-triple.yaml",
+               "res10-dualplain.yaml")
+
+
+@pytest.mark.parametrize("cfg", ANCHOR_FREE)
+def test_anchor_free_sites_and_launch_counts_come_from_the_model(cfg):
+    """Every neuron site of the five YAMLs (a hook on the full-width model
+    at 640 px, shapes only): a shape the K1 / K2 / K4 / K5 plan cases
+    cover; the smoke script's table of sites and of the launches of the
+    fused product and of the depthwise kernel in a T=4 training forward
+    (by ``spread_route``; the SiLU sites of the plain-Conv towers take the
+    library's convolutions)."""
+    import chip_smoke
+    from ecs_yolo_tpu_torch.models.yolo import build_model
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate
+    from test_torch_port_k1 import HEAD_SITES, RES10_SITES
+
+    model = build_model(cfg, nc=13, device="meta")
+    seen = []
+    for m in model.modules():
+        if isinstance(m, MemUpdate):
+            m.register_forward_pre_hook(lambda m, a: seen.append((tuple(a[0].shape[2:]), m.act)))
+    sites = chip_smoke.site_shapes(model, MemUpdate, torch.zeros(1, 640, 640, 3, device="meta"))
+    assert set(sites) <= set(RES10_SITES + HEAD_SITES)
+    by_route = {"gemm": 0, "dw3": 0}
+    for (h, w, c), act in seen:
+        if not act:
+            by_route[S.spread_route(c, w)] += chip_smoke.T - 1
+            assert (S.plan_gemm if S.spread_route(c, w) == "gemm" else S.plan_dw3)(8, h, w, c)
+    assert (len(seen), by_route["gemm"], by_route["dw3"]) == chip_smoke.HEAD_SITES[cfg]
+
+
 # --- the bf16 kernel's tile plan ----------------------------------------------
 
-PLAN_SHAPES = [(8, 320, 320, 64), (8, 160, 160, 64)] + [
+PLAN_SHAPES = [(8, 320, 320, 64), (8, 160, 160, 64), (8, 40, 40, 64), (8, 20, 20, 64)] + [
     (2, hw[0], hw[1], c) for hw in ((5, 160), (5, 6)) for c in (16, 32, 48, 64)]
 
 
@@ -243,7 +275,9 @@ def test_tile_walk_reference_is_the_plain_version_bit_for_bit(nhw, sms, c, dtype
 # (shape, sms): ragged H and W, C = 8, 24, 128, 1024, N = 1 and 3, one SM
 # (long strips) and the H100's 132
 DW3_PLAN_CASES = [((1, 7, 9, 8), 132), ((3, 13, 21, 24), 132), ((1, 80, 80, 128), 132),
-                  ((3, 20, 20, 1024), 132), ((3, 13, 21, 24), 1), ((1, 9, 7, 128), 1)]
+                  ((3, 20, 20, 1024), 132), ((3, 13, 21, 24), 1), ((1, 9, 7, 128), 1),
+                  # the anchor-free heads' training sites on K4: GSConv's C = 8
+                  ((8, 40, 40, 8), 132), ((8, 20, 20, 8), 132), ((8, 40, 40, 512), 132)]
 
 
 @pytest.mark.parametrize("shape,sms", DW3_PLAN_CASES,

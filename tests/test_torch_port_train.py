@@ -414,9 +414,9 @@ def test_training_needs_a_card_unless_cpu_is_asked(port_model, monkeypatch):
     for kw in ({"with_masks": True}, {"with_semantic": True}):
         with pytest.raises(NotImplementedError):
             PT.make_train_step(pm, tx, HYP, device="cpu", **kw)
-    pm.head_info["name"] = "DDetect"
+    pm.head_info["name"] = "Segment"          # its loss is item 11's
     try:
-        with pytest.raises(KeyError, match="DDetect"):
+        with pytest.raises(KeyError, match="Segment"):
             PT.make_loss_fn(pm, HYP)
     finally:
         pm.head_info["name"] = "Detect"
