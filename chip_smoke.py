@@ -64,6 +64,27 @@ the port's paths at full width with random weights from a seed:
   kernel_check records; the other four anchor-free YAMLs at b2 (a checked
   detect batch, ``detect.run``, a float32 step; ``res10v10`` one
   ``val.run``);
+* event mode (phase ``events``, after ``heads``): two synthetic Gen1
+  streams (``.dat`` + ``boxes.npy``) through ``data/events.build_dataset``;
+  res10 ECS-LIF, nc 2, 320 px, T=5, b8, bf16 on an ``EventDataset`` batch:
+  every neuron site of a forward held to its plain version (K1, 24 launches,
+  the stem at every step, no broadcast input), ms, img/s and profile, K1 at
+  the 24 site shapes at T=5 (``event_kernel_check``); the plain-LIF model on
+  K6 the same; one float32 step teacher-forced against its plain rerun with
+  the planted K4 fault that must fail it; bf16 steps (76 K4 + 20 K5
+  launches a step, peak memory, profile) and one under sync-debug "error";
+  one ``train.driver.train(events=True)`` epoch whose EMA val pass (no
+  ``meta``) must give ``plain_kernels()``'s NMS output;
+* the segment heads (phase ``segment``): ``res10-seg.yaml`` at b8 and
+  ``res10-panoptic.yaml`` at b2, 640 px, bf16, on a synthetic polygon set
+  with ``stuff/`` polygons (``SegmentDataset`` batches with instance masks
+  and the semantic id map): every site held to its plain version (SiLU
+  sites elementwise), all on K1; one float32 step with the masks (and the
+  id map) teacher-forced; bf16 steps with peak memory and profile, one
+  under sync-debug "error"; ``detect.run`` of res10-seg; one
+  ``train.driver.train`` epoch of res10-seg whose val pass must give
+  ``plain_kernels()``'s NMS output; K1 and K4 at the shapes the heads add
+  (80x80x32, 20x20x768) in ``kernel_check`` records;
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
@@ -307,14 +328,16 @@ def spread_inputs(shape, dtype, seed):
     return [a.to(dtype) for a in args]
 
 
-def phase_k1(K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
-    """K1 against its plain version at every res10 site shape, N=8, T=4, x
-    dense, and x a broadcast over T where the model hands the site one.
-    Each record carries the launch's plan: its (tile x Cout slice) items, the
-    grid of resident blocks and the slice."""
+def phase_k1(K, cfg_cls, sites: Counter, broadcast: set, log, t: int = T,
+             dtypes=(torch.float32, torch.bfloat16), tag: str = "kernel_check") -> Agg:
+    """K1 against its plain version at every res10 site shape, N=8, T=4 (or
+    ``t``), x dense, and x a broadcast over T where the model hands the site
+    one.  Each record carries the launch's plan: its (tile x Cout slice)
+    items, the grid of resident blocks and the slice."""
     agg = Agg()
+    T = t                                   # noqa: N806 (the time steps here)
     cfg = cfg_cls(time_window=T)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for i, ((h, w, c), count) in enumerate(sorted(sites.items(), reverse=True)):
             shape = (T, N, h, w, c)
             dense, *params = site_inputs(shape, dtype, seed=i)
@@ -335,7 +358,7 @@ def phase_k1(K, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
                 planes = (1 if bcast else T) + T
                 bms, by = bound((planes * N * h * w * c + 11 * c + c * c) * item,
                                 (T - 1) * N * h * w * (2 * c * c + 18 * c), dtype)
-                rec = {"phase": "kernel_check", "kernel": "ecs_lif_fused",
+                rec = {"phase": tag, "kernel": "ecs_lif_fused",
                        "dtype": dname(dtype), "act": False, "shape": list(shape),
                        "sites": count, "x_broadcast_over_t": bcast,
                        **k1_plan_fields(K, args[0]),
@@ -566,18 +589,20 @@ def phase_spread_grads(S, log, shapes=((N, 40, 40, 256), (N, 160, 160, 64))) -> 
             raise AssertionError(f"{name}: gradients disagree: {worst}")
 
 
-def phase_k6(FZ, BS, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
+def phase_k6(FZ, BS, cfg_cls, sites: Counter, broadcast: set, log, t: int = T,
+             dtypes=(torch.float32, torch.bfloat16), tag: str = "kernel_check") -> Agg:
     """The plain-LIF kernel against its plain version at every res10 site
-    shape, N=8, T=4, x dense and x a broadcast over T, plus one ragged shape
-    (odd element count: the scalar variant).  ``ms`` is the kernel alone:
+    shape, N=8, T=4 (or ``t``), x dense and x a broadcast over T, plus one
+    ragged shape (odd element count: the scalar variant).  ``ms`` is the kernel alone:
     the device time of one call from 20 calls captured in one CUDA graph and
     replayed (``BS.graph_ms``); ``wrapper_ms`` the same calls eager, back to
     back; ``host_issue_ms`` their difference, what the host adds a call."""
     agg = Agg()
+    T = t                                   # noqa: N806 (the time steps here)
     cfg = cfg_cls(time_window=T, ecs=False)
     shapes = [((T, N, h, w, c), n) for (h, w, c), n in sorted(sites.items(), reverse=True)]
-    shapes.append(((4, 3, 5, 7, 3), 0))
-    for dtype in (torch.float32, torch.bfloat16):
+    shapes.append(((T, 3, 5, 7, 3), 0))
+    for dtype in dtypes:
         item = itemsize(dtype)
         for i, (shape, count) in enumerate(shapes):
             dense = (rand_fn(200 + i)(*shape) * 3 - 1).to(dtype)
@@ -605,7 +630,7 @@ def phase_k6(FZ, BS, cfg_cls, sites: Counter, broadcast: set, log) -> Agg:
                 # written once; five operations an element and step
                 bms, by = bound(((1 if bcast else shape[0]) + shape[0]) * m * item,
                                 5 * math.prod(shape), torch.float32)
-                rec = {"phase": "kernel_check", "kernel": "lif_fused",
+                rec = {"phase": tag, "kernel": "lif_fused",
                        "dtype": dname(dtype), "shape": list(shape), "sites": count,
                        "x_broadcast_over_t": bcast, "mismatch_share": share,
                        "bound_share": 0.0, "max_abs_err": float((got.float() - want.float()).abs().max()),
@@ -1985,6 +2010,27 @@ HEAD_PARAM_GRAD_RTOL = 1e-2
 PLANT_STRIDE = 997
 
 
+def launch_counters() -> tuple:
+    """``(reset, read)`` of the launch counters of the five kernels a model
+    path runs (K1, K2, K6 in eval; K4, K5 in training)."""
+    from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import fused as FZ
+    from ecs_yolo_tpu_torch.snn import spread as S
+
+    counters = {"ecs_lif_fused": K.ecs_lif_fused, "ecs_lif_fused_rows": FZ.ecs_lif_fused_rows,
+                "lif_fused": FZ.lif_fused, "binary_dw3_conv": S.binary_dw3_conv,
+                "packed_spread": S.packed_spread}
+
+    def reset():
+        for f in counters.values():
+            f.launches = 0
+
+    def read():
+        return {k: f.launches for k, f in counters.items()}
+
+    return reset, read
+
+
 def captured_sites(sites, run):
     """``run()`` with every site's input and output kept (raw)."""
     seen = []
@@ -2167,25 +2213,14 @@ def phase_heads(seed: int, train_src: Path, val_root: Path, log) -> dict:
     from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
     from ecs_yolo_tpu_torch.scripts import bench_spread as BS
     from ecs_yolo_tpu_torch.snn import ecs_lif as K
-    from ecs_yolo_tpu_torch.snn import fused as FZ
     from ecs_yolo_tpu_torch.snn import spread as S
     from ecs_yolo_tpu_torch.snn.route import plain_kernels
     from ecs_yolo_tpu_torch.train import driver, loss_tal
     from ecs_yolo_tpu_torch.train.trainer import make_train_step
-    from ecs_yolo_tpu_torch.utils.general import Callbacks
 
     t_phase = time.perf_counter()
     hyp = dict(HYP_SCRATCH)
-    counters = {"ecs_lif_fused": K.ecs_lif_fused, "ecs_lif_fused_rows": FZ.ecs_lif_fused_rows,
-                "lif_fused": FZ.lif_fused, "binary_dw3_conv": S.binary_dw3_conv,
-                "packed_spread": S.packed_spread}
-
-    def reset():
-        for f in counters.values():
-            f.launches = 0
-
-    def read():
-        return {k: f.launches for k, f in counters.items()}
+    reset, read = launch_counters()
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -2275,28 +2310,9 @@ def phase_heads(seed: int, train_src: Path, val_root: Path, log) -> dict:
             raise AssertionError(f"res10v8 float32 step: kernel route disagrees: {rec}")
 
         step = make_train_step(model, tx, hyp, compute_dtype=torch.bfloat16)
-        state, _ = step(state, *batch)                 # first call, kept apart
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset()
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(HEAD_STEPS + 1)]
-        losses = []
-        events[0].record()
-        for i in range(HEAD_STEPS):
-            state, metrics = step(state, *batch)
-            events[i + 1].record()
-            losses.append(metrics["loss"])
-        torch.cuda.synchronize()
-        launches = read()
-        step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(HEAD_STEPS)]
-        # one more step must make no host sync (the TAL assigner and losses
-        # keep static shapes): a sync raises here and fails the phase
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            state, _ = step(state, *batch)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        prof = profile_step(lambda: step(state, *batch))
+        # the last step must make no host sync (the TAL assigner and losses
+        # keep static shapes): a sync raises there and fails the phase
+        state, steps = timed_steps(step, state, batch, HEAD_STEPS, read, reset)
         # the assigner's device time: the step's own calls recorded, replayed
         calls = []
         real = loss_tal.task_aligned_assigner
@@ -2307,81 +2323,38 @@ def phase_heads(seed: int, train_src: Path, val_root: Path, log) -> dict:
             loss_tal.task_aligned_assigner = real
         assigner_ms = sum(cuda_ms(lambda: real(*a, **k), reps=5) for a, k in calls)
         rec = {"phase": "heads_train_step", "cfg": HEAD_CFG, "batch": N, "imgsz": IMGSZ,
-               "T": T, "dtype": "bfloat16", "steps": HEAD_STEPS,
-               "losses": [float(v) for v in losses], "step_ms": step_ms,
-               "ms_per_step": sum(step_ms) / HEAD_STEPS,
-               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches_per_step": {k: v / HEAD_STEPS for k, v in launches.items()},
-               "assigner_calls_per_step": len(calls), "assigner_ms_per_step": assigner_ms,
-               "sync_free_step": "torch.cuda.set_sync_debug_mode('error')",
-               **prof}
+               "T": T, "dtype": "bfloat16", **steps,
+               "assigner_calls_per_step": len(calls), "assigner_ms_per_step": assigner_ms}
         emit(rec, log)
         out["step"] = rec
+        per = rec["launches_per_step"]
         if (not all(math.isfinite(v) for v in rec["losses"]) or len(calls) != 1
-                or launches["binary_dw3_conv"] != dw3_step * HEAD_STEPS
-                or launches["packed_spread"] != gemm_step * HEAD_STEPS
-                or launches["ecs_lif_fused"] or launches["lif_fused"]):
+                or per["binary_dw3_conv"] != dw3_step or per["packed_spread"] != gemm_step
+                or per["ecs_lif_fused"] or per["lif_fused"]):
             raise AssertionError(f"res10v8 bf16 steps failed their checks: {rec}")
         del model, state, step, tx, calls
 
         # --- res10v8: an epoch of train.driver.train, val on the EMA copy --------
         val_src = write_val_set(val_root, seed + 200, HEAD_VAL_IMAGES)
-        passes = []
-        real_run = val_mod.run
-
-        def run(model, *a, **k):
-            res, outs = recorded_nms(val_mod, lambda: real_run(model, *a, **k))
-            passes.append((model, a, k, res, outs))
-            return res
-
-        cb = Callbacks()
-        epoch_launches = {}
-        cb.register_action("on_train_epoch_start", callback=lambda e: reset())
-        cb.register_action("on_train_epoch_end", callback=lambda e: epoch_launches.update(read()))
-        driver.val_mod.run = run
-        try:
-            t0 = time.perf_counter()
-            _, _, hist = driver.train(
-                HEAD_CFG, train_src, val_src, nc=NC, epochs=1, batch_size=N, imgsz=IMGSZ,
-                bf16=True, seed=seed, workers=4, save_dir=str(val_root.parent / "heads_run"),
-                loggers_include=("csv",),
-                callbacks=cb)
-            train_s = time.perf_counter() - t0
-        finally:
-            driver.val_mod.run = real_run
-        (vmodel, va, vk, res, outs), = passes
-        with plain_kernels():
-            res_p, outs_p = recorded_nms(val_mod, lambda: real_run(vmodel, *va, **vk))
-        rows = sum(o.shape[0] * o.shape[1] for o, _ in outs)
-        worst, off, masks_equal = 0.0, 0, True
-        for (o, v), (op, vp) in zip(outs, outs_p):
-            d = (o - op).abs().amax(-1)
-            worst, off = max(worst, float(d.max())), off + int((d > 0).sum())
-            masks_equal &= bool((v == vp).all())
-        metric_diff = max(abs(res[k] - res_p[k]) for k in ("mp", "mr", "map50", "map",
-                                                          "fitness"))
-        h = hist[0]
+        h, epoch_launches, res, cmp, forwards = epoch_with_val(
+            driver, val_mod, plain_kernels, reset, read, cfg=HEAD_CFG,
+            train_path=train_src, val_path=val_src, nc=NC, batch_size=N, imgsz=IMGSZ,
+            bf16=True, seed=seed, workers=4, save_dir=str(val_root.parent / "heads_run"))
         rec = {"phase": "heads_train_run", "cfg": HEAD_CFG, "images": TRAIN_IMAGES,
-               "batch": N, "accumulate": max(round(NBS / N), 1), "seconds": train_s,
+               "batch": N, "accumulate": max(round(NBS / N), 1),
                "loop_s": h["train_s"], "wait_s": h["wait_s"], "val_s": h["val_s"],
                "ckpt_s": h["ckpt_s"], "images_per_s": TRAIN_IMAGES / h["train_s"],
                "micro_steps": h["micro_steps"], "applies": h["applies"],
                "mloss": h["mloss"], "loss_finite": h["loss_finite"],
                "launches": epoch_launches, "val_seen": res["seen"],
-               "val_forwards": len(outs),
-               "nms_output_max_abs_diff_vs_plain_kernels": worst,
-               "nms_rows_differing_share": off / max(rows, 1),
-               "nms_valid_masks_equal": masks_equal,
-               "metrics_max_abs_diff_vs_plain_kernels": metric_diff}
+               "val_forwards": forwards, **cmp}
         emit(rec, log)
         out["train_run"] = rec
         if (not h["loss_finite"] or h["micro_steps"] != TRAIN_IMAGES // N
-                or res["seen"] != HEAD_VAL_IMAGES or worst > 1e-3
-                or off / max(rows, 1) > 1e-3 or metric_diff > 1e-6
+                or res["seen"] != HEAD_VAL_IMAGES or not cmp["val_equal"]
                 or epoch_launches["binary_dw3_conv"] != dw3_step * h["micro_steps"]
                 or epoch_launches["packed_spread"] != gemm_step * h["micro_steps"]):
             raise AssertionError(f"res10v8 train() epoch failed its checks: {rec}")
-        del passes, vmodel
 
         # --- the four other anchor-free YAMLs at b2 ------------------------------
         b = HEAD_OTHER_BATCH
@@ -2400,7 +2373,7 @@ def phase_heads(seed: int, train_src: Path, val_root: Path, log) -> dict:
             fwd = read()
             shares, silu = site_errors(seen, plain_kernels)
             del seen
-            pred = head_predictions(model.head_info["name"], pred_out)
+            pred = head_predictions(model.head_info["name"], pred_out, NC)
             reset()
             results = detect_mod.run(model, tmp, imgsz=IMGSZ)
             det_launches = read()
@@ -2435,6 +2408,482 @@ def phase_heads(seed: int, train_src: Path, val_root: Path, log) -> dict:
                 raise AssertionError(f"{cfg}: failed its checks: {rec}")
             del model, sites
     emit({"phase": "heads_seconds", "seconds": time.perf_counter() - t_phase}, log)
+    return out
+
+
+def epoch_with_val(driver, val_mod, plain_kernels, reset, read, **train_kw) -> tuple:
+    """One ``train.driver.train`` epoch (``train_kw``) with the launch counts
+    of its loop read around it, its val pass on the EMA copy recorded and run
+    again under ``plain_kernels()``.  Returns (the epoch's history row, the
+    loop's launches, the val result, the fields that compare the two passes'
+    NMS outputs and metrics, the val pass's forwards)."""
+    from ecs_yolo_tpu_torch.utils.general import Callbacks
+
+    passes, real_run = [], val_mod.run
+
+    def run(model, *a, **k):
+        res, outs = recorded_nms(val_mod, lambda: real_run(model, *a, **k))
+        passes.append((model, a, k, res, outs))
+        return res
+
+    cb, launches = Callbacks(), {}
+    cb.register_action("on_train_epoch_start", callback=lambda e: reset())
+    cb.register_action("on_train_epoch_end", callback=lambda e: launches.update(read()))
+    driver.val_mod.run = run
+    try:
+        t0 = time.perf_counter()
+        _, _, hist = driver.train(epochs=1, loggers_include=("csv",), callbacks=cb,
+                                  **train_kw)
+        seconds = time.perf_counter() - t0
+    finally:
+        driver.val_mod.run = real_run
+    (vmodel, va, vk, res, outs), = passes
+    with plain_kernels():
+        res_p, outs_p = recorded_nms(val_mod, lambda: real_run(vmodel, *va, **vk))
+    rows = sum(o.shape[0] * o.shape[1] for o, _ in outs)
+    worst, off, masks_equal = 0.0, 0, True
+    for (o, v), (op, vp) in zip(outs, outs_p):
+        d = (o - op).abs().amax(-1)
+        worst, off = max(worst, float(d.max())), off + int((d > 0).sum())
+        masks_equal &= bool((v == vp).all())
+    cmp = {"seconds": seconds, "nms_output_max_abs_diff_vs_plain_kernels": worst,
+           "nms_rows_differing_share": off / max(rows, 1),
+           "nms_valid_masks_equal": masks_equal,
+           "metrics_max_abs_diff_vs_plain_kernels": max(
+               abs(res[k] - res_p[k]) for k in ("mp", "mr", "map50", "map", "fitness"))}
+    cmp["val_equal"] = (worst <= 1e-3 and off / max(rows, 1) <= 1e-3
+                        and cmp["metrics_max_abs_diff_vs_plain_kernels"] <= 1e-6)
+    return hist[0], launches, res, cmp, len(outs)
+
+
+def timed_steps(step, state, batch, n: int, read, reset) -> tuple:
+    """``n`` steps after a first one kept apart, timed by events; their
+    launches and peak memory; one more under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises); one
+    profiled (device time by kernel, idle share)."""
+    state, _ = step(state, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    losses = []
+    events[0].record()
+    for i in range(n):
+        state, metrics = step(state, *batch)
+        events[i + 1].record()
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = read()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = step(state, *batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    prof = profile_step(lambda: step(state, *batch))
+    return state, {"steps": n, "losses": [float(v) for v in losses], "step_ms": step_ms,
+                   "ms_per_step": sum(step_ms) / n, "peak_memory_gb": peak,
+                   "launches_per_step": {k: v / n for k, v in launches.items()},
+                   "sync_free_step": "torch.cuda.set_sync_debug_mode('error')", **prof}
+
+
+#: event mode (Gen1: T=5, nc 2, 240x304 frames resized to 320 px; the
+#: reference's data/gen1.yaml): res10's neuron sites, the fused spread
+#: product's and the depthwise kernel's launches in a training forward
+#: (T-1 = 4 a site), and the samples of the synthetic streams
+EVENT_T, EVENT_IMGSZ, EVENT_NC = 5, 320, 2
+EVENT_SITES = (24, 20, 76)
+EVENT_TRAIN, EVENT_VAL = 16, 8
+#: the segment heads at 640 px, nc 13, T=4: (sites, K5, K4 launches a
+#: training step), as HEAD_SITES (tests/test_torch_port_segment.py holds
+#: this table against the models' hooks on the CPU); the images of the
+#: synthetic polygon set, and the batch of the panoptic model's checks
+SEG_CFG, PAN_CFG = "res10-seg.yaml", "res10-panoptic.yaml"
+SEG_SITES = {SEG_CFG: (39, 21, 75), PAN_CFG: (40, 21, 75)}
+SEG_IMAGES, SEG_VAL_IMAGES, SEG_MAX_LABELS, PAN_BATCH = 16, 8, 32, 2
+SEG_STEPS = 2
+
+
+def write_gen1(root: Path, seed: int, samples: int) -> tuple:
+    """A synthetic Prophesee Gen1 stream, as ``tests/test_events.py`` writes
+    one: a ``.dat`` (240x304, '%' header, event type and size bytes, then
+    ``(t u4, x | y << 14 | p << 28 u4)`` records; one event every 5 us at
+    random pixels and polarities) and its ``boxes.npy`` (1-4 boxes of 2
+    classes at each of ``samples`` timestamps 100 ms apart, after the first
+    250 ms window).  Returns (dat, boxes) paths."""
+    from ecs_yolo_tpu_torch.data.events import BBOX_DTYPE, GEN1_SHAPE
+
+    rng = np.random.RandomState(seed)
+    h, w = GEN1_SHAPE
+    dur = 300_000 + samples * 100_000
+    n = dur // 5
+    rec = np.empty(n, np.dtype([("t", "<u4"), ("w", "<u4")]))
+    rec["t"] = np.sort(rng.randint(0, dur, n))
+    rec["w"] = (rng.randint(0, w, n) | (rng.randint(0, h, n) << 14)
+                | (rng.randint(0, 2, n) << 28))
+    root.mkdir(parents=True, exist_ok=True)
+    dat = root / "stream_td.dat"
+    with open(dat, "wb") as fh:
+        fh.write(b"% synthetic Gen1 stream\n% height 240\n% width 304\n")
+        fh.write(bytes([0x0C, 8]))
+        fh.write(rec.tobytes())
+    rows = []
+    for k in range(samples):
+        for tr in range(rng.randint(1, 5)):
+            bw, bh = rng.uniform(20, 120), rng.uniform(20, 90)
+            rows.append((300_000 + 100_000 * k, rng.uniform(0, w - bw), rng.uniform(0, h - bh),
+                         bw, bh, rng.randint(0, 2), 1.0, tr))
+    lbl = root / "boxes.npy"
+    np.save(lbl, np.array(rows, dtype=BBOX_DTYPE))
+    return dat, lbl
+
+
+def phase_events(seed: int, root: Path, log) -> dict:
+    """Event mode on the card: res10 ECS, nc 2, 320 px, T=5, b8, bf16.
+
+    Two synthetic Gen1 streams through ``data/events.build_dataset`` (train
+    and val); a calibrated model's forward on an ``EventDataset`` batch
+    ``[8, 5, 320, 320, 3]`` with every neuron site held to the plain version
+    of its kernel on its real input (the stem runs at each step: no site
+    reads a broadcast), K1 24 launches a forward, ms and img/s, profiled;
+    K1 at those 9 shapes at T=5 against its plain version and bound
+    (``event_kernel_check``); the plain-LIF model (``ecs=False``) the same
+    on K6; one float32 step teacher-forced against its ``plain_kernels()``
+    rerun with the planted K4 fault that must fail it; bf16 steps (K4 76,
+    K5 20 launches a step, peak memory) and one under sync-debug "error";
+    one ``train.driver.train(events=True)`` epoch whose EMA val pass must
+    give ``plain_kernels()``'s NMS output."""
+    from ecs_yolo_tpu_torch import val as val_mod
+    from ecs_yolo_tpu_torch.config import SNNConfig
+    from ecs_yolo_tpu_torch.data.events import EventDataset, build_dataset
+    from ecs_yolo_tpu_torch.data.hyps import HYP_SCRATCH
+    from ecs_yolo_tpu_torch.models.yolo import build_model, cast_params
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
+    from ecs_yolo_tpu_torch.scripts import bench_spread as BS
+    from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import fused as FZ
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.train import driver
+    from ecs_yolo_tpu_torch.train.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    hyp = dict(HYP_SCRATCH)
+    reset, read = launch_counters()
+
+    n_sites, gemm_step, dw3_step = EVENT_SITES
+    out = {}
+    t0 = time.perf_counter()
+    splits = {}
+    for split, k, n in (("train", 0, EVENT_TRAIN), ("val", 1, EVENT_VAL)):
+        dat, lbl = write_gen1(root / f"{split}_stream", seed + 300 + k, n)
+        got = build_dataset([(str(dat), str(lbl))], root / split, t_bins=EVENT_T,
+                            split=split)
+        splits[split] = root / split / f"{split}.txt"
+        if got != n:
+            raise AssertionError(f"build_dataset wrote {got} {split} samples, want {n}")
+    ds = EventDataset(splits["train"], img_size=EVENT_IMGSZ, max_labels=TRAIN_BOXES)
+    ims, lbs, ms_ = next(ds.batches(N))
+    xb = torch.from_numpy(ims).cuda()
+    batch = (xb, torch.from_numpy(lbs).cuda(), torch.from_numpy(ms_).cuda())
+    emit({"phase": "events_data", "seconds": time.perf_counter() - t0,
+          "train_samples": EVENT_TRAIN, "val_samples": EVENT_VAL,
+          "batch_shape": list(ims.shape), "event_share": float((ims != 127 / 255).mean()),
+          "labels": int(ms_.sum())}, log)
+    if ims.shape != (N, EVENT_T, EVENT_IMGSZ, EVENT_IMGSZ, 3):
+        raise AssertionError(f"event batch {ims.shape}")
+
+    # --- ECS-LIF: serving ------------------------------------------------------------
+    snn = SNNConfig(time_window=EVENT_T)
+    model = build_model("resnet10.yaml", nc=EVENT_NC, snn=snn,
+                        generator=torch.Generator().manual_seed(seed + 30))
+    calibrate_bn(model, xb, _BN)
+    sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+    state32 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    cast_params(model, torch.bfloat16)
+    broadcast: set = set()
+    shapes = site_shapes(model, MemUpdate, xb, broadcast)
+    reset()
+    with torch.no_grad():
+        _, seen = captured_sites(sites, lambda: model(xb))
+    fwd = read()
+    shares, silu = site_errors(seen, plain_kernels)
+    del seen
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model(xb), reps=10)
+        prof = profile_step(lambda: model(xb))
+    rec = {"phase": "events_forward", "batch": N, "T": EVENT_T, "imgsz": EVENT_IMGSZ,
+           "nc": EVENT_NC, "dtype": "bfloat16", "sites": len(shares) + len(silu),
+           "shapes": [[list(k), v] for k, v in sorted(shapes.items(), reverse=True)],
+           "input_broadcast_over_t": sorted(map(list, broadcast)),
+           "launches_per_forward": fwd, "worst_site_mismatch_share": max(shares),
+           "site_mismatch_shares": shares, "ms_per_forward": ms,
+           "images_per_s": N / ms * 1e3, **prof}
+    emit(rec, log)
+    out["forward"] = {"ms": ms, "k1_launches": fwd["ecs_lif_fused"]}
+    if (len(shares) + len(silu) != n_sites or broadcast
+            or not sites_ok(shares, silu, torch.bfloat16)
+            or fwd["ecs_lif_fused"] != n_sites or sum(fwd.values()) != n_sites):
+        raise AssertionError(f"event model: a site disagrees or left K1: {rec}")
+    out["k1"] = phase_k1(K, SNNConfig, shapes, set(), log, t=EVENT_T,
+                         dtypes=(torch.bfloat16,), tag="event_kernel_check")
+
+    # --- ECS-LIF: training -----------------------------------------------------------
+    for p in model.parameters():
+        p.data = p.data.float()
+    model.load_state_dict(state32)
+    rec, tx, state = f32_step_check(model, batch, sites, plain_kernels, hyp, plant=True)
+    emit({"phase": "events_train_step_fp32", "batch": N, "T": EVENT_T, **rec}, log)
+    if not rec["ok"]:
+        raise AssertionError(f"event model float32 step: kernel route disagrees: {rec}")
+    step = make_train_step(model, tx, hyp, compute_dtype=torch.bfloat16)
+    state, rec = timed_steps(step, state, batch, HEAD_STEPS, read, reset)
+    emit({"phase": "events_train_step", "batch": N, "T": EVENT_T, "imgsz": EVENT_IMGSZ,
+          "dtype": "bfloat16", **rec}, log)
+    out["step"] = rec
+    per = rec["launches_per_step"]
+    if (not all(math.isfinite(v) for v in rec["losses"])
+            or per["binary_dw3_conv"] != dw3_step or per["packed_spread"] != gemm_step
+            or per["ecs_lif_fused"] or per["lif_fused"]):
+        raise AssertionError(f"event model bf16 steps failed their checks: {rec}")
+    del model, state, step, tx, state32
+
+    # --- plain LIF (ecs=False): serving on K6 --------------------------------------------
+    model = build_model("resnet10.yaml", nc=EVENT_NC, snn=snn.replace(ecs=False),
+                        generator=torch.Generator().manual_seed(seed + 31))
+    calibrate_bn(model, xb, _BN)
+    cast_params(model, torch.bfloat16)
+    sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+    reset()
+    with torch.no_grad():
+        _, seen = captured_sites(sites, lambda: model(xb))
+    fwd = read()
+    shares, silu = site_errors(seen, plain_kernels)
+    del seen
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model(xb), reps=10)
+    rec = {"phase": "events_forward_plain_lif", "batch": N, "T": EVENT_T,
+           "dtype": "bfloat16", "sites": len(shares), "launches_per_forward": fwd,
+           "worst_site_mismatch_share": max(shares), "ms_per_forward": ms,
+           "images_per_s": N / ms * 1e3}
+    emit(rec, log)
+    out["forward_plain_lif"] = {"ms": ms, "k6_launches": fwd["lif_fused"]}
+    if (len(shares) != n_sites or max(shares) > 0.0 or fwd["lif_fused"] != n_sites
+            or sum(fwd.values()) != n_sites):
+        raise AssertionError(f"plain-LIF event model: a site disagrees or left K6: {rec}")
+    out["k6"] = phase_k6(FZ, BS, SNNConfig, shapes, set(), log, t=EVENT_T,
+                         dtypes=(torch.bfloat16,), tag="event_kernel_check")
+    del model, sites, xb, batch
+
+    # --- train.driver.train(events=True): an epoch, val on the EMA copy ------------------
+    h, launches, res, cmp, forwards = epoch_with_val(
+        driver, val_mod, plain_kernels, reset, read, cfg="resnet10.yaml",
+        train_path=str(splits["train"]), val_path=str(splits["val"]), nc=EVENT_NC,
+        batch_size=N, imgsz=EVENT_IMGSZ, nbs=N, bf16=True, seed=seed, workers=4,
+        events=True, save_dir=str(root / "run"))
+    rec = {"phase": "events_train_run", "samples": EVENT_TRAIN, "batch": N,
+           "loop_s": h["train_s"], "wait_s": h["wait_s"], "val_s": h["val_s"],
+           "ckpt_s": h["ckpt_s"], "samples_per_s": EVENT_TRAIN / h["train_s"],
+           "micro_steps": h["micro_steps"], "applies": h["applies"], "mloss": h["mloss"],
+           "loss_finite": h["loss_finite"], "launches": launches, "val_seen": res["seen"],
+           "val_forwards": forwards, **cmp}
+    emit(rec, log)
+    out["train_run"] = rec
+    if (not h["loss_finite"] or h["micro_steps"] != EVENT_TRAIN // N
+            or h["applies"] != EVENT_TRAIN // N or not cmp["val_equal"]
+            or res["seen"] != EVENT_VAL or forwards != EVENT_VAL // N
+            or launches["binary_dw3_conv"] != dw3_step * h["micro_steps"]
+            or launches["packed_spread"] != gemm_step * h["micro_steps"]):
+        raise AssertionError(f"train(events=True) epoch failed its checks: {rec}")
+    emit({"phase": "events_seconds", "seconds": time.perf_counter() - t_phase}, log)
+    return out
+
+
+def write_seg_set(root: Path, seed: int, images: int) -> Path:
+    """A synthetic YOLO-seg split from ``seed``: ``images`` images of mixed
+    native sizes (noise), each with 1-6 filled polygons (3-8 points) of
+    ``NC`` classes drawn in and labelled (``labels/``), and 1-2 stuff
+    polygons of classes ``NC..NC+19`` (``stuff/``, the panoptic head's
+    ``sem_nc`` of 20).  Returns the image directory."""
+    from PIL import Image, ImageDraw
+
+    rng = np.random.RandomState(seed)
+    for sub in ("images", "labels", "stuff"):
+        (root / sub).mkdir(parents=True)
+
+    def poly():
+        k = rng.randint(3, 9)
+        c = rng.uniform(0.2, 0.8, 2)
+        ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+        r = rng.uniform(0.04, 0.2, k)
+        return np.clip(c + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None], 0, 1)
+
+    for i in range(images):
+        h, w = VAL_SIZES[i % len(VAL_SIZES)]
+        im = Image.fromarray((rng.rand(h, w, 3) * 96 + 64).astype(np.uint8))
+        draw = ImageDraw.Draw(im)
+        rows, stuff = [], []
+        for _ in range(rng.randint(1, 7)):
+            pts = poly()
+            draw.polygon([(x * w, y * h) for x, y in pts], fill=tuple(rng.randint(0, 255, 3)))
+            rows.append(" ".join([str(rng.randint(0, NC))] + [f"{v:.5f}" for v in pts.ravel()]))
+        for _ in range(rng.randint(1, 3)):
+            stuff.append(" ".join([str(NC + rng.randint(0, 20))]
+                                  + [f"{v:.5f}" for v in poly().ravel()]))
+        im.save(root / "images" / f"{2000 + i}.jpg", quality=90)
+        (root / "labels" / f"{2000 + i}.txt").write_text("\n".join(rows) + "\n")
+        (root / "stuff" / f"{2000 + i}.txt").write_text("\n".join(stuff) + "\n")
+    return root / "images"
+
+
+def phase_segment(seed: int, root: Path, log) -> dict:
+    """The Segment / Panoptic heads on the card: ``res10-seg.yaml`` at b8
+    and ``res10-panoptic.yaml`` at b``PAN_BATCH``, nc 13, 640 px, T=4, bf16.
+
+    Per model: a forward on a ``SegmentDataset`` batch with every neuron site
+    held to the plain version of its kernel (the SiLU sites of the mask
+    towers, ``Proto`` and ``UConv`` elementwise), all on K1, ms, img/s and
+    profile; one float32 step with the instance masks (and, panoptic, the
+    semantic id map) teacher-forced against its ``plain_kernels()`` rerun;
+    bf16 steps (K4 / K5 launches, peak memory) and one under sync-debug
+    "error".  ``res10-seg``: ``detect.run`` over 4 synthetic images, and
+    one ``train.driver.train`` epoch over a synthetic polygon set whose EMA
+    val pass must give ``plain_kernels()``'s NMS output.  K1 and K4 at the
+    shapes the heads add (80x80x32, 20x20x768) in their own kernel_check
+    records."""
+    from ecs_yolo_tpu_torch import detect as detect_mod
+    from ecs_yolo_tpu_torch import val as val_mod
+    from ecs_yolo_tpu_torch.config import SNNConfig
+    from ecs_yolo_tpu_torch.data.dataset import SegmentDataset
+    from ecs_yolo_tpu_torch.data.hyps import HYP_SCRATCH
+    from ecs_yolo_tpu_torch.models.yolo import cast_params, head_predictions
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
+    from ecs_yolo_tpu_torch.scripts import bench_spread as BS
+    from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import spread as S
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.train import driver
+    from ecs_yolo_tpu_torch.train.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    hyp = dict(HYP_SCRATCH)
+    reset, read = launch_counters()
+
+    t0 = time.perf_counter()
+    train_src = write_seg_set(root / "train", seed + 400, SEG_IMAGES)
+    val_src = write_seg_set(root / "val", seed + 401, SEG_VAL_IMAGES)
+    ds = SegmentDataset(train_src, img_size=IMGSZ, augment=False, max_labels=SEG_MAX_LABELS,
+                        uint8_out=True, semantic=True)
+    host = next(ds.batches(N))
+    emit({"phase": "segment_data", "seconds": time.perf_counter() - t0,
+          "train_images": SEG_IMAGES, "val_images": SEG_VAL_IMAGES,
+          "shapes": [list(a.shape) for a in host], "instances": int(host[2].sum()),
+          "mask_pixels_share": float(host[3].mean()),
+          "semantic_labelled_share": float((host[4] >= 0).mean())}, log)
+    full = [torch.from_numpy(a).cuda() for a in host]
+    full[0] = full[0].float() / 255.0
+    out = {"models": {}}
+    new_shapes = Counter()
+    for cfg in (SEG_CFG, PAN_CFG):
+        t0 = time.perf_counter()
+        n_sites, gemm_step, dw3_step = SEG_SITES[cfg]
+        b = N if cfg == SEG_CFG else PAN_BATCH
+        batch = tuple(a[:b] for a in (full if cfg == PAN_CFG else full[:4]))
+        model = head_model(cfg, seed + 40, batch[0], _BN)
+        sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+        state32 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        cast_params(model, torch.bfloat16)
+        reset()
+        with torch.no_grad():
+            pred_out, seen = captured_sites(sites, lambda: model(batch[0]))
+        fwd = read()
+        shares, silu = site_errors(seen, plain_kernels)
+        shapes = Counter(tuple(xin.shape[2:]) for _, xin, _ in seen)
+        del seen
+        pred = head_predictions(model.head_info["name"], pred_out, NC)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: model(batch[0]), reps=5)
+            prof = profile_step(lambda: model(batch[0]))
+        rec = {"phase": "segment_forward", "cfg": cfg, "batch": b, "dtype": "bfloat16",
+               "sites": len(shares) + len(silu), "silu_sites": len(silu),
+               "shapes": [[list(k), v] for k, v in sorted(shapes.items(), reverse=True)],
+               "launches_per_forward": fwd, "worst_site_mismatch_share": max(shares),
+               "worst_site_silu_err": max(silu), "silu_err_unit": "bf16 ulps",
+               "prediction_shape": list(pred.shape), "decoded_with_coefficients": list(
+                   pred_out[0].shape), "protos": list(pred_out[1][2].shape),
+               "ms_per_forward": ms, "images_per_s": b / ms * 1e3, **prof}
+        emit(rec, log)
+        if (len(shares) + len(silu) != n_sites or not sites_ok(shares, silu, torch.bfloat16)
+                or fwd["ecs_lif_fused"] != n_sites or sum(fwd.values()) != n_sites
+                or pred.shape[1] != 4 + NC or not bool(torch.isfinite(pred).all())):
+            raise AssertionError(f"{cfg}: a site disagrees or left K1: {rec}")
+        new_shapes.update({k: v for k, v in shapes.items()
+                           if k in ((80, 80, 32), (20, 20, 768))})
+        mrec = {"forward_ms": ms, "k1_launches": fwd["ecs_lif_fused"], "batch": b}
+        if cfg == SEG_CFG:
+            (root / "detect").mkdir()
+            write_images(root / "detect")
+            reset()
+            results = detect_mod.run(model, root / "detect", imgsz=IMGSZ)
+            det = read()
+            rec = {"phase": "segment_detect", "cfg": cfg, "images": len(results),
+                   "detections": [int(len(d)) for _, d in results], "launches": det,
+                   "finite": all(bool(np.isfinite(d).all()) for _, d in results)}
+            emit(rec, log)
+            mrec["detect_launches"] = det["ecs_lif_fused"]
+            if (not rec["finite"] or len(results) != 4
+                    or det["ecs_lif_fused"] != n_sites * 4):
+                raise AssertionError(f"{cfg} detect.run failed its checks: {rec}")
+        for p in model.parameters():
+            p.data = p.data.float()
+        model.load_state_dict(state32)
+        rec, tx, state = f32_step_check(model, batch, sites, plain_kernels, hyp)
+        emit({"phase": "segment_train_step_fp32", "cfg": cfg, "batch": b,
+              "with_semantic": len(batch) == 5, **rec}, log)
+        if not rec["ok"] or len(rec["items"]) != (6 if cfg == PAN_CFG else 4):
+            raise AssertionError(f"{cfg} float32 step: kernel route disagrees: {rec}")
+        step = make_train_step(model, tx, hyp, compute_dtype=torch.bfloat16,
+                               with_masks=True, with_semantic=cfg == PAN_CFG)
+        state, rec = timed_steps(step, state, batch, SEG_STEPS, read, reset)
+        emit({"phase": "segment_train_step", "cfg": cfg, "batch": b, "dtype": "bfloat16",
+              **rec}, log)
+        mrec["step"] = rec
+        per = rec["launches_per_step"]
+        if (not all(math.isfinite(v) for v in rec["losses"])
+                or per["binary_dw3_conv"] != dw3_step or per["packed_spread"] != gemm_step
+                or per["ecs_lif_fused"] or per["lif_fused"]):
+            raise AssertionError(f"{cfg} bf16 steps failed their checks: {rec}")
+        out["models"][cfg] = mrec
+        emit({"phase": "segment_model_seconds", "cfg": cfg,
+              "seconds": time.perf_counter() - t0}, log)
+        del model, state, step, tx, state32, sites, batch
+    del full
+
+    # --- the K1 / K4 shapes the segment heads add, their own records -----------------------
+    phase_k1(K, SNNConfig, new_shapes, set(), log)
+    phase_spread(S, BS, plain_kernels, Counter({(20, 20, 768): new_shapes[(20, 20, 768)]}),
+                 log)
+
+    # --- res10-seg: an epoch of train.driver.train, val on the EMA copy ----------------------
+    h, launches, res, cmp, forwards = epoch_with_val(
+        driver, val_mod, plain_kernels, reset, read, cfg=SEG_CFG, train_path=train_src,
+        val_path=val_src, nc=NC, batch_size=N, imgsz=IMGSZ, nbs=N, bf16=True, seed=seed,
+        workers=4, max_labels=SEG_MAX_LABELS, save_dir=str(root / "run"))
+    n_sites, gemm_step, dw3_step = SEG_SITES[SEG_CFG]
+    rec = {"phase": "segment_train_run", "cfg": SEG_CFG, "images": SEG_IMAGES, "batch": N,
+           "loop_s": h["train_s"], "wait_s": h["wait_s"], "val_s": h["val_s"],
+           "ckpt_s": h["ckpt_s"], "images_per_s": SEG_IMAGES / h["train_s"],
+           "micro_steps": h["micro_steps"], "applies": h["applies"],
+           "mloss_box_mask_cls": h["mloss"], "loss_finite": h["loss_finite"],
+           "launches": launches, "val_seen": res["seen"], "val_forwards": forwards, **cmp}
+    emit(rec, log)
+    out["train_run"] = rec
+    if (not h["loss_finite"] or h["micro_steps"] != SEG_IMAGES // N or not cmp["val_equal"]
+            or res["seen"] != SEG_VAL_IMAGES or h["mloss"][1] <= 0
+            or launches["binary_dw3_conv"] != dw3_step * h["micro_steps"]
+            or launches["packed_spread"] != gemm_step * h["micro_steps"]):
+        raise AssertionError(f"{SEG_CFG} train() epoch failed its checks: {rec}")
+    emit({"phase": "segment_seconds", "seconds": time.perf_counter() - t_phase}, log)
     return out
 
 
@@ -2610,8 +3059,13 @@ def main(argv=None) -> int:
         opts_launches = phase_train_opts(opt.seed, train_src, run_rec, log)
         t2 = time.perf_counter()
         heads = phase_heads(opt.seed, train_src, Path(sets) / "heads_val", log)
+        t3 = time.perf_counter()
+        events = phase_events(opt.seed, Path(sets) / "events", log)
+        t4 = time.perf_counter()
+        seg = phase_segment(opt.seed, Path(sets) / "segment", log)
         emit({"phase": "train_seconds", "train_run": t1 - t0,
-              "train_opts": t2 - t1, "heads": time.perf_counter() - t2}, log)
+              "train_opts": t2 - t1, "heads": t3 - t2, "events": t4 - t3,
+              "segment": time.perf_counter() - t4}, log)
 
     # --- the validation main path ----------------------------------------------
     val_launches = phase_val(opt.seed, log)
@@ -2637,7 +3091,19 @@ def main(argv=None) -> int:
             heads_detect_launches=heads["detect_launches"],
             heads_note="heads_detect_launches: detect.run of res10v8 (ASFF_DDetect, 44 "
                        "sites) over the 4 synthetic images; the phase heads holds every "
-                       "site of the five anchor-free YAMLs to the plain version"),
+                       "site of the five anchor-free YAMLs to the plain version",
+            events_launches_per_forward=events["forward"]["k1_launches"],
+            events_ms=events["k1"].ms, events_plain_ms=events["k1"].plain_ms,
+            events_bound_ms=events["k1"].bound_ms,
+            segment_launches_per_forward={c: m["k1_launches"]
+                                          for c, m in seg["models"].items()},
+            segment_detect_launches=seg["models"][SEG_CFG]["detect_launches"],
+            events_note=f"events_*: event mode, res10 nc {EVENT_NC} at {EVENT_IMGSZ} px, "
+                        f"T={EVENT_T}, N={N}, bf16: K1's launches in one forward and its "
+                        "device, plain and bound ms summed over the forward's 24 sites "
+                        "(event_kernel_check); segment_*: res10-seg (b8) and "
+                        f"res10-panoptic (b{PAN_BATCH}) at 640 px, one forward each, and "
+                        "detect.run of res10-seg over 4 images"),
         aggs["binary_dw3_conv"].entry(
             name="binary_dw3_conv", route="cuda", source=csrc + "spread_dw3.cu",
             replaces="ecs_yolo_tpu/snn/pallas_dw.py:73",
@@ -2645,6 +3111,9 @@ def main(argv=None) -> int:
             train_run_launches=run_launches["binary_dw3_conv"],
             train_opts_launches_per_step=opts_launches["binary_dw3_conv"],
             heads_launches_per_step=heads["step"]["launches_per_step"]["binary_dw3_conv"],
+            events_launches_per_step=events["step"]["launches_per_step"]["binary_dw3_conv"],
+            segment_launches_per_step={c: m["step"]["launches_per_step"]["binary_dw3_conv"]
+                                       for c, m in seg["models"].items()},
             recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
                            "remat_neuron; the remat counts include the launches of the "
                            "backward pass's recompute; launches and train_run_launches "
@@ -2664,6 +3133,9 @@ def main(argv=None) -> int:
             train_run_launches=run_launches["packed_spread"],
             train_opts_launches_per_step=opts_launches["packed_spread"],
             heads_launches_per_step=heads["step"]["launches_per_step"]["packed_spread"],
+            events_launches_per_step=events["step"]["launches_per_step"]["packed_spread"],
+            segment_launches_per_step={c: m["step"]["launches_per_step"]["packed_spread"]
+                                       for c, m in seg["models"].items()},
             recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
                            "remat_neuron; the remat counts include the launches of the "
                            "backward pass's recompute; launches and train_run_launches "
@@ -2682,6 +3154,13 @@ def main(argv=None) -> int:
                  f"launches over the {VAL_IMAGES // N} forwards of the val pass; ms "
                  "is the device time of lif_fused from calls replayed in a CUDA "
                  "graph, wrapper_ms the same calls eager",
+            events_launches_per_forward=events["forward_plain_lif"]["k6_launches"],
+            events_ms=events["k6"].ms, events_plain_ms=events["k6"].plain_ms,
+            events_bound_ms=events["k6"].bound_ms,
+            events_note=f"events_*: the plain-LIF event model, res10 at {EVENT_IMGSZ} px, "
+                        f"T={EVENT_T}, N={N}, bf16, x dense at every site: K6's launches "
+                        "in one forward and its replayed, plain and bound ms summed over "
+                        "the 24 sites (event_kernel_check)",
             library_note="no single PyTorch call computes the LIF recurrence"),
         agg2.entry(
             name="ecs_lif_fused_rows", route="cuda", source=csrc + "ecs_lif_rows.cu",

@@ -19,8 +19,10 @@ index)`` (``sample_rng``; the trainer sets ``epoch``), so an epoch's
 augmentation can be reproduced.  The JAX package seeds it from the process id
 and the global ``random`` state, which cannot be.
 
-Not ported yet: the ``quad`` collate, ``host_shard`` (ROADMAP Queue 1 item
-7) and ``SegmentDataset`` (item 11); each raises ``NotImplementedError``.
+``SegmentDataset`` adds the instance masks (and, for ``Panoptic``, a
+semantic class-id map) rasterised from YOLO-seg polygon labels.  Not ported
+yet: ``host_shard`` (ROADMAP Queue 1 item 7, with item 12's multi-host
+training), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,13 @@ _TRAIN_HALF = "is part of the train data path, not ported yet (ROADMAP Queue 1 i
 def img2label_path(p: str) -> str:
     """images/xxx.jpg -> labels/xxx.txt (reference utils/datasets.py:371)."""
     sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
+    return sb.join(p.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt"
+
+
+def img2stuff_path(p: str) -> str:
+    """images/xxx.jpg -> stuff/xxx.txt: the stuff-class polygons of panoptic
+    training (reference utils/panoptic/dataloaders.py:85-88)."""
+    sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}stuff{os.sep}"
     return sb.join(p.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt"
 
 
@@ -606,9 +615,123 @@ class Dataset:
             thread.join(timeout=10)
 
 
-class SegmentDataset:
-    """Instance-mask dataset of the JAX package: not ported yet."""
+def load_segment_label_file(path: str):
+    """One YOLO-seg txt -> ``(labels [n, 5], segments: list of [k, 2])``
+    (reference utils/segment/dataloaders.py): rows ``cls x1 y1 x2 y2 ...``,
+    a normalised polygon of at least 3 points (shorter rows are skipped);
+    the box is the polygon's extent."""
+    if not os.path.isfile(path):
+        return np.zeros((0, 5), np.float32), []
+    labels, segments = [], []
+    with open(path) as fh:
+        for line in fh.read().strip().splitlines():
+            parts = line.split()
+            if len(parts) < 7:
+                continue
+            pts = np.array(parts[1:], np.float32).reshape(-1, 2)
+            x1, y1 = pts.min(0)
+            x2, y2 = pts.max(0)
+            labels.append([float(parts[0]), (x1 + x2) / 2, (y1 + y2) / 2,
+                           x2 - x1, y2 - y1])
+            segments.append(pts)
+    if not labels:
+        return np.zeros((0, 5), np.float32), []
+    return np.array(labels, np.float32), segments
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("SegmentDataset is not ported yet (ROADMAP "
-                                  "Queue 1 item 7; segment heads item 11)")
+
+class SegmentDataset(Dataset):
+    """``Dataset`` plus per-instance masks for ``Segment`` / ``Panoptic``
+    training (reference utils/segment/dataloaders.py), from polygon labels.
+
+    A sample is ``(image, labels, mask, masks [M, h/r, w/r] float32)`` with
+    each instance's polygon rasterised by PIL at 1/``mask_ratio`` of the
+    letterbox canvas (the reference's downsample 4); with ``semantic``
+    (``Panoptic``) also an int32 class-id map at that size: the stuff
+    polygons of ``stuff/<stem>.txt`` drawn first, then the instances
+    (their class ids), background -1.  ``include_masks=False`` (the val
+    loop) yields plain detection samples.  Mosaic, mixup and the flips are
+    off (boxes and polygons would need the same transform); letterbox and
+    HSV apply.  The collate pads masks with 0 and id maps with -1.  The
+    ``quad`` collate is refused for mask batches."""
+
+    def __init__(self, *args, mask_ratio: int = 4, include_masks: bool = True,
+                 semantic: bool = False, **kw):
+        kw.setdefault("hyp", {})
+        super().__init__(*args, **kw)
+        self.mask_ratio = mask_ratio
+        self.include_masks = include_masks
+        self.semantic = semantic and include_masks
+        for k in ("mosaic", "mixup", "fliplr", "flipud"):
+            self.hyp[k] = 0.0
+
+    def _load_labels(self, cache_dir):
+        self.segments = []
+        labels = []
+        for p in self.label_files:
+            lb, segs = load_segment_label_file(p)
+            labels.append(lb)
+            self.segments.append(segs)
+        if self.single_cls:
+            for lb in labels:
+                if len(lb):
+                    lb[:, 0] = 0
+        return labels
+
+    def _polygon(self, pts: np.ndarray, meta: Dict):
+        """A normalised native polygon in mask pixels of the canvas."""
+        (gy, gx), (pw, ph) = meta["ratio_pad"]
+        h0, w0 = meta["native_hw"]
+        px = pts[:, 0] * w0 * gx + pw
+        py = pts[:, 1] * h0 * gy + ph
+        return [(x / self.mask_ratio, y / self.mask_ratio) for x, y in zip(px, py)]
+
+    def __getitem__(self, index: int):
+        from PIL import ImageDraw
+
+        if not self.include_masks:
+            return super().__getitem__(index)
+        img, labels, valid = super().__getitem__(index)
+        h, w = img.shape[:2]
+        mh, mw = h // self.mask_ratio, w // self.mask_ratio
+        masks = np.zeros((self.max_labels, mh, mw), np.float32)
+        meta = self.meta(index)
+        segs = self.segments[index]
+        for i in range(min(len(segs), self.max_labels)):
+            im = Image.new("F", (mw, mh), 0.0)
+            ImageDraw.Draw(im).polygon(self._polygon(segs[i], meta), fill=1.0)
+            masks[i] = np.asarray(im)
+        if not self.semantic:
+            return img, labels, valid, masks
+        sem = Image.new("I", (mw, mh), -1)
+        draw = ImageDraw.Draw(sem)
+        stuff_lb, stuff_segs = load_segment_label_file(img2stuff_path(self.img_files[index]))
+        for row, pts in zip(stuff_lb, stuff_segs):
+            draw.polygon(self._polygon(pts, meta), fill=int(row[0]))
+        raw = self.labels[index]
+        for i in range(min(len(segs), len(raw))):
+            draw.polygon(self._polygon(segs[i], meta), fill=int(raw[i, 0]))
+        return img, labels, valid, masks, np.asarray(sem, np.int32)
+
+    def _collate(self, idxs, items, batch_size, drop_last, yield_count, yield_idx):
+        if not self.include_masks:
+            return super()._collate(idxs, items, batch_size, drop_last, yield_count,
+                                    yield_idx)
+        cols = list(zip(*items))
+        base = super()._collate(idxs, list(zip(*cols[:3])), batch_size, drop_last,
+                                yield_count, yield_idx)
+        extra = []
+        for col in cols[3:]:        # instance masks, then the id map
+            arr = np.stack(col)
+            if len(idxs) < batch_size and not drop_last:
+                fill = -1 if np.issubdtype(arr.dtype, np.integer) else 0
+                arr = np.concatenate([arr, np.full((batch_size - len(idxs),)
+                                                   + arr.shape[1:], fill, arr.dtype)])
+            extra.append(arr)
+        return (*base, *extra)
+
+    def batches(self, batch_size: int, *args, quad: bool = False, **kw):
+        """``Dataset.batches``; each batch also carries the masks (and the
+        id map) after the three detection arrays."""
+        if quad and self.include_masks:
+            raise ValueError("the quad collate does not tile instance masks")
+        return super().batches(batch_size, *args, quad=quad, **kw)

@@ -98,7 +98,8 @@ def run(
         Path(save_dir).mkdir(parents=True, exist_ok=True)
     results = []
     for path, im, im0 in LoadImages(source, img_size=imgsz):
-        pred = head_predictions(head, model(torch.from_numpy(im).to(device)))
+        pred = head_predictions(head, model(torch.from_numpy(im).to(device)),
+                                model.head_info["nc"])
         out, valid = non_max_suppression(
             pred, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
             has_obj=head == "Detect")

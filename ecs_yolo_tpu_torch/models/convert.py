@@ -11,13 +11,16 @@ pointwise ``[1,1,Cin,Cout]`` -> ``[Cout,Cin,1,1]``, Conv_7 ``[1,1,T,1]`` ->
 running_var.
 
 The blocks and heads ported since (``Conv``, ``Conv_B``, ``Conv_2/3/4``, the
-anchor-free heads with their towers, ``ASFF2``, ``GSConv``) carry the JAX
-module names as torch module names, so their leaves map path for path:
+anchor-free heads with their towers, ``ASFF2``, ``GSConv``, ``Segment`` and
+``Panoptic`` with ``Proto`` and ``UConv``) carry the JAX module names as
+torch module names, so their leaves map path for path:
 ``layers_11/det/cv2_0/1/act/spread_dw_kernel`` ->
 ``model.11.det.cv2_0.1.act.spread.0.weight``, ``a_cv3_1/2/conv/bias`` ->
 ``a_cv3_1.2.bias``, ``one2one_cv2_0/0/bn/bn/mean`` ->
-``one2one_cv2_0.0.bn.bn.running_mean``; grouped kernels HWIO -> OIHW as any
-conv.
+``one2one_cv2_0.0.bn.bn.running_mean``, ``seg/proto/cv1/conv/conv/kernel``
+-> ``seg.proto.cv1.conv.weight``, ``cv4_1_2/conv/bias`` -> ``cv4_1_2.bias``,
+``uconv/cv2/conv/kernel`` -> ``uconv.cv2.weight``; grouped kernels HWIO ->
+OIHW as any conv.
 
 Every leaf of the JAX tree is mapped or the conversion raises, and
 ``load_state_dict(strict=True)`` on the port's model checks the other

@@ -1,14 +1,21 @@
 """Model assembly: YAML -> ``nn.Module`` graph (counterpart of
 ``ecs_yolo_tpu/models/yolo.py``).
 
-Covers the rows of ``resnet10.yaml``, ``resnet34.yaml`` and the anchor-free
+Covers the rows of ``resnet10.yaml``, ``resnet34.yaml``, the anchor-free
 ``res10v8``, ``res10v10``, ``res10-dual``, ``res10-triple`` and
-``res10-dualplain``: ``Conv_1``, ``BasicBlock_1``, ``BasicBlock_2``,
-``Concat_res2``, ``Sample``, ``Concat`` (repeated rows as ``nn.Sequential``)
-and the nine detection heads of ``nn/heads.py`` (``Detect``, ``DDetect``,
-``DualDetect``, ``DualDDetect``, ``TripleDetect``, ``TripleDDetect``,
-``v10Detect``, ``ASFF_DDetect``, ``ASFF_v10Detect``).  Layers are
+``res10-dualplain``, and ``res10-seg`` / ``res10-panoptic``: ``Conv_1``,
+``BasicBlock_1``, ``BasicBlock_2``, ``Concat_res2``, ``Sample``, ``Concat``
+(repeated rows as ``nn.Sequential``), the nine detection heads of
+``nn/heads.py`` (``Detect``, ``DDetect``, ``DualDetect``, ``DualDDetect``,
+``TripleDetect``, ``TripleDDetect``, ``v10Detect``, ``ASFF_DDetect``,
+``ASFF_v10Detect``) and ``Segment`` / ``Panoptic`` of ``nn/segment.py``.
+Any other block raises ``KeyError`` (ROADMAP Queue 1 item 11).  Layers are
 ``model.{i}``, so parameter names are the reference's torch names.
+
+A static image ``[N, H, W, C]`` is replicated over the model's T; an event
+batch ``[N, T, H, W, C]`` (``data/events.EventDataset``) is event mode: its
+T steps run through every layer, the stem included, so the model is built
+with ``SNNConfig(time_window=T)`` of the data.
 
 ``build_model`` parses the YAML, probes the head strides with an eval
 forward on the ``meta`` device (shapes only, like ``jax.eval_shape``; JAX
@@ -34,6 +41,7 @@ from ..config import DEFAULT_SNN, SNNConfig
 from ..device import resolve_device
 from ..nn import blocks as B
 from ..nn import heads as H
+from ..nn import segment as SEG
 from ..nn.initializers import torch_conv_init_
 
 YAML_DIR = Path(__file__).parent / "yaml"
@@ -57,9 +65,13 @@ HEADS = {
     "v10Detect": H.v10Detect,
     "ASFF_DDetect": H.ASFF_DDetect,
     "ASFF_v10Detect": H.ASFF_v10Detect,
+    "Segment": SEG.Segment,
+    "Panoptic": SEG.Panoptic,
 }
 #: heads whose served output is the one2one branch (``V10Output``)
 V10_HEADS = ("v10Detect", "ASFF_v10Detect")
+#: heads whose decoded output carries mask coefficients behind the classes
+SEGMENT_HEADS = ("Segment", "Panoptic")
 
 # layers whose output on a T-replicated input is itself T-replicated (no
 # neuron recurrence, nothing across T): the T-invariant stem prefix
@@ -137,7 +149,8 @@ def parse_model(d: Dict[str, Any], ch: int):
         elif name in PASS_BLOCKS:
             c2 = chs[f if isinstance(f, int) else f[0]]
         else:
-            raise KeyError(f"block {name!r} at layer {i} is not ported yet")
+            raise KeyError(f"block {name!r} at layer {i} is not ported yet "
+                           "(ROADMAP Queue 1 item 11)")
         rows.append((_freeze(f), n, name, _freeze(args)))
         save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
         if i == 0:
@@ -265,8 +278,19 @@ class DetectionModel(nn.Module):
 
 def _head_args(head_info, strides, probe: bool = False):
     """The head's arguments: ``(nc, anchors in grid units, strides)`` for
-    ``Detect``, ``(nc, reg_max 16, strides)`` for the anchor-free heads."""
-    if head_info["name"] != "Detect":
+    ``Detect``; ``(nc, nm, npr, 16, strides)`` for ``Segment`` and ``(nc,
+    sem_nc, nm, npr, 16, strides)`` for ``Panoptic`` (the YAML's extra
+    arguments, else nm 32, npr 256, sem_nc 93, as JAX's
+    ``_with_head_args``); ``(nc, reg_max 16, strides)`` for the other
+    anchor-free heads."""
+    name, extra = head_info["name"], tuple(head_info.get("extra", ()))
+    if name == "Segment":
+        nm, npr = (extra + (32, 256)[len(extra):])[:2]
+        return (head_info["nc"], nm, npr, 16, tuple(strides))
+    if name == "Panoptic":
+        sem_nc, nm, npr = (extra + (93, 32, 256)[len(extra):])[:3]
+        return (head_info["nc"], sem_nc, nm, npr, 16, tuple(strides))
+    if name != "Detect":
         return (head_info["nc"], 16, tuple(strides))
     a_grid = [[v / s for v in level]
               for level, s in zip(head_info["anchors_px"], strides)]
@@ -285,10 +309,13 @@ def _with_head(spec, head_info, strides, probe=False):
 def head_feats(name: str, out) -> List[torch.Tensor]:
     """The per-level maps of a head's eval output whose shapes give the
     strides (JAX ``_head_feat_shapes``): the main branch of the dual heads,
-    the last of the triple ones, one2many of the v10 heads."""
+    the last of the triple ones, one2many of the v10 heads, the detection
+    maps of the segment heads."""
     if name in V10_HEADS:
         return out.one2many
     feats = out[1]
+    if name in SEGMENT_HEADS:
+        return feats[0]
     if name in ("DualDetect", "DualDDetect"):
         return feats[1]
     if name in ("TripleDetect", "TripleDDetect"):
@@ -296,10 +323,15 @@ def head_feats(name: str, out) -> List[torch.Tensor]:
     return feats
 
 
-def head_predictions(name: str, out) -> torch.Tensor:
+def head_predictions(name: str, out, nc: int) -> torch.Tensor:
     """What NMS takes from a head's eval output: the decoded one2one branch
-    of the v10 heads, else ``out[0]`` (JAX ``val.py``)."""
-    return out.one2one[0] if name in V10_HEADS else out[0]
+    of the v10 heads, else ``out[0]``, of which the segment heads' first
+    ``4 + nc`` rows (their mask coefficients dropped; JAX ``val.py``)."""
+    if name in V10_HEADS:
+        return out.one2one[0]
+    if name in SEGMENT_HEADS:
+        return out[0][:, :4 + nc]
+    return out[0]
 
 
 @torch.no_grad()
@@ -324,6 +356,7 @@ _DFL_PREFIXES = {
     "TripleDetect": [("a_cv2_", "a_cv3_"), ("b_cv2_", "b_cv3_"), ("c_cv2_", "c_cv3_")],
     "TripleDDetect": [("a_cv2_", "a_cv3_"), ("b_cv2_", "b_cv3_"), ("c_cv2_", "c_cv3_")],
     "v10Detect": [("cv2_", "cv3_"), ("one2one_cv2_", "one2one_cv3_")],
+    "Segment": [("cv2_", "cv3_")],
 }
 
 
@@ -333,7 +366,7 @@ def init_head_biases(model: "DetectionModel") -> None:
     obj bias += log(8/(640/s)^2), cls biases += log(0.6/(nc-0.999999)).
     DFL heads (reference models/yolo_snn.py:133-139): the box tower's last
     bias = 1.0, the class tower's ``[:nc]`` = log(5 / nc / (640/s)^2), for
-    every branch; the ASFF heads' inner head."""
+    every branch; the ASFF heads' inner head, ``Panoptic``'s ``Segment``."""
     head, name = model.model[-1], model.head_info["name"]
     if name == "Detect":
         for conv, s in zip(head.m, head.strides):
@@ -343,6 +376,8 @@ def init_head_biases(model: "DetectionModel") -> None:
         return
     if name.startswith("ASFF_"):
         head, name = head.det, name[len("ASFF_"):]
+    if name == "Panoptic":
+        head, name = head.seg, "Segment"
     for box_p, cls_p in _DFL_PREFIXES[name]:
         for i, s in enumerate(head.strides):
             getattr(head, f"{box_p}{i}")[-1].bias.fill_(1.0)

@@ -1,6 +1,6 @@
 """ctypes bindings for the native (C++) kernels of the host input pipeline
-(counterpart of ``ecs_yolo_tpu/native/__init__.py``): ``warp_perspective``
-and ``hsv_jitter``.
+(counterpart of ``ecs_yolo_tpu/native/__init__.py``): ``warp_perspective``,
+``hsv_jitter`` and ``paint_events``.
 
 ``native/augment.cpp`` is built at first use with the host compiler (``CXX``,
 else ``g++``) into the port's ignored ``_build/libaugment-<hash>.so``, with
@@ -91,7 +91,12 @@ def get_lib() -> ctypes.CDLL:
                 u8p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_double, ctypes.c_double, ctypes.c_double,
             ]
-            lib.warp_perspective_u8.restype = lib.hsv_jitter_u8.restype = None
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.paint_events_u8.argtypes = [
+                i32p, i32p, i32p, ctypes.c_int64, u8p, ctypes.c_int, ctypes.c_int,
+            ]
+            for fn in (lib.warp_perspective_u8, lib.hsv_jitter_u8, lib.paint_events_u8):
+                fn.restype = None
             _lib = lib
         return _lib
 
@@ -131,3 +136,25 @@ def hsv_jitter(img: np.ndarray, rh: float, rs: float, rv: float):
     img = _rgb(img)
     lib.hsv_jitter_u8(_u8(img), img.shape[0], img.shape[1], rh, rs, rv)
     return img
+
+
+def paint_events(xs, ys, ps, canvas: np.ndarray) -> np.ndarray:
+    """Events painted in place on the uint8 ``[H, W, 3]`` ``canvas``: 255
+    where the polarity ``ps`` is positive, else 0, at (``xs``, ``ys``)
+    clamped to the canvas; a later event overwrites an earlier one.  Returns
+    ``canvas`` (``data/events.paint_events`` is the numpy painter)."""
+    lib = get_lib()
+    if not (canvas.flags.c_contiguous and canvas.flags.writeable):
+        raise ValueError("canvas must be a writeable contiguous array")
+    canvas = _rgb(canvas)
+    xs = np.ascontiguousarray(xs, np.int32)
+    ys = np.ascontiguousarray(ys, np.int32)
+    ps = np.ascontiguousarray(ps, np.int32)
+    if not len(xs) == len(ys) == len(ps):
+        raise ValueError(f"xs, ys, ps differ in length: {len(xs)}, {len(ys)}, {len(ps)}")
+    i32 = ctypes.POINTER(ctypes.c_int32)
+    lib.paint_events_u8(
+        xs.ctypes.data_as(i32), ys.ctypes.data_as(i32), ps.ctypes.data_as(i32),
+        len(xs), _u8(canvas), canvas.shape[0], canvas.shape[1],
+    )
+    return canvas

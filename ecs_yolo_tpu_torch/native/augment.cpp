@@ -1,9 +1,10 @@
 // Native kernels of the host input pipeline: the inverse-mapped bilinear
-// warp and the HSV jitter of an RGB u8 image, behind a plain C interface for
-// ctypes.  Single-threaded: the loader runs one sample a thread.
+// warp and the HSV jitter of an RGB u8 image, and the Gen1 event painter,
+// behind a plain C interface for ctypes.  Single-threaded: the loader runs
+// one sample a thread.
 //
-// A copy of the JAX package's native/augment.cpp (the event painter left
-// out), built by native/__init__.py at first use into the port's _build/.
+// A copy of the JAX package's native/augment.cpp, built by native/__init__.py
+// at first use into the port's _build/.
 
 #include <cstdint>
 #include <cstring>
@@ -97,6 +98,20 @@ void hsv_jitter_u8(uint8_t* img, int h, int w,
             px[1] = (uint8_t)(gg * 255.0 + 0.5);
             px[2] = (uint8_t)(bb * 255.0 + 0.5);
         }
+    }
+}
+
+// Paint polarity events onto a grey-127 canvas (Gen1 voxelizer hot loop,
+// reference give_g1_data.py:550-566).
+void paint_events_u8(const int32_t* xs, const int32_t* ys,
+                     const int32_t* ps, int64_t n,
+                     uint8_t* canvas, int h, int w) {
+    for (int64_t i = 0; i < n; ++i) {
+        const int x = std::min(std::max(xs[i], 0), w - 1);
+        const int y = std::min(std::max(ys[i], 0), h - 1);
+        const uint8_t v = ps[i] > 0 ? 255 : 0;
+        uint8_t* px = canvas + ((size_t)y * w + x) * 3;
+        px[0] = v; px[1] = v; px[2] = v;
     }
 }
 

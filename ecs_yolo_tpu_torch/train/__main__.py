@@ -4,15 +4,24 @@
         --hyp hyp.yaml --epochs 300 --batch-size 8 --bf16 [--device cpu]
 
 ``--cfg`` takes any YAML the port builds: ``resnet10.yaml`` and
-``resnet34.yaml`` (the v1 ``Detect`` head) and the anchor-free
+``resnet34.yaml`` (the v1 ``Detect`` head), the anchor-free
 ``res10v8.yaml``, ``res10v10.yaml``, ``res10-dual.yaml``,
 ``res10-triple.yaml``, ``res10-dualplain.yaml`` (the TAL, v10, dual and
-triple losses).  The flags are ``train.py``'s; the data and hyp YAMLs are read the same way
+triple losses) and ``res10-seg.yaml`` / ``res10-panoptic.yaml`` (the
+segment and panoptic losses over YOLO-seg polygon labels; the panoptic
+head also reads ``stuff/<stem>.txt`` polygons beside ``labels/``).
+``--events`` trains from voxelized event samples (``data/gen1.yaml``: the
+split lists ``data/events.build_dataset`` writes), T taken from the data::
+
+    python -m ecs_yolo_tpu_torch.train --events --cfg resnet10.yaml \
+        --data data/gen1.yaml --imgsz 320 --batch-size 8 --bf16
+
+The flags are ``train.py``'s; the data and hyp YAMLs are read the same way
 (``path``/``train``/``val``/``nc``; ``close_mosaic`` popped from the hyp).
 ``--device`` names a torch device and defaults to the CUDA card.
 ``--single-cls`` also reaches the datasets (see ``train/driver.py``).  Flags
-of features not ported yet (``--events``, ``--evolve``, ``--model-parallel``)
-raise ``NotImplementedError`` naming their ROADMAP item.
+of features not ported yet (``--evolve``, ``--model-parallel``) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -76,7 +85,9 @@ def parse_opt(argv=None):
                    help="torch device; the CUDA card when omitted")
     p.add_argument("--evolve", type=int, nargs="?", const=300, default=0,
                    help="not ported yet")
-    p.add_argument("--events", action="store_true", help="not ported yet")
+    p.add_argument("--events", action="store_true",
+                   help="train from pre-voxelized event samples "
+                        "(reference g1-resnet/train_g1.py)")
     p.add_argument("--noautoanchor", action="store_true")
     return p.parse_args(argv)
 

@@ -1,6 +1,6 @@
 """The training loop (counterpart of ``ecs_yolo_tpu/train/driver.py``;
-reference train.py:73-760), for every detection head of
-``models/yolo.HEADS`` on one device.
+reference train.py:73-760), for every head of ``models/yolo.HEADS`` on one
+device, from images or (``events=True``) from event samples.
 
 Epochs of augmented batches (mosaic, perspective, HSV, flips, mixup) from a
 thread-pool loader, every batch a micro-step of ``train/trainer``'s step
@@ -22,7 +22,28 @@ the logged losses are the first three items of the step (the auxiliary
 branch's, for the dual and triple heads).  Under the default hyp
 (``HYP_SCRATCH``, box gain 0.05) a ``DDetect`` / ``ASFF_DDetect`` model
 trains with a TAL box gain of 0.05, as the JAX driver's does; the dual,
-triple and v10 losses fix theirs at 7.5.
+triple and v10 losses fix theirs at 7.5.  So do the ``Segment`` and
+``Panoptic`` losses: their TAL terms take (7.5, 0.5, 1.5) whatever the hyp
+says (JAX's ``compute_loss_segment`` calls the TAL loss without gains), the
+mask term ``hyp.get("mask", 2.5)``; the logged losses are then (box, mask,
+cls).
+
+Event mode (``events=True``; reference g1-resnet/train_g1.py): both sets
+are ``data/events.EventDataset`` directories or split lists of voxelized
+samples (``data/events.build_dataset``), batches ``[B, T, H, W, C]``
+float32; the model is built with the data's T (``SNNConfig(time_window=T)``
+from the first sample) and runs its stem at every step; multi-scale, image
+weights, ``close_mosaic`` and autoanchor are off; the val pass evaluates
+in canvas space (``val.run`` without ``meta``).
+
+Segment heads (a ``Segment`` / ``Panoptic`` YAML, e.g. ``res10-seg.yaml``,
+``res10-panoptic.yaml``): the train set is a ``data/dataset.SegmentDataset``
+of YOLO-seg polygon labels (instance masks at a quarter of the canvas, and
+for ``Panoptic`` the semantic id map with ``stuff/`` polygons), mosaic,
+mixup and flips off; the step takes the masks (``make_train_step(
+with_masks=True[, with_semantic=True])``); the val set is read without
+masks (detection metrics); multi-scale, image weights and ``close_mosaic``
+are off.
 
 Options, as the JAX driver has them:
 
@@ -30,23 +51,26 @@ Options, as the JAX driver has them:
   host (``augment=False``); each batch is augmented on the device
   (``data/device_augment.augment_batch``: mosaic, scale/translate or the
   affine, HSV, flips) before its step, from a ``torch.Generator`` on the
-  device seeded from ``(seed, epoch, batches dispatched)``.  With ``quad``
-  it falls back to the host's augmentation with a warning, as JAX does
-  (and with events or a segment head, neither ported yet); ``flipud``,
+  device seeded from ``(seed, epoch, batches dispatched)``.  With ``quad``,
+  events or a segment head it falls back to the host's augmentation with a
+  warning, as JAX does; ``flipud``,
   ``mixup`` or ``copy_paste`` above 0 raise ``ValueError`` (the JAX module
   drops them without a word).
 * ``steps_per_call=K``: K host batches are stacked and moved to the device
   in one pinned, non-blocking copy, then their K steps (and augmentations)
   are issued back to back; nothing in between reads the device.  An epoch's
   tail shorter than K goes step by step.  The state after an epoch is the
-  same as with ``K=1``.
+  same as with ``K=1``.  With events or a segment head it falls back to one
+  step a call with a warning, as JAX does.
 * ``remat`` / ``remat_neuron``: the model recomputes its layers / its
   neuron recurrences in the backward pass (``nn/blocks.checkpointed``);
   the BN running statistics still move once a step.
 * ``sr``: the network-slimming L1 term in the step, decaying over
   ``epochs * steps_per_epoch`` steps.
 * ``optimizer="Lion"``; ``quad``: the quad collate (``batch_size % 4 ==
-  0``; the step sees ``batch_size / 4`` images at twice the side).
+  0``; the step sees ``batch_size / 4`` images at twice the side).  With
+  events or a segment head it is off with a warning (JAX drops it without
+  one).
 
 Deviations from the JAX driver:
 
@@ -68,9 +92,8 @@ Deviations from the JAX driver:
   ``(seed, epoch, batches dispatched)`` by a ``torch.Generator``, where JAX
   folds ``epoch * steps_per_epoch + batches dispatched`` into its key.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP Queue 1
-item): ``events`` (10), segment heads (11), ``model_parallel > 1`` and
-multi-host (12).
+Not ported (raises ``NotImplementedError`` naming its ROADMAP Queue 1
+item): ``model_parallel > 1`` and multi-host (12).
 """
 
 from __future__ import annotations
@@ -86,11 +109,12 @@ import torch
 
 from .. import val as val_mod
 from ..config import SNNConfig
-from ..data.dataset import Dataset
+from ..data.dataset import Dataset, SegmentDataset
+from ..data.events import EventDataset
 from ..data.device_augment import augment_batch, check_hyp
 from ..data.hyps import HYP_SCRATCH
 from ..device import resolve_device
-from ..models.yolo import build_model, load_cfg, parse_model
+from ..models.yolo import SEGMENT_HEADS, build_model, load_cfg, parse_model
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, strip_optimizer
 from ..utils.general import LOGGER, Callbacks, EarlyStopping, increment_path
 from ..utils.loggers import Loggers
@@ -102,11 +126,7 @@ def _unported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 {item})")
 
 
-def _check_ported(head: str, events, model_parallel) -> None:
-    if events:
-        _unported("event mode (events=True)", "item 10")
-    if head in ("Segment", "Panoptic"):
-        _unported(f"the {head} head", "item 11")
+def _check_ported(model_parallel) -> None:
     if model_parallel > 1 or (torch.distributed.is_available()
                               and torch.distributed.is_initialized()):
         _unported("model_parallel > 1 and multi-host training", "item 12")
@@ -164,16 +184,17 @@ def _to_device(arrays, dev: torch.device):
 
 def dispatch(state, step_fn, batches, dev: torch.device, augment=None, first: int = 0):
     """Issue the steps of ``batches`` (host ``(images, targets, t_mask)``
-    tuples of one shape) back to back: stacked and moved to ``dev`` in one
-    copy, each augmented on the device first when ``augment(n, images,
-    targets, t_mask)`` is given (``n`` counts from ``first``).  Nothing here
-    reads a device value, so the host does not wait for the device between
-    the steps.  Returns ``(state, [metrics of each step])``."""
+    tuples of one shape, a segment batch's masks and id map behind them)
+    back to back: stacked and moved to ``dev`` in one copy, each augmented
+    on the device first when ``augment(n, images, targets, t_mask)`` is
+    given (``n`` counts from ``first``).  Nothing here reads a device
+    value, so the host does not wait for the device between the steps.
+    Returns ``(state, [metrics of each step])``."""
     stacked = [np.stack(a) if len(a) > 1 else a[0][None] for a in zip(*batches)]
-    images, targets, t_mask = _to_device(stacked, dev)
+    arrays = _to_device(stacked, dev)
     out = []
-    for j in range(images.shape[0]):
-        batch = (images[j], targets[j], t_mask[j])
+    for j in range(arrays[0].shape[0]):
+        batch = tuple(a[j] for a in arrays)
         if augment is not None:
             batch = augment(first + j, *batch)
         state, metrics = step_fn(state, *batch)
@@ -246,15 +267,25 @@ def train(
     if nc is not None:
         d["nc"] = nc
     head = d["head"][-1][2] if d.get("head") else ""
-    _check_ported(head, events, model_parallel)
+    _check_ported(model_parallel)
+    # masks ride in the step unless event batches (no masks) feed the head
+    seg_mode = head in SEGMENT_HEADS and not events
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    if quad and (events or seg_mode):
+        LOGGER.warning("the quad collate supports the plain detection pipeline "
+                       "only - off")
+        quad = False
     if quad and batch_size % 4:
         raise ValueError(f"quad needs batch % 4 == 0, got {batch_size}")
-    if device_augment and quad:
+    if device_augment and (quad or events or seg_mode):
         LOGGER.warning("device_augment supports the plain detection pipeline only "
                        "- falling back to host augmentation")
         device_augment = False
+    if steps_per_call > 1 and (events or seg_mode):
+        LOGGER.warning("steps_per_call supports the plain detection pipeline only "
+                       "- one step per call")
+        steps_per_call = 1
     if device_augment:
         check_hyp(hyp)
     tree = meta = None
@@ -267,17 +298,41 @@ def train(
     w = Path(save_dir) / "weights"
     w.mkdir(parents=True, exist_ok=True)
 
-    train_ds = Dataset(train_path, img_size=imgsz, augment=not device_augment, hyp=hyp,
-                       max_labels=max_labels, cache_images=cache, uint8_out=True,
-                       single_cls=single_cls, seed=seed)
-    val_ds = (Dataset(val_path, img_size=imgsz, augment=False,
-                      max_labels=max_labels, cache_images=cache, uint8_out=True,
-                      single_cls=single_cls) if val_path else None)
+    if events:
+        train_ds = EventDataset(train_path, img_size=imgsz, max_labels=max_labels)
+        val_ds = (EventDataset(val_path, img_size=imgsz, max_labels=max_labels)
+                  if val_path else None)
+        image_weights = multi_scale = False
+        close_mosaic = 0
+        # the time window is the event stream's (T=5 for Gen1, reference
+        # g1-resnet/train_g1.py:488): the model is sized to it
+        t_data = train_ds[0][0].shape[0]
+        snn = (snn or SNNConfig()).replace(time_window=t_data)
+        LOGGER.info(f"event mode: T={t_data} from data")
+    elif seg_mode:
+        train_ds = SegmentDataset(train_path, img_size=imgsz, augment=True, hyp=hyp,
+                                  max_labels=max_labels, cache_images=cache,
+                                  uint8_out=True, single_cls=single_cls, seed=seed,
+                                  semantic=head == "Panoptic")
+        val_ds = (SegmentDataset(val_path, img_size=imgsz, augment=False,
+                                 max_labels=max_labels, cache_images=cache,
+                                 uint8_out=True, single_cls=single_cls,
+                                 include_masks=False) if val_path else None)
+        image_weights = multi_scale = False
+        close_mosaic = 0
+        LOGGER.info("segmentation mode: polygon labels + instance masks")
+    else:
+        train_ds = Dataset(train_path, img_size=imgsz, augment=not device_augment,
+                           hyp=hyp, max_labels=max_labels, cache_images=cache,
+                           uint8_out=True, single_cls=single_cls, seed=seed)
+        val_ds = (Dataset(val_path, img_size=imgsz, augment=False,
+                          max_labels=max_labels, cache_images=cache, uint8_out=True,
+                          single_cls=single_cls) if val_path else None)
 
     anchors = None
     if resume:
         anchors = meta.get("anchors")
-    elif autoanchor and head == "Detect":
+    elif autoanchor and head == "Detect" and not events:
         anchors = _autoanchor(d, train_ds, imgsz, hyp.get("anchor_t", 4.0))
         if anchors is not None:
             LOGGER.info(f"autoanchor: new anchors {anchors}")
@@ -307,7 +362,8 @@ def train(
     step_fn = make_train_step(model, tx, hyp, ema_decay=ema_decay,
                               compute_dtype=torch.bfloat16 if bf16 else torch.float32,
                               sr=sr, sr_total_steps=epochs * steps_per_epoch,
-                              accumulate=accumulate, device=dev)
+                              accumulate=accumulate, with_masks=seg_mode,
+                              with_semantic=seg_mode and head == "Panoptic", device=dev)
     aug_gen = torch.Generator(device=dev) if device_augment else None
     # the val pass's model: a copy in eval mode that takes the EMA parameters
     # and the BN statistics each epoch; the training module is never cast
@@ -363,7 +419,8 @@ def train(
         items_sum = torch.zeros(3, dtype=torch.float32, device=dev)
         losses, nb, applies, wait, step_s = [], 0, 0, 0.0, 0.0
         count0 = int(state.opt_state.count)
-        aug_hyp = dict(hyp, mosaic=train_ds.hyp.get("mosaic", 1.0))
+        if aug_gen is not None:
+            aug_hyp = dict(hyp, mosaic=train_ds.hyp.get("mosaic", 1.0))
 
         def augment(n, im, tg, mk):
             aug_gen.manual_seed(_augment_seed(seed, epoch, n))

@@ -53,11 +53,17 @@ def compute_loss_tal(feats: Sequence[torch.Tensor], targets: torch.Tensor,
                      reg_max: int = 16,
                      gains: Tuple[float, float, float] = (7.5, 0.5, 1.5),
                      topk: int = 10, alpha: float = 0.5, beta: float = 6.0,
-                     cls_pw: float = 1.0):
+                     cls_pw: float = 1.0, return_assign: bool = False):
     """``(total * B, (box, cls, dfl))`` of per-level maps ``[B, no, h, w]``
     against ``targets`` ``[B, M, 5]`` (class, x, y, w, h normalised) with
     ``t_mask`` ``[B, M]`` (reference loss_tal.py:166-216).  The assigner sees
-    detached predictions."""
+    detached predictions.
+
+    With ``return_assign`` a third value, the assignment the segment heads'
+    mask loss reads (reference utils/segment/loss_tal.py:198): ``fg_mask``
+    and ``target_gt_idx`` ``[B, A]``, ``target_bboxes_px`` ``[B, A, 4]``
+    (xyxy in input pixels), ``target_scores_sum`` and ``img_hw`` (the input
+    size the strides give, Python floats)."""
     no = nc + reg_max * 4
     b = feats[0].shape[0]
     t_mask = t_mask.bool()
@@ -104,6 +110,11 @@ def compute_loss_tal(feats: Sequence[torch.Tensor], targets: torch.Tensor,
 
     box_g, cls_g, dfl_g = gains
     loss = torch.stack([loss_iou * box_g, loss_cls * cls_g, loss_dfl * dfl_g])
+    if return_assign:
+        return loss.sum() * b, loss.detach(), dict(
+            fg_mask=fg, target_gt_idx=assign.target_gt_idx,
+            target_bboxes_px=assign.target_bboxes,
+            target_scores_sum=target_scores_sum, img_hw=(img_h, img_w))
     return loss.sum() * b, loss.detach()
 
 

@@ -27,7 +27,8 @@ import torch
 from torch.func import functional_call
 
 from ..device import resolve_device
-from ..models.yolo import DetectionModel
+from ..models.yolo import SEGMENT_HEADS, DetectionModel
+from ..nn.segment import compute_loss_panoptic, compute_loss_segment
 from .ema import ema_update
 from .loss_tal import (compute_loss_dual, compute_loss_tal, compute_loss_triple,
                        compute_loss_v10)
@@ -79,7 +80,12 @@ def make_loss_fn(model: DetectionModel, hyp: Mapping[str, float]) -> Callable:
     items)``, dispatched on the head name as JAX's: the v1 loss, the TAL loss
     (``DDetect`` / ``ASFF_DDetect``, with the hyp's box/cls/dfl gains), the
     v10 loss, the dual and the triple losses (their gains fixed, as JAX
-    has them)."""
+    has them).  ``Segment`` / ``Panoptic``: ``loss(out, targets, t_mask,
+    gt_masks=None, sem_gt=None)``, the segment loss with instance masks,
+    the panoptic loss with a semantic id map too, and the plain TAL terms of
+    the detection maps on a batch without masks; the mask gain is
+    ``hyp.get("mask", 2.5)`` and the TAL gains are fixed at (7.5, 0.5, 1.5),
+    whatever the hyp's ``box`` says, as JAX calls them."""
     head = model.head_info["name"]
     nc = model.head_info["nc"]
     strides = model.head_info["strides"]
@@ -115,6 +121,19 @@ def make_loss_fn(model: DetectionModel, hyp: Mapping[str, float]) -> Callable:
         def loss(out, targets, t_mask):
             return compute_loss_triple(out, targets, t_mask, strides, nc)
 
+    elif head in SEGMENT_HEADS:
+        mask_gain = hyp.get("mask", 2.5)
+
+        def loss(out, targets, t_mask, gt_masks=None, sem_gt=None):
+            if gt_masks is None:
+                feats = out[0] if isinstance(out[0], (list, tuple)) else out
+                return compute_loss_tal(feats, targets, t_mask, strides, nc)
+            if sem_gt is not None:
+                return compute_loss_panoptic(out, targets, t_mask, gt_masks, sem_gt,
+                                             strides, nc, mask_gain=mask_gain)
+            return compute_loss_segment(out, targets, t_mask, gt_masks, strides, nc,
+                                        mask_gain=mask_gain)
+
     else:
         raise KeyError(f"{head}: its loss is not ported yet (ROADMAP Queue 1 item 11)")
     return loss
@@ -134,13 +153,15 @@ def _tree_map(fn, tree):
 
 def make_grad_fn(model: DetectionModel, hyp: Mapping[str, float],
                  compute_dtype: torch.dtype = torch.float32):
-    """``grad_fn(state, images, targets, t_mask) -> (total, items, grads)``:
-    the training-mode forward (BN running statistics move), the loss and its
-    gradients onto the master parameters, by torch name."""
+    """``grad_fn(state, images, targets, t_mask, *extra) -> (total, items,
+    grads)``: the training-mode forward (BN running statistics move), the
+    loss and its gradients onto the master parameters, by torch name.
+    ``extra`` (a segment head's instance masks, and a panoptic head's id
+    map) goes to the loss as it is."""
     loss_fn = make_loss_fn(model, hyp)
     f32 = torch.float32
 
-    def grad_fn(state: TrainState, images, targets, t_mask):
+    def grad_fn(state: TrainState, images, targets, t_mask, *extra):
         if images.dtype == torch.uint8:
             images = images.to(f32) / 255.0
         apply_params = state.params
@@ -154,7 +175,7 @@ def make_grad_fn(model: DetectionModel, hyp: Mapping[str, float],
             if compute_dtype != f32:
                 out = _tree_map(lambda o: o.to(f32) if o.dtype == compute_dtype else o,
                                 out)
-            total, items = loss_fn(out, targets, t_mask)
+            total, items = loss_fn(out, targets, t_mask, *extra)
             total = total.to(f32)
             names = list(state.params)
             grads = torch.autograd.grad(total, [state.params[k] for k in names],
@@ -185,6 +206,12 @@ def make_train_step(
     y, w, h normalised); t_mask ``[B,M]``.  The metrics are tensors on the
     device; nothing in the step waits for it.
 
+    ``with_masks`` (``Segment`` / ``Panoptic``) adds a fifth batch element,
+    the instance masks ``[B,M,h,w]`` (``data/dataset.SegmentDataset``), for
+    the segment loss; ``with_semantic`` (``Panoptic``, with ``with_masks``)
+    a sixth, the class-id map ``[B,h,w]`` (-1 background), for the semantic
+    terms.
+
     ``accumulate=k`` must be the optimizer's: every call is a micro-step
     (the BN running statistics move on each), the optimizer applies on every
     k-th (``boundary`` True, ``applied`` its 0-d flag; else None), and the
@@ -197,17 +224,23 @@ def make_train_step(
     sr_total_steps, 0, 1))`` from the device ``step``, and ``10 * sr *
     sign(p)`` on the BN biases.
     """
-    if with_masks or with_semantic:
-        raise NotImplementedError("instance masks and semantic maps are not "
-                                  "ported yet (ROADMAP Queue 1 item 11)")
+    head = model.head_info["name"]
+    if with_masks and head not in SEGMENT_HEADS:
+        raise ValueError(f"with_masks needs a Segment or Panoptic head, not {head}")
+    if with_semantic and (head != "Panoptic" or not with_masks):
+        raise ValueError("with_semantic needs a Panoptic head and with_masks")
+    n_extra = int(with_masks) + int(with_semantic)
     if accumulate != tx.accumulate:
         raise ValueError(f"accumulate={accumulate}, but the optimizer was built "
                          f"with accumulate={tx.accumulate}")
     _check_device(model, device)
     grad_fn = make_grad_fn(model, hyp, compute_dtype)
 
-    def step_fn(state: TrainState, images, targets, t_mask):
-        total, items, grads = grad_fn(state, images, targets, t_mask)
+    def step_fn(state: TrainState, images, targets, t_mask, *extra):
+        if len(extra) != n_extra:
+            raise TypeError(f"the step takes {3 + n_extra} batch elements, got "
+                            f"{3 + len(extra)}")
+        total, items, grads = grad_fn(state, images, targets, t_mask, *extra)
         if sr > 0:
             srtmp = sparsity_rate(sr, state.step.to(torch.float32)
                                   / max(sr_total_steps, 1))

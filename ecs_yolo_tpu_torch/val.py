@@ -26,7 +26,13 @@ exported-backend branch (``variables is None``).
 
 Every detection head is served as the JAX ``run`` serves it: NMS takes the
 decoded one2one branch of ``v10Detect`` and ``ASFF_v10Detect``, else the
-head's first output; scores carry an objectness only for ``Detect``.
+head's first output, of which only the ``4 + nc`` box and class rows for
+``Segment`` and ``Panoptic`` (their mask coefficients are no class scores);
+scores carry an objectness only for ``Detect``.
+
+A dataset without ``meta`` (``data/events.EventDataset``: fixed-size voxel
+grids, ``[B, T, H, W, C]`` batches) is evaluated in canvas space: native
+size = canvas, no letterbox, image ids 1, 2, ... in order.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ class MetricAccumulator:
     """The host half of a val pass: per image, labels and detections to
     native space, the TP matrix, the COCO records; at the end the summary."""
 
-    def __init__(self, ds: Dataset, save_json: Optional[str] = None,
+    def __init__(self, ds, save_json: Optional[str] = None,
                  coco91: bool = False):
         self.ds = ds
         self.iouv = np.linspace(0.5, 0.95, 10)
@@ -84,13 +90,14 @@ class MetricAccumulator:
         self.cmap = coco80_to_coco91_class() if coco91 else None
 
     def add(self, index: int, labels: np.ndarray, mask: np.ndarray,
-            dets: np.ndarray) -> None:
+            dets: np.ndarray, meta: Optional[Dict] = None) -> None:
         """One real image: ``labels`` ``[M, 5]`` canvas-normalised with
-        ``mask``, ``dets`` ``[n, 6]`` canvas-pixel xyxy/conf/cls."""
+        ``mask``, ``dets`` ``[n, 6]`` canvas-pixel xyxy/conf/cls; ``meta``
+        the dataset's ``meta(index)`` unless given."""
         if not mask.any() and not len(dets):
             return
         self.seen += 1
-        meta = self.ds.meta(index)
+        meta = meta or self.ds.meta(index)
         gt = labels[mask]
         h, w = meta["canvas_hw"]
         gt_xyxy = to_native(xywh2xyxy_np(gt[:, 1:5]) * [w, h, w, h], meta)
@@ -184,9 +191,17 @@ def run(
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
+    has_meta = hasattr(ds, "meta")
+    if has_meta:
+        batches = ds.batches(batch_size, drop_last=False, yield_idx=True, workers=workers)
+    else:
+        # an event dataset: fixed-size voxel grids with no letterbox meta,
+        # evaluated in canvas space with ids from 1 in order (as JAX's run)
+        batches = ((ims, lbs, ms, n, list(range(k * batch_size, k * batch_size + n)))
+                   for k, (ims, lbs, ms, n) in enumerate(
+                       ds.batches(batch_size, drop_last=False, yield_count=True)))
     with torch.inference_mode():
-        for ims, labels, masks, n_real, idxs in ds.batches(
-                batch_size, drop_last=False, yield_idx=True, workers=workers):
+        for ims, labels, masks, n_real, idxs in batches:
             t0 = clock()
             x = torch.from_numpy(ims)
             if on_card:
@@ -194,7 +209,7 @@ def run(
             if x.dtype == torch.uint8:
                 x = x.float() / 255.0
             t1 = clock()
-            pred = head_predictions(head, model(x))
+            pred = head_predictions(head, model(x), model.head_info["nc"])
             t2 = clock()
             out, valid = non_max_suppression(
                 pred, conf_thres=conf_thres, iou_thres=iou_thres,
@@ -206,8 +221,12 @@ def run(
             dt[2] += t3 - t2
             # only the first n_real rows are real images; the zero-padded
             # tail must not add detections (false positives) to the metrics
+            hw = ims.shape[-3:-1]
             for si in range(n_real):
-                acc.add(idxs[si], labels[si], masks[si], out[si][valid[si]])
+                meta = None if has_meta else dict(
+                    id=idxs[si] + 1, native_hw=hw, canvas_hw=hw,
+                    ratio_pad=((1.0, 1.0), (0.0, 0.0)))
+                acc.add(idxs[si], labels[si], masks[si], out[si][valid[si]], meta)
 
     coco_res = None
     if save_json is not None:

@@ -88,13 +88,25 @@ def _narrow_res10():
 
 @pytest.fixture(scope="module")
 def models():
+    """JAX's model as its ``build_model`` builds it, with the strides the
+    port's probe finds (test_torch_port_model holds them to JAX's own
+    probe), which spares this fixture JAX's probe trace."""
     d = _narrow_res10()
-    jm = jax_yolo.build_model(d, nc=2, snn=JaxSNNConfig(time_window=2))
+    pm = port_yolo.build_model(d, nc=2, snn=SNNConfig(time_window=2),
+                               device="cpu")
+    snn = JaxSNNConfig(time_window=2)
+    spec, save, chs, head = jax_yolo.parse_model(dict(d, nc=2), 3)
+    strides = pm.head_info["strides"]
+    head["strides"] = strides
+    final = jax_yolo._with_head_args(spec, head["index"], head["name"], head, strides)
+    module = jax_yolo.DetectionModel(
+        spec=final, save=save, snn=snn,
+        packing=jax_yolo._plan_packing(spec, chs, snn.packed_c64),
+        tinv_prefix=jax_yolo._t_invariant_prefix(spec, save))
+    jm = jax_yolo.BuiltModel(module, dict(d, nc=2), final, save, head, strides, snn)
     x = jnp.zeros((1, 64, 64, 3), jnp.float32)
     v = _random_variables(
         lambda: jm.module.init(jax.random.PRNGKey(0), x, training=False), 3)
-    pm = port_yolo.build_model(d, nc=2, snn=SNNConfig(time_window=2),
-                               device="cpu")
     pm.load_state_dict(CV.convert(v["params"], v["batch_stats"], pm.spec),
                        strict=True)
     return jm, v, pm

@@ -411,12 +411,13 @@ def test_training_needs_a_card_unless_cpu_is_asked(port_model, monkeypatch):
         PT.create_train_state(pm, tx)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PT.make_train_step(pm, tx, HYP)
+    # masks and id maps ride only with a segment head (test_torch_port_segment)
     for kw in ({"with_masks": True}, {"with_semantic": True}):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="with_"):
             PT.make_train_step(pm, tx, HYP, device="cpu", **kw)
-    pm.head_info["name"] = "Segment"          # its loss is item 11's
+    pm.head_info["name"] = "RTDETRDecoder"    # a head whose loss is not ported
     try:
-        with pytest.raises(KeyError, match="Segment"):
+        with pytest.raises(KeyError, match="RTDETRDecoder"):
             PT.make_loss_fn(pm, HYP)
     finally:
         pm.head_info["name"] = "Detect"

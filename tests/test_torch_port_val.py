@@ -326,20 +326,21 @@ def test_dataset_label_cache_round_trip(tmp_path):
 
 @pytest.mark.parametrize("what", ["quad", "host_shard", "SegmentDataset"])
 def test_train_half_of_the_dataset_is_refused(what, tmp_path):
-    """What the port's dataset does not take: ``host_shard`` and
-    ``SegmentDataset`` (not ported), and a quad collate of a batch not
-    divisible by 4 (refused as JAX refuses it; the collate itself is held to
-    JAX's in test_torch_port_augment.py)."""
+    """What the port's dataset does not take: ``host_shard`` (not ported), a
+    quad collate of a batch not divisible by 4 (refused as JAX refuses it;
+    the collate itself is held to JAX's in test_torch_port_augment.py), and
+    the quad collate of ``SegmentDataset``'s mask batches (the dataset
+    itself is held to JAX's in test_torch_port_segment.py)."""
     src = write_split(tmp_path / "s", sizes=SIZES[:2])
     if what == "quad":
         with pytest.raises(ValueError, match="quad"):
             next(PD.Dataset(src, img_size=64).batches(3, quad=True))
-        return
-    with pytest.raises(NotImplementedError, match="item 7"):
-        if what == "host_shard":
+    elif what == "host_shard":
+        with pytest.raises(NotImplementedError, match="item 7"):
             next(PD.Dataset(src, img_size=64).batches(4, host_shard=(0, 2)))
-        else:
-            PD.SegmentDataset(src)
+    else:
+        with pytest.raises(ValueError, match="quad"):
+            next(PD.SegmentDataset(src, img_size=64).batches(4, quad=True))
 
 
 def test_dataset_to_coco_gt_matches_jax(tmp_path):
