@@ -85,6 +85,21 @@ the port's paths at full width with random weights from a seed:
   ``train.driver.train`` epoch of res10-seg whose val pass must give
   ``plain_kernels()``'s NMS output; K1 and K4 at the shapes the heads add
   (80x80x32, 20x20x768) in ``kernel_check`` records;
+* the block library (phase ``zoo``, after ``segment``): the 14 YAMLs of
+  ``ZOO_SITES`` (the EE / SEW residuals, the v9 ``CBLinear`` / ``CBFuse``
+  wiring, ``EMA``, the ``AIFI`` encoder with ``RepC3``, and ``resnet18``,
+  ``resnet34-cat``, ``botnet10``, ``resnet-test``, ``resnet10heads``) at
+  640 px, nc 13, T=4, bf16: each built on the card, one b2 eval forward
+  (b8 for ``ZOO_TIMED``, then timed and profiled) with every neuron site
+  held to its plain version (K1 / K2 spike share, SiLU sites in ulps, the
+  ``AIFI`` token sites on K6 equal) and its K1 / K2 / K6 launches equal to
+  the table, one b2 bf16 train step (K4 / K5 launches, peak memory); K2 at
+  ``res10-ee``'s stem site (the raw image, broadcast over T, C = 3) and K6
+  at ``resnetaifi``'s token sites timed beside their bounds;
+  ``resnet10-v9``'s float32 step teacher-forced with the planted K4 fault
+  and one ``train.driver.train`` epoch whose val pass must give
+  ``plain_kernels()``'s NMS output; ``resnet_rtdetr``'s bf16 step under
+  sync-debug "error"; ``detect.run`` of ``resnetaifi``;
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
@@ -1994,6 +2009,24 @@ HEAD_OTHERS = ("res10v10.yaml", "res10-dual.yaml", "res10-triple.yaml",
 HEAD_SITES = {"res10v8.yaml": (44, 21, 111), "res10v10.yaml": (60, 27, 153),
               "res10-dual.yaml": (44, 27, 105), "res10-triple.yaml": (52, 33, 123),
               "res10-dualplain.yaml": (40, 15, 57)}
+#: the YAMLs of the ``zoo`` phase at 640 px, T=4, nc 13: (neuron sites, K1,
+#: K2 and K6 launches of one eval forward, K5 and K4 launches of one
+#: training forward); tests/test_torch_port_blocks_ext.py holds this table
+#: against the models' hooks on the CPU
+ZOO_SITES = {"resnet18.yaml": (35, 35, 0, 0, 27, 72),
+             "resnet34-cat.yaml": (44, 44, 0, 0, 27, 99),
+             "res10-ee.yaml": (22, 21, 1, 0, 21, 45),
+             "res18-ee.yaml": (30, 29, 1, 0, 30, 60),
+             "res18-eebk.yaml": (30, 29, 1, 0, 30, 60),
+             "res18-sew.yaml": (25, 25, 0, 0, 0, 0),
+             "resnet10-v9.yaml": (66, 66, 0, 0, 51, 147),
+             "tal.yaml": (118, 118, 0, 0, 72, 282),
+             "resnet10ema.yaml": (24, 24, 0, 0, 15, 57),
+             "resnetaifi.yaml": (30, 24, 0, 6, 15, 57),
+             "resnet_rtdetr.yaml": (55, 49, 0, 6, 24, 123),
+             "botnet10.yaml": (24, 24, 0, 0, 15, 57),
+             "resnet-test.yaml": (34, 34, 0, 0, 15, 87),
+             "resnet10heads.yaml": (30, 30, 0, 0, 18, 72)}
 HEAD_OTHER_BATCH = 2       # the four other YAMLs: one detect batch, one step at b2
 HEAD_STEPS = 3             # timed bf16 steps of res10v8
 HEAD_VAL_IMAGES = 16
@@ -2563,6 +2596,7 @@ def phase_events(seed: int, root: Path, log) -> dict:
     from ecs_yolo_tpu_torch.scripts import bench_spread as BS
     from ecs_yolo_tpu_torch.snn import ecs_lif as K
     from ecs_yolo_tpu_torch.snn import fused as FZ
+    from ecs_yolo_tpu_torch.snn import spread as S
     from ecs_yolo_tpu_torch.snn.route import plain_kernels
     from ecs_yolo_tpu_torch.train import driver
     from ecs_yolo_tpu_torch.train.trainer import make_train_step
@@ -2887,6 +2921,326 @@ def phase_segment(seed: int, root: Path, log) -> dict:
     return out
 
 
+#: the ``zoo`` phase: b2 forwards and steps, b8 for the timed YAMLs; the
+#: float32 step (with the planted fault) and the ``train()`` epoch of
+#: ``ZOO_STEP_CFG``, sync-debug "error" on ``ZOO_SYNC_CFG``'s step,
+#: ``detect.run`` of ``ZOO_DETECT_CFG``; the epoch's image counts
+ZOO_BATCH = 2
+ZOO_TIMED = ("resnet10-v9.yaml", "resnetaifi.yaml", "res10-ee.yaml")
+ZOO_STEP_CFG, ZOO_SYNC_CFG, ZOO_DETECT_CFG = ("resnet10-v9.yaml", "resnet_rtdetr.yaml",
+                                              "resnetaifi.yaml")
+ZOO_TRAIN_IMAGES, ZOO_VAL_IMAGES = 16, 8
+
+
+def cold_graph_ms(fn, x: torch.Tensor, replays: int = 3) -> float:
+    """Device time of one call ``fn(x)``, its input read from memory and not
+    from L2: ``fn`` over copies of ``x`` (together thrice the L2 cache, at
+    least two) captured in one CUDA graph, each output kept until the graph
+    ends, and the graph replayed ``replays`` times after a warm-up
+    replay."""
+    l2 = getattr(torch.cuda.get_device_properties(x.device), "L2_cache_size", 50 << 20)
+    copies = [x.clone() for _ in range(max(2, math.ceil(3 * l2 / (x.numel() * x.element_size()))))]
+    fn(copies[0])
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [fn(c) for c in copies]
+    g.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(replays):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del g, outs
+    return t0.elapsed_time(t1) / (len(copies) * replays)
+
+
+def zoo_site_check(FZ, BS, m, xin, plain_kernels, kind: str, log) -> dict:
+    """One site of a timed zoo forward (b8) timed alone on its real input
+    beside its plain version and the function's bound: K2 at ``res10-ee``'s
+    stem (``rows_bound``, x a broadcast; events over 5 calls, as
+    ``phase_k2``), K6 at an ``AIFI`` token site (x read once, spikes written
+    once, five operations an element and step; ``ms`` the device time of
+    calls replayed in a CUDA graph over copies of x that each call reads
+    from memory, ``cold_graph_ms``; ``l2_warm_ms`` the same calls on one x,
+    which stays in L2 between them; ``wrapper_ms`` the calls eager)."""
+    shape = tuple(xin.shape)
+    bcast = xin.stride(0) == 0
+    item = itemsize(xin.dtype)
+    if kind == "ecs_lif_fused_rows":
+        args = (xin, *m.spread_params(), m.snn, m.act)
+        call, plain = (lambda: FZ.ecs_lif_fused_rows(*args),
+                       lambda: FZ.ecs_lif_rows_reference(*args))
+        bounds = rows_bound(shape, bcast, xin.dtype)
+    else:
+        call, plain = (lambda: FZ.lif_fused(xin, m.snn)), (lambda: FZ.lif_reference(xin, m.snn))
+        n = math.prod(shape[1:])
+        bms, by = bound(((1 if bcast else shape[0]) + shape[0]) * n * item,
+                        5 * math.prod(shape), torch.float32)
+        bounds = {"bound_ms": bms, "bound_by": by}
+    with torch.no_grad():
+        got = call()
+        with plain_kernels():
+            want = plain()
+        ms = cuda_ms(call, 5)
+        plain_ms = cuda_ms(plain, 2)
+        extra = {}
+        if kind == "lif_fused":
+            extra = {"wrapper_ms": ms, "l2_warm_ms": BS.graph_ms(call)}
+            ms = cold_graph_ms(lambda x: FZ.lif_fused(x, m.snn), xin)
+    rec = {"phase": "zoo_kernel_check", "kernel": kind, "dtype": dname(xin.dtype),
+           "shape": list(shape), "x_broadcast_over_t": bcast,
+           "mismatch_share": float((got != want).float().mean()),
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "firing_rate": float(want.float().mean()), "ms": ms, "plain_ms": plain_ms,
+           **extra, **bounds, "ms_over_bound": ms / bounds["bound_ms"], "library_ms": None}
+    emit(rec, log)
+    bar = SPIKE_BOUND[xin.dtype] if kind == "ecs_lif_fused_rows" else 0.0
+    if rec["mismatch_share"] > bar:
+        raise AssertionError(f"{kind} disagrees at a zoo site: {rec}")
+    return rec
+
+
+def zoo_narrow_spread(S, BS, log) -> dict:
+    """K4 at the training spread of the 3-channel site on the raw image
+    (``res10-ee``'s stem, C % 8 != 0: the wrapper zero-pads the channels to
+    8): one step's b``ZOO_BATCH`` bf16 plane at 640 px against the plain
+    version (``check_spread``), timed beside it and the function's bound
+    (the C = 3 plane read, its output and int8 plane written; 18 operations
+    an element), and the gradients in float32 (``phase_spread_grads``).
+    ``ms``: the wrapper's calls (pads and launch) replayed in a CUDA graph;
+    ``padded_launch_ms`` the launch alone on planes padded beforehand;
+    ``wrapper_ms`` the calls eager."""
+    import torch.nn.functional as F
+
+    shape = (ZOO_BATCH, IMGSZ, IMGSZ, 3)
+    s, dw, dwb = spread_inputs(shape, torch.bfloat16, seed=9)[:3]
+    padded = [F.pad(t, (0, 5)) for t in (s, dw, dwb)]
+    call, plain = (lambda: S.binary_dw3_conv(s, dw, dwb),
+                   lambda: S.binary_dw3_conv_reference(s, dw, dwb))
+    with torch.no_grad():
+        got, want = call(), plain()
+        ms, wrapper_ms, plain_ms = BS.graph_ms(call), cuda_ms(call, 5), cuda_ms(plain, 5)
+        launch_ms = BS.graph_ms(lambda: S._dw3_kernel(*padded))
+    n = math.prod(shape)
+    bms, by = bound(n * (2 + 2 + 1), 18 * n, torch.bfloat16)
+    rec = {"phase": "zoo_kernel_check", "kernel": "binary_dw3_conv", "shape": list(shape),
+           "dtype": "bfloat16", "channels_padded_to": 8,
+           **check_spread("binary_dw3_conv", got, want, torch.bfloat16),
+           "ms": ms, "padded_launch_ms": launch_ms, "wrapper_ms": wrapper_ms,
+           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "ms_over_bound": ms / bms}
+    emit(rec, log)
+    phase_spread_grads(S, log, [shape])
+    return rec
+
+
+def zoo_launches(zoo: dict, kernel: str) -> dict:
+    """Per zoo YAML, ``kernel``'s launches in one eval forward."""
+    return {c: m["launches_per_forward"][kernel] for c, m in zoo["models"].items()}
+
+
+def zoo_sites_sum(recs) -> dict:
+    """The shape, and the device (and eager ``wrapper_ms``, where timed),
+    plain and bound ms summed, of ``zoo_site_check`` records."""
+    out = {"shape": recs[0]["shape"], "sites": len(recs),
+           "x_broadcast_over_t": recs[0]["x_broadcast_over_t"],
+           "mismatch_share": max(r["mismatch_share"] for r in recs),
+           "bound_by": recs[0]["bound_by"]}
+    for key in ("ms", "l2_warm_ms", "wrapper_ms", "plain_ms", "bound_ms"):
+        if key in recs[0]:
+            out[key] = sum(r[key] for r in recs)
+    return out
+
+
+def phase_zoo(seed: int, root: Path, log) -> dict:
+    """The block library's YAMLs on the card (``ZOO_SITES``), 640 px, nc 13,
+    T=4, bf16 parameters with float32 BN statistics, random weights from
+    ``seed``, BN calibrated on the batch.
+
+    Each YAML: one eval forward (b``ZOO_BATCH``; b8 for ``ZOO_TIMED``) with
+    every neuron site held to the plain version of its kernel on its real
+    input (K1 and K2 spike shares within ``SPIKE_BOUND``, SiLU sites within
+    ``LIF_SILU_ULPS_BF16``, the ``AIFI`` token sites on K6 equal) and its
+    K1 / K2 / K6 launches equal to ``ZOO_SITES``; one b``ZOO_BATCH`` bf16
+    train step, its K4 / K5 launches equal to the table and its peak
+    memory.  ``ZOO_TIMED``: the b8 forward timed and profiled;
+    ``res10-ee``'s K2 stem site and ``resnetaifi``'s K6 token sites timed
+    beside their plain versions and bounds (``zoo_site_check``).
+    ``ZOO_DETECT_CFG``:
+    ``detect.run`` over 4 synthetic images.  ``ZOO_STEP_CFG``: the float32
+    step teacher-forced against its ``plain_kernels()`` rerun with the
+    planted K4 fault (``f32_step_check``), and one ``train.driver.train``
+    epoch whose EMA val pass must give ``plain_kernels()``'s NMS output.
+    ``ZOO_SYNC_CFG``: its bf16 step through ``timed_steps`` (one step under
+    ``torch.cuda.set_sync_debug_mode("error")``)."""
+    from ecs_yolo_tpu_torch import detect as detect_mod
+    from ecs_yolo_tpu_torch import val as val_mod
+    from ecs_yolo_tpu_torch.data.hyps import HYP_SCRATCH
+    from ecs_yolo_tpu_torch.data.loaders import LoadImages
+    from ecs_yolo_tpu_torch.models.yolo import cast_params, head_predictions
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
+    from ecs_yolo_tpu_torch.nn.blocks_ext import TokenLIF
+    from ecs_yolo_tpu_torch.scripts import bench_spread as BS
+    from ecs_yolo_tpu_torch.snn import fused as FZ
+    from ecs_yolo_tpu_torch.snn import spread as S
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.train import driver
+    from ecs_yolo_tpu_torch.train.optim import build_optimizer
+    from ecs_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    hyp = dict(HYP_SCRATCH)
+    reset, read = launch_counters()
+    (root / "detect").mkdir(parents=True)
+    write_images(root / "detect")
+    ims = [im for _, im, _ in LoadImages(str(root / "detect"), IMGSZ)]
+    xb = torch.from_numpy(np.concatenate(ims * 2)).cuda().float() / 255.0
+    batch = train_batch(seed=5)
+    out = {"models": {}, "stem": None, "tokens": []}
+    out["k4_narrow"] = zoo_narrow_spread(S, BS, log)
+    for j, (cfg, (n_sites, k1, k2, k6, gemm, dw3)) in enumerate(ZOO_SITES.items()):
+        t0 = time.perf_counter()
+        b = N if cfg in ZOO_TIMED else ZOO_BATCH
+        model = head_model(cfg, seed + 60 + j, xb[:ZOO_BATCH], _BN)
+        sites = [m for m in model.modules() if isinstance(m, (MemUpdate, TokenLIF))]
+        mem_sites = [m for m in sites if isinstance(m, MemUpdate)]
+        state32 = ({k: v.detach().clone() for k, v in model.state_dict().items()}
+                   if cfg == ZOO_STEP_CFG else None)
+        cast_params(model, torch.bfloat16)
+        reset()
+        with torch.no_grad():
+            pred_out, seen = captured_sites(sites, lambda: model(xb[:b]))
+        fwd = read()
+        mem = [r for r in seen if isinstance(r[0], MemUpdate)]
+        tok = [r for r in seen if isinstance(r[0], TokenLIF)]
+        shares, silu = site_errors(mem, plain_kernels)
+        with plain_kernels(), torch.no_grad():
+            tok_shares = [float((o != m(xin)).float().mean()) for m, xin, o in tok]
+        pred = head_predictions(model.head_info["name"], pred_out, NC)
+        rec = {"phase": "zoo_forward", "cfg": cfg, "head": model.head_info["name"],
+               "batch": b, "dtype": "bfloat16", "sites": len(seen), "silu_sites": len(silu),
+               "token_sites": len(tok), "launches_per_forward": fwd,
+               "worst_site_mismatch_share": max(shares, default=0.0),
+               "worst_site_silu_err": max(silu, default=0.0), "silu_err_unit": "bf16 ulps",
+               "worst_token_site_mismatch_share": max(tok_shares, default=0.0),
+               "shapes": [[list(k), v] for k, v in sorted(Counter(
+                   tuple(xin.shape[2:]) for _, xin, _ in seen).items(), reverse=True)],
+               "prediction_shape": list(pred.shape),
+               "prediction_finite": bool(torch.isfinite(pred).all())}
+        want = {"ecs_lif_fused": k1, "ecs_lif_fused_rows": k2, "lif_fused": k6,
+                "binary_dw3_conv": 0, "packed_spread": 0}
+        ok = (len(seen) == n_sites and sites_ok(shares, silu, torch.bfloat16)
+              and max(tok_shares, default=0.0) == 0.0 and fwd == want
+              and rec["prediction_finite"])
+        mrec = {"launches_per_forward": fwd, "batch": b}
+        if cfg in ZOO_TIMED:
+            with torch.no_grad():
+                ms = cuda_ms(lambda: model(xb), reps=5)
+                prof = profile_step(lambda: model(xb))
+            rec.update({"ms_per_forward": ms, "images_per_s": N / ms * 1e3, **prof})
+            mrec.update(forward_ms=ms, images_per_s=N / ms * 1e3,
+                        idle_share=prof.get("idle_share"))
+            for m, xin, _ in seen:
+                if isinstance(m, MemUpdate) and xin.shape[-1] % 8:
+                    out["stem"] = zoo_site_check(FZ, BS, m, xin, plain_kernels,
+                                                 "ecs_lif_fused_rows", log)
+                    rec["k2_stem_ms"] = out["stem"]["ms"]
+                    rec["k2_stem_bound_ms"] = out["stem"]["bound_ms"]
+                elif isinstance(m, TokenLIF):
+                    out["tokens"].append(zoo_site_check(FZ, BS, m, xin, plain_kernels,
+                                                        "lif_fused", log))
+        del seen, mem, tok
+        emit(rec, log)
+        if not ok:
+            raise AssertionError(f"{cfg}: a site disagrees or a launch count is off: {rec}")
+
+        if cfg == ZOO_DETECT_CFG:
+            reset()
+            results = detect_mod.run(model, root / "detect", imgsz=IMGSZ)
+            det = read()
+            rec = {"phase": "zoo_detect", "cfg": cfg, "images": len(results),
+                   "detections": [int(len(d)) for _, d in results], "launches": det,
+                   "finite": all(bool(np.isfinite(d).all()) for _, d in results)}
+            emit(rec, log)
+            mrec["detect_launches"] = det
+            if (not rec["finite"] or len(results) != 4
+                    or det != {k: v * 4 for k, v in want.items()}):
+                raise AssertionError(f"{cfg} detect.run failed its checks: {rec}")
+
+        # --- training: master parameters back in float32 --------------------------
+        for p in model.parameters():
+            p.data = p.data.float()
+        small = tuple(t[:ZOO_BATCH] for t in batch)
+        if cfg == ZOO_STEP_CFG:
+            model.load_state_dict(state32)
+            rec, tx, state = f32_step_check(model, small, mem_sites, plain_kernels, hyp,
+                                            plant=True)
+            emit({"phase": "zoo_train_step_fp32", "cfg": cfg, "batch": ZOO_BATCH, **rec}, log)
+            if not rec["ok"]:
+                raise AssertionError(f"{cfg} float32 step: kernel route disagrees: {rec}")
+            del state32
+        else:
+            tx = build_optimizer(dict(model.named_parameters()), lr0=hyp["lr0"],
+                                 momentum=hyp["momentum"], weight_decay=hyp["weight_decay"])
+            state = create_train_state(model, tx)
+        step = make_train_step(model, tx, hyp, compute_dtype=torch.bfloat16)
+        if cfg == ZOO_SYNC_CFG:
+            state, srec = timed_steps(step, state, small, 1, read, reset)
+            per, peak, losses = srec["launches_per_step"], srec["peak_memory_gb"], srec["losses"]
+        else:       # the first step: its launches, and its peak with cuDNN's workspaces
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            state, metrics = step(state, *small)
+            torch.cuda.synchronize()
+            per, peak = read(), torch.cuda.max_memory_allocated() / 1e9
+            losses, srec = [float(metrics["loss"])], {}
+        rec = {"phase": "zoo_train_step", "cfg": cfg, "batch": ZOO_BATCH, "dtype": "bfloat16",
+               "launches_per_step": per, "peak_memory_gb": peak, "losses": losses,
+               **{k: v for k, v in srec.items() if k not in ("launches_per_step",
+                                                           "peak_memory_gb", "losses")}}
+        emit(rec, log)
+        mrec["step"] = rec
+        if (not all(math.isfinite(v) for v in losses) or per["binary_dw3_conv"] != dw3
+                or per["packed_spread"] != gemm or per["ecs_lif_fused"]
+                or per["ecs_lif_fused_rows"] or per["lif_fused"]):
+            raise AssertionError(f"{cfg} bf16 step failed its checks: {rec}")
+        mrec["seconds"] = time.perf_counter() - t0
+        out["models"][cfg] = mrec
+        emit({"phase": "zoo_model_seconds", "cfg": cfg, "seconds": mrec["seconds"]}, log)
+        del model, state, step, tx, sites, mem_sites, pred_out, pred
+        torch.cuda.empty_cache()
+    del xb, batch
+
+    # --- resnet10-v9: an epoch of train.driver.train, val on the EMA copy ------------
+    train_src = write_val_set(root / "train", seed + 500, ZOO_TRAIN_IMAGES)
+    val_src = write_val_set(root / "val", seed + 501, ZOO_VAL_IMAGES)
+    h, launches, res, cmp, forwards = epoch_with_val(
+        driver, val_mod, plain_kernels, reset, read, cfg=ZOO_STEP_CFG, train_path=train_src,
+        val_path=val_src, nc=NC, batch_size=N, imgsz=IMGSZ, nbs=N, bf16=True, seed=seed,
+        workers=4, save_dir=str(root / "run"))
+    _, _, _, _, gemm, dw3 = ZOO_SITES[ZOO_STEP_CFG]
+    rec = {"phase": "zoo_train_run", "cfg": ZOO_STEP_CFG, "images": ZOO_TRAIN_IMAGES,
+           "batch": N, "loop_s": h["train_s"], "val_s": h["val_s"],
+           "images_per_s": ZOO_TRAIN_IMAGES / h["train_s"], "micro_steps": h["micro_steps"],
+           "mloss": h["mloss"], "loss_finite": h["loss_finite"], "launches": launches,
+           "val_seen": res["seen"], "val_forwards": forwards, **cmp}
+    emit(rec, log)
+    out["train_run"] = rec
+    if (not h["loss_finite"] or h["micro_steps"] != ZOO_TRAIN_IMAGES // N
+            or res["seen"] != ZOO_VAL_IMAGES or not cmp["val_equal"]
+            or launches["binary_dw3_conv"] != dw3 * h["micro_steps"]
+            or launches["packed_spread"] != gemm * h["micro_steps"]):
+        raise AssertionError(f"{ZOO_STEP_CFG} train() epoch failed its checks: {rec}")
+    if out["stem"] is None or len(out["tokens"]) != ZOO_SITES["resnetaifi.yaml"][3]:
+        raise AssertionError("zoo: the K2 stem site or the K6 token sites were not timed")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "zoo_seconds", "seconds": out["seconds"]}, log)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3063,9 +3417,11 @@ def main(argv=None) -> int:
         events = phase_events(opt.seed, Path(sets) / "events", log)
         t4 = time.perf_counter()
         seg = phase_segment(opt.seed, Path(sets) / "segment", log)
+        t5 = time.perf_counter()
+        zoo = phase_zoo(opt.seed, Path(sets) / "zoo", log)
         emit({"phase": "train_seconds", "train_run": t1 - t0,
               "train_opts": t2 - t1, "heads": t3 - t2, "events": t4 - t3,
-              "segment": time.perf_counter() - t4}, log)
+              "segment": t5 - t4, "zoo": time.perf_counter() - t5}, log)
 
     # --- the validation main path ----------------------------------------------
     val_launches = phase_val(opt.seed, log)
@@ -3098,6 +3454,12 @@ def main(argv=None) -> int:
             segment_launches_per_forward={c: m["k1_launches"]
                                           for c, m in seg["models"].items()},
             segment_detect_launches=seg["models"][SEG_CFG]["detect_launches"],
+            zoo_launches_per_forward=zoo_launches(zoo, "ecs_lif_fused"),
+            zoo_detect_launches=zoo["models"][ZOO_DETECT_CFG]["detect_launches"][
+                "ecs_lif_fused"],
+            zoo_note=f"zoo_*: the {len(ZOO_SITES)} YAMLs of the zoo phase at 640 px, one "
+                     f"forward each (b{N} for {', '.join(ZOO_TIMED)}, else b{ZOO_BATCH}), "
+                     f"and detect.run of {ZOO_DETECT_CFG} over 4 images",
             events_note=f"events_*: event mode, res10 nc {EVENT_NC} at {EVENT_IMGSZ} px, "
                         f"T={EVENT_T}, N={N}, bf16: K1's launches in one forward and its "
                         "device, plain and bound ms summed over the forward's 24 sites "
@@ -3114,6 +3476,16 @@ def main(argv=None) -> int:
             events_launches_per_step=events["step"]["launches_per_step"]["binary_dw3_conv"],
             segment_launches_per_step={c: m["step"]["launches_per_step"]["binary_dw3_conv"]
                                        for c, m in seg["models"].items()},
+            zoo_launches_per_step={c: m["step"]["launches_per_step"]["binary_dw3_conv"]
+                                   for c, m in zoo["models"].items()},
+            zoo_narrow_site=zoo["k4_narrow"],
+            zoo_narrow_note="zoo_narrow_site: the training spread of the 3-channel site on "
+                            "the raw image at the head of res10-ee / res18-ee / res18-eebk "
+                            f"(b{ZOO_BATCH}, bf16, one step's plane), which binary_dw3_conv "
+                            "zero-pads to 8 channels: ms the wrapper's calls (pads and "
+                            "launch) replayed in a CUDA graph, padded_launch_ms the launch "
+                            "alone, wrapper_ms eager, plain ms and the bound of the "
+                            "function at C = 3",
             recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
                            "remat_neuron; the remat counts include the launches of the "
                            "backward pass's recompute; launches and train_run_launches "
@@ -3136,6 +3508,8 @@ def main(argv=None) -> int:
             events_launches_per_step=events["step"]["launches_per_step"]["packed_spread"],
             segment_launches_per_step={c: m["step"]["launches_per_step"]["packed_spread"]
                                        for c, m in seg["models"].items()},
+            zoo_launches_per_step={c: m["step"]["launches_per_step"]["packed_spread"]
+                                   for c, m in zoo["models"].items()},
             recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
                            "remat_neuron; the remat counts include the launches of the "
                            "backward pass's recompute; launches and train_run_launches "
@@ -3157,6 +3531,16 @@ def main(argv=None) -> int:
             events_launches_per_forward=events["forward_plain_lif"]["k6_launches"],
             events_ms=events["k6"].ms, events_plain_ms=events["k6"].plain_ms,
             events_bound_ms=events["k6"].bound_ms,
+            zoo_launches_per_forward=zoo_launches(zoo, "lif_fused"),
+            zoo_token_sites=zoo_sites_sum(zoo["tokens"]),
+            zoo_note="zoo_*: the AIFI encoder's token sites ([T, N, H*W, C], the one "
+                     "TokenLIF applied six times a forward; K6 whatever snn.ecs says), "
+                     "launches per forward of each zoo YAML; zoo_token_sites sums the "
+                     "six sites of one resnetaifi forward at b8: device ms replayed in "
+                     "a CUDA graph over copies of each site's input that together "
+                     "exceed L2 thrice (each call reads its input from memory), "
+                     "l2_warm_ms the same calls on one input (L2-resident), "
+                     "wrapper_ms eager, plain and bound ms",
             events_note=f"events_*: the plain-LIF event model, res10 at {EVENT_IMGSZ} px, "
                         f"T={EVENT_T}, N={N}, bf16, x dense at every site: K6's launches "
                         "in one forward and its replayed, plain and bound ms summed over "
@@ -3170,6 +3554,13 @@ def main(argv=None) -> int:
                  f"fused_inference, N={N}, T={T}, bf16 (the site behind the stem "
                  "reads a broadcast x); launches over the "
                  f"{VAL_IMAGES // N} forwards of the val pass",
+            zoo_launches_per_forward=zoo_launches(zoo, "ecs_lif_fused_rows"),
+            zoo_stem_site=zoo_sites_sum([zoo["stem"]]),
+            zoo_note="zoo_*: the first K2 site on a model path, the neuron on the raw "
+                     "image at the head of res10-ee / res18-ee / res18-eebk (C = 3, "
+                     "which K1 refuses; x broadcast over T), launches per forward of "
+                     "each zoo YAML; zoo_stem_site: that site at b8, its device, plain "
+                     "and bound ms (bound_by, the function's bound as in kernel_check)",
             note="one cooperative launch a site (T-1 grid barriers, no halo "
                  "recompute), the 1x1 as a register-tiled FFMA product in channel "
                  "order, as the plain version sums it; the bound is the function's "

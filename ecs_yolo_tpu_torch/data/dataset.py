@@ -119,6 +119,19 @@ def load_label_file(path: str) -> np.ndarray:
     return lb[np.sort(idx)]
 
 
+def _save_replace(path: Path, a: np.ndarray) -> None:
+    """``np.save`` to a temporary name beside ``path``, then an atomic rename
+    into place: a reader sees the whole file or none."""
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        with open(tmp, "wb") as fh:
+            np.save(fh, a)
+        os.replace(tmp, path)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+
+
 class Dataset:
     """Image+label dataset with cached labels and the YOLO augmentations."""
 
@@ -270,11 +283,17 @@ class Dataset:
 
     def _cache_ram_ok(self, frac: float = 0.8) -> bool:
         """The RAM cache's footprint, estimated from one image, against
-        MemAvailable (reference check_cache_ram)."""
+        MemAvailable (reference check_cache_ram).
+
+        Deviation: each image counts as ``r ** 2 * h0 * w0`` pixels, the size
+        ``_decode_resize`` leaves it at, also when it upscales (``r > 1``);
+        the JAX package (``ecs_yolo_tpu/data/dataset.py``) estimates
+        ``min(1, r) ** 2 * h0 * w0`` and so passes a cache of images smaller
+        than ``img_size`` that can exceed ``frac`` of MemAvailable."""
         try:
             h0, w0 = self._image_hw(self.img_files[0])
             r = self.img_size / max(h0, w0)
-            need = self.n * 3 * min(1.0, r) ** 2 * h0 * w0
+            need = self.n * 3 * r ** 2 * h0 * w0
             with open("/proc/meminfo") as f:
                 avail = next(int(ln.split()[1]) * 1024 for ln in f
                              if ln.startswith("MemAvailable"))
@@ -299,7 +318,15 @@ class Dataset:
         """Decode + resize the longest side to img_size (keeps the ratio).
         Returns (image uint8, native (h0, w0), resized (h, w)).  Served from
         the RAM/disk cache when one is on; an entry cached at another
-        img_size (multi-scale epochs) is decoded afresh, not served stale."""
+        img_size (multi-scale epochs) is decoded afresh, not served stale.
+
+        Deviation (disk cache): the ``.hw0.npy`` sidecar and the image
+        ``.npy`` are each written to a temporary name and renamed into place,
+        the sidecar first, and an image without its sidecar is decoded
+        afresh.  The JAX package (``ecs_yolo_tpu/data/dataset.py``) writes the
+        image first and, when the sidecar is missing (a run stopped between
+        the two writes), takes the resized shape as the native size, which
+        moves every box val rescales to native space."""
         if self.ims is not None:
             hit = self.ims[i]
             # _decode_resize leaves max(shape) == img_size, so a mismatch
@@ -314,15 +341,13 @@ class Dataset:
         if self.cache_images == "disk":
             p = self._npy_dir / f"{Path(self.img_files[i]).stem}_{i}_{self.img_size}.npy"
             hw_p = p.with_suffix(".hw0.npy")
-            if p.exists():
+            if p.exists() and hw_p.exists():
                 im = np.load(p)
-                hw0 = tuple(int(v) for v in np.load(hw_p)) if hw_p.exists() \
-                    else im.shape[:2]
-                return im, hw0, im.shape[:2]
+                return im, tuple(int(v) for v in np.load(hw_p)), im.shape[:2]
             im, hw0 = self._decode_resize(i)
             try:
-                np.save(p, im)
-                np.save(hw_p, np.asarray(hw0))
+                _save_replace(hw_p, np.asarray(hw0))
+                _save_replace(p, im)
             except OSError:
                 pass  # disk full: keep training uncached
             return im, hw0, im.shape[:2]

@@ -22,6 +22,21 @@ torch module names, so their leaves map path for path:
 ``uconv/cv2/conv/kernel`` -> ``uconv.cv2.weight``; grouped kernels HWIO ->
 OIHW as any conv.
 
+The residual, v9, attention and encoder blocks map path for path too: ``BasicBlock``
+(``cv1/conv/conv/kernel`` -> ``cv1.conv.weight``, ``shortcut_bn/bn/scale``
+-> ``shortcut_bn.bn.weight``), the ``_Seq`` rows of ``BasicBlock_ms`` /
+``ConcatBlock_ms`` (``res/3/spread_dw_kernel`` -> ``res.3.spread.0.weight``,
+``sc/1/conv/kernel`` -> ``sc.1.weight``), ``RepC3`` (``m0/conv1/conv/kernel``
+-> ``m0.conv1.weight``, ``cv1/act/...``), ``CBLinear`` (``conv/conv/bias`` ->
+``conv.bias``), ``EMA`` (``conv1x1/conv/kernel``, ``gn_scale`` as is) and
+``AIFI``, whose flax ``Dense`` and ``LayerNorm`` leaves become ``nn.Linear``
+and the port's layer norm: ``fc1/kernel`` ``[in, out]`` -> ``fc1.weight``
+``[out, in]``, ``norm1/scale`` -> ``norm1.weight``, the attention's
+``ma/query/kernel`` ``[C, heads, head_dim]`` -> ``ma.query.weight`` ``[heads
+* head_dim, C]`` (its bias ``[heads, head_dim]`` flattened) and
+``ma/out/kernel`` ``[heads, head_dim, C]`` -> ``ma.out.weight`` ``[C, heads *
+head_dim]``.
+
 Every leaf of the JAX tree is mapped or the conversion raises, and
 ``load_state_dict(strict=True)`` on the port's model checks the other
 direction.
@@ -62,7 +77,11 @@ _LEAVES = {
     "conv/kernel": "weight", "conv/bias": "bias",
     "bn/scale": "bn.weight", "bn/bias": "bn.bias",
     "bn/mean": "bn.running_mean", "bn/var": "bn.running_var",
+    "gn_scale": "gn_scale", "gn_bias": "gn_bias",
 }
+# flax Dense / DenseGeneral / LayerNorm modules (AIFI) -> nn.Linear / layer norm
+_DENSE = {"query", "key", "value", "out", "fc1", "fc2", "norm1", "norm2"}
+_DENSE_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -80,9 +99,11 @@ def _path_name(block: str, path: str) -> str:
     """Torch name of a leaf of a block named path for path: the module path
     joined by dots, then the leaf's torch name."""
     parts = path.split("/")
+    if len(parts) > 1 and parts[-2] in _DENSE and parts[-1] in _DENSE_LEAVES:
+        return ".".join(parts[:-1] + [_DENSE_LEAVES[parts[-1]]])
     for n in (2, 1):
         leaf = "/".join(parts[-n:])
-        if len(parts) > n and leaf in _LEAVES:
+        if len(parts) >= n and leaf in _LEAVES:
             return ".".join(parts[:-n] + [_LEAVES[leaf]])
     raise KeyError(f"{block}: no torch name for {path!r}")
 
@@ -111,6 +132,14 @@ def _layout(block: str, path: str, w: np.ndarray) -> np.ndarray:
         return w.reshape(1, w.shape[2], 1, 1, 1)      # Conv_7 [1,1,T,1]
     if w.ndim == 4:
         return np.transpose(w, (3, 2, 0, 1))          # HWIO -> OIHW
+    parts = path.split("/")
+    if len(parts) > 1 and parts[-2] in _DENSE:
+        if parts[-1] == "bias":
+            return w.reshape(-1)                      # [heads, head_dim] -> [C]
+        if parts[-1] == "kernel" and parts[-2] == "out" and w.ndim == 3:
+            return w.reshape(-1, w.shape[-1]).T       # [heads, head_dim, C] -> [C, C]
+        if parts[-1] == "kernel":
+            return w.reshape(w.shape[0], -1).T        # [in, (heads,) out] -> [out, in]
     return w
 
 

@@ -1,16 +1,19 @@
 """Model assembly: YAML -> ``nn.Module`` graph (counterpart of
 ``ecs_yolo_tpu/models/yolo.py``).
 
-Covers the rows of ``resnet10.yaml``, ``resnet34.yaml``, the anchor-free
-``res10v8``, ``res10v10``, ``res10-dual``, ``res10-triple`` and
-``res10-dualplain``, and ``res10-seg`` / ``res10-panoptic``: ``Conv_1``,
-``BasicBlock_1``, ``BasicBlock_2``, ``Concat_res2``, ``Sample``, ``Concat``
-(repeated rows as ``nn.Sequential``), the nine detection heads of
-``nn/heads.py`` (``Detect``, ``DDetect``, ``DualDetect``, ``DualDDetect``,
-``TripleDetect``, ``TripleDDetect``, ``v10Detect``, ``ASFF_DDetect``,
-``ASFF_v10Detect``) and ``Segment`` / ``Panoptic`` of ``nn/segment.py``.
-Any other block raises ``KeyError`` (ROADMAP Queue 1 item 11).  Layers are
-``model.{i}``, so parameter names are the reference's torch names.
+Covers the rows of the 23 YAMLs in ``models/yaml/``: ``Conv_1``,
+``BasicBlock_1``, ``BasicBlock_2``, ``Concat_res2``, ``Conv``, ``Conv_2``,
+``Conv_3``, ``Conv_4``, ``BasicBlock`` (``nn/blocks.py``), ``BasicBlock_ms``,
+``ConcatBlock_ms``, ``BasicBlock_ms1`` (``nn/blocks_tail.py``), ``RepC3``,
+``CBLinear``, ``CBFuse``, ``Silence``, ``EMA``, ``AIFI``
+(``nn/blocks_ext.py``), ``Sample``, ``Concat`` (repeated rows as
+``nn.Sequential``), the nine detection heads of ``nn/heads.py``
+(``Detect``, ``DDetect``, ``DualDetect``, ``DualDDetect``, ``TripleDetect``,
+``TripleDDetect``, ``v10Detect``, ``ASFF_DDetect``, ``ASFF_v10Detect``) and
+``Segment`` / ``Panoptic`` of ``nn/segment.py``.  Any other block raises
+``KeyError`` (ROADMAP Queue 1 item 11).  Layers are ``model.{i}``.  A
+``CBLinear`` row's output is a list of tensors (its ``chs`` entry a tuple),
+which the forward caches like any other output for the ``CBFuse`` rows.
 
 A static image ``[N, H, W, C]`` is replicated over the model's T; an event
 batch ``[N, T, H, W, C]`` (``data/events.EventDataset``) is event mode: its
@@ -40,21 +43,36 @@ from torch.func import functional_call
 from ..config import DEFAULT_SNN, SNNConfig
 from ..device import resolve_device
 from ..nn import blocks as B
+from ..nn import blocks_ext as BX
+from ..nn import blocks_tail as BT
 from ..nn import heads as H
 from ..nn import segment as SEG
-from ..nn.initializers import torch_conv_init_
+from ..nn.initializers import lecun_linear_init_, torch_conv_init_
 
 YAML_DIR = Path(__file__).parent / "yaml"
 
 # blocks whose first YAML arg is the output-channel count (width-scaled)
 C2_BLOCKS = {
+    "Conv": B.Conv,
     "Conv_1": B.Conv_1,
+    "Conv_2": B.Conv_2,
+    "Conv_3": B.Conv_3,
+    "Conv_4": B.Conv_4,
+    "BasicBlock": B.BasicBlock,
     "BasicBlock_1": B.BasicBlock_1,
     "BasicBlock_2": B.BasicBlock_2,
     "Concat_res2": B.Concat_res2,
+    "RepC3": BX.RepC3,
+    "BasicBlock_ms": BT.BasicBlock_ms,
+    "ConcatBlock_ms": BT.ConcatBlock_ms,
+    "BasicBlock_ms1": BT.BasicBlock_ms1,
 }
+# blocks that repeat n times by inserting the count as the arg after c2
+CSP_N_BLOCKS = {"RepC3"}
 # blocks that keep the input channel count; args passed through verbatim
-PASS_BLOCKS = {"Sample": B.Sample}
+PASS_BLOCKS = {"Sample": B.Sample, "Silence": BX.Silence}
+# ... and those of them built with the input channel count and ``snn``
+PASS_C1_BLOCKS = {"EMA": BX.EMAAttention, "AIFI": BX.AIFI}
 HEADS = {
     "Detect": H.Detect,
     "DDetect": H.DDetect,
@@ -135,6 +153,15 @@ def parse_model(d: Dict[str, Any], ch: int):
             if c2 != no:
                 c2 = make_divisible(c2 * gw, 8)
             args = [c2, *args[1:]]
+            if name in CSP_N_BLOCKS:
+                args.insert(1, n)  # the repeat count is the block's own
+                n = 1
+        elif name == "CBLinear":
+            c2 = tuple(args[0])
+            args = [tuple(args[0]), *args[1:]]
+        elif name == "CBFuse":
+            c2 = chs[f[-1]]
+            args = [tuple(args[0]) if args else ()]
         elif name == "Concat":
             c2 = sum(chs[x] for x in f)
         elif name in HEADS:
@@ -146,7 +173,7 @@ def parse_model(d: Dict[str, Any], ch: int):
                 if isinstance(a, int):  # e.g. `anchors: 2` anchor-free count
                     a = [list(range(a * 2))] * len(f)
                 head_info["anchors_px"] = a
-        elif name in PASS_BLOCKS:
+        elif name in PASS_BLOCKS or name in PASS_C1_BLOCKS:
             c2 = chs[f if isinstance(f, int) else f[0]]
         else:
             raise KeyError(f"block {name!r} at layer {i} is not ported yet "
@@ -197,8 +224,14 @@ def _c_in(f, i: int, ch: int, chs: Sequence[int]):
 def _construct(name: str, c1, args: Tuple, snn: SNNConfig) -> nn.Module:
     if name in C2_BLOCKS:
         return C2_BLOCKS[name](c1, *args, snn=snn)
+    if name in PASS_C1_BLOCKS:
+        return PASS_C1_BLOCKS[name](c1, *args, snn=snn)
     if name in PASS_BLOCKS:
         return PASS_BLOCKS[name](*args)
+    if name == "CBLinear":
+        return BX.CBLinear(c1, *args, snn=snn)
+    if name == "CBFuse":
+        return BX.CBFuse(*args)
     if name == "Concat":
         return B.Concat(*args)
     return HEADS[name](*args, ch=c1, snn=snn)
@@ -337,15 +370,34 @@ def head_predictions(name: str, out, nc: int) -> torch.Tensor:
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Every parameter and buffer from ``generator``: torch-default conv
-    inits, BN gamma = gamma0, beta 0, running mean 0 and variance 1."""
+    inits, BN gamma = gamma0, beta 0, running mean 0 and variance 1; flax's
+    defaults for the transformer and attention layers (``lecun_normal``
+    linear weights, zero biases, layer-norm and ``EMA`` group-norm scales 1
+    and shifts 0).  Raises on a parameter no rule covers (the model is
+    built on the ``meta`` device, so one would hold garbage)."""
+    done = set()
     for m in model.modules():
         if isinstance(m, nn.modules.conv._ConvNd):
             torch_conv_init_(m, generator)
+        elif isinstance(m, nn.Linear):
+            lecun_linear_init_(m, generator)
         elif isinstance(m, B._BN):
             m.weight.fill_(m.gamma0)
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, BX._LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, BX.EMAAttention):
+            m.gn_scale.fill_(1.0)
+            m.gn_bias.zero_()
+        else:
+            continue
+        done.update(map(id, m.parameters(recurse=False)))
+    missed = [k for k, p in model.named_parameters() if id(p) not in done]
+    if missed:
+        raise RuntimeError(f"init_weights: no initializer for {missed[:4]}")
 
 
 #: the (box, class) tower prefixes of each DFL head (JAX ``init_head_biases``)

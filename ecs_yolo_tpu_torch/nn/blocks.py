@@ -177,6 +177,19 @@ class MemUpdate(nn.Module):
     its spread is the library's convolutions).  No fused kernel has a
     backward.  On a CPU tensor every wrapper takes its plain version.
 
+    The routes of the block library's sites: the SiLU sites of ``Conv`` and
+    ``BasicBlock`` (``resnet18``, ``res18-sew``) take the tensor-core kernel
+    in its ``act`` mode; the 3-channel site on the raw image at the head of
+    ``res10-ee`` / ``res18-ee`` / ``res18-eebk`` (``Conv_2`` as the first
+    row: x is the image broadcast over T, stride 0) takes
+    ``ecs_lif_fused_rows``, which the tensor-core kernel's layout check
+    sends it to, and in training the depthwise spread kernel on its channels
+    zero-padded to 8; every other site of ``BasicBlock_ms``, ``ConcatBlock_ms``,
+    ``RepConv``, ``RepC3`` and the v9 / EMA models has ``C % 8 == 0`` and
+    takes the tensor-core kernel.  ``AIFI``'s token sites are not
+    ``MemUpdate`` sites: ``nn/blocks_ext.TokenLIF`` sends them to
+    ``lif_fused``.
+
     In training mode an ``act=False`` ECS-LIF site keeps its mean spike
     density in ``firing_rate``, a 0-d tensor on the device that costs no
     host sync until it is read.  With ``snn.remat_neuron`` the T-loop runs
@@ -392,10 +405,12 @@ class Concat_res2(nn.Module):
 
 class Conv(nn.Module):
     """conv -> BN -> mem_update(act=True), the SiLU neuron (reference Conv):
-    the towers of the plain-``Conv`` dual and triple heads."""
+    the towers of the plain-``Conv`` dual and triple heads, and a YAML row
+    (``resnet18``, ``res18-sew``).  ``ecs_flag`` is the JAX block's
+    positional YAML slot, accepted and unused."""
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
-                 snn: SNNConfig = DEFAULT_SNN):
+                 ecs_flag=None, snn: SNNConfig = DEFAULT_SNN):
         super().__init__()
         self.conv = SnnConv(c1, c2, k, s, p, g)
         self.bn = TBatchNorm(c2, 1.0, snn)
@@ -406,12 +421,14 @@ class Conv(nn.Module):
 
 
 class _PreAct(nn.Module):
-    """mem_update -> conv -> BN (gamma ``gamma_scale * thresh``)."""
+    """mem_update -> conv -> BN (gamma ``gamma_scale * thresh``).
+    ``act_flag`` is the JAX blocks' positional YAML slot (``resnet_rtdetr``
+    passes ``Conv_2`` six arguments), accepted and unused."""
 
     gamma_scale = 1.0
 
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
-                 snn: SNNConfig = DEFAULT_SNN):
+                 act_flag=None, snn: SNNConfig = DEFAULT_SNN):
         super().__init__()
         self.act = MemUpdate(c1, snn=snn)
         self.conv = SnnConv(c1, c2, k, s, p, g)
@@ -437,6 +454,30 @@ class Conv_4(_PreAct):
     """mem_update -> conv -> BN with gamma 0.2 * thresh (reference Conv_4)."""
 
     gamma_scale = 0.2
+
+
+class BasicBlock(nn.Module):
+    """The SEW post-act residual (reference BasicBlock): ``cv1`` (``Conv``,
+    ``c2 * e`` channels, k, s) and ``cv2`` (``Conv`` 3x3), both SiLU
+    neurons; shortcut = identity, or ``shortcut_conv`` (1x1, stride s) ->
+    ``shortcut_bn`` when ``s != 1`` or ``c1 != c2``."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, e: float = 0.5,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k, s, snn=snn)
+        self.cv2 = Conv(c_, c2, 3, 1, snn=snn)
+        self.shortcut_conv = self.shortcut_bn = None
+        if s != 1 or c1 != c2:
+            self.shortcut_conv = SnnConv(c1, c2, 1, s)
+            self.shortcut_bn = TBatchNorm(c2, 1.0, snn)
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        if self.shortcut_conv is None:
+            return y + x
+        return y + self.shortcut_bn(self.shortcut_conv(x))
 
 
 class DFL(nn.Module):

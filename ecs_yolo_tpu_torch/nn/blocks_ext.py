@@ -1,18 +1,30 @@
-"""The part of the extended block library the ASFF heads use (counterpart of
-``ecs_yolo_tpu/nn/blocks_ext.py``: ``interpolate_nearest``, ``GSConv``,
-``ASFF2``).  The rest of that file is not ported yet (ROADMAP Queue 1 item
-11).  Features are ``[T, N, H, W, C]``; the channel axis is the last.
+"""The part of the extended block library that is ported (counterpart of
+``ecs_yolo_tpu/nn/blocks_ext.py``): ``interpolate_nearest``, ``GSConv`` and
+``ASFF2`` for the ASFF heads; ``Silence``, ``CBLinear`` and ``CBFuse`` for the
+v9 wiring; ``EMAAttention`` (registry name ``EMA``); ``RepConv``, ``RepC3``,
+``TokenLIF``, ``sincos_pos_embed_2d`` and ``AIFI`` for the RT-DETR neck.
+The rest of that file is not ported yet (ROADMAP Queue 1 item 11).
+Features are ``[T, N, H, W, C]``; the channel axis is the last.
+
+Child modules carry the JAX module names (``cv1``, ``m0``, ``conv1x1``,
+``ma.query``, ``norm1``, ``fc1``, ...), so ``models/convert.py`` maps the
+JAX tree path for path; flax ``Dense`` / ``DenseGeneral`` kernels become
+``nn.Linear`` weights there.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import nn
 
 from ..config import DEFAULT_SNN, SNNConfig
-from .blocks import Conv_3, Conv_4, SnnConv
+from ..snn.fused import lif_fused
+from ..snn.neuron import lif_scan
+from .blocks import Conv_2, Conv_3, Conv_4, MemUpdate, SnnConv, TBatchNorm
+from .segment import resize_nearest
 
 
 def interpolate_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -68,3 +80,266 @@ class ASFF2(nn.Module):
         wts = self.wl(torch.cat([self.w0(r0), self.w1(r1)], dim=-1))
         wts = torch.softmax(wts, dim=-1)
         return self.expand(r0 * wts[..., 0:1] + r1 * wts[..., 1:2])
+
+
+# --- YOLOv9 wiring (reference :327-345, :3678) ------------------------------------
+
+
+class Silence(nn.Module):
+    """Identity (reference Silence, used by the YOLOv9 graphs)."""
+
+    def forward(self, x):
+        return x
+
+
+class CBLinear(nn.Module):
+    """A conv with bias (k x k, stride s) to ``sum(c2s)`` channels, split into
+    a list of channel groups of ``c2s`` (reference CBLinear)."""
+
+    def __init__(self, c1: int, c2s: Sequence[int], k: int = 1, s: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.c2s = tuple(c2s)
+        self.conv = SnnConv(c1, sum(self.c2s), k, s, bias=True)
+
+    def forward(self, x):
+        return list(torch.split(self.conv(x), self.c2s, dim=-1))
+
+
+class CBFuse(nn.Module):
+    """Fuse ``CBLinear`` outputs (reference CBFuse): from each earlier input
+    (a list) its group ``idx[i]``, resized to the last input's H x W by
+    nearest neighbour as ``jax.image.resize`` indexes (half-pixel centres,
+    ``nn/segment.resize_nearest``; ``F.interpolate`` picks other pixels when
+    the ratio is not whole), summed, plus the last input."""
+
+    def __init__(self, idx: Sequence[int] = ()):
+        super().__init__()
+        self.idx = tuple(idx)
+
+    def forward(self, xs):
+        target = xs[-1]
+        hw = tuple(target.shape[2:4])
+        outs = []
+        for i, x in enumerate(xs[:-1]):
+            sel = x[self.idx[i]] if isinstance(x, (list, tuple)) else x
+            if tuple(sel.shape[2:4]) != hw:
+                sel = resize_nearest(sel, hw, axes=(-3, -2))
+            outs.append(sel)
+        return sum(outs) + target
+
+
+# --- EMA multi-scale attention (reference :3124-3156) -----------------------------
+
+
+class EMAAttention(nn.Module):
+    """Efficient multi-scale attention over ``factor`` groups (reference EMA;
+    registry name ``EMA``).  As the JAX block, the groups are a plain
+    reshape of ``[N, H, W, C]`` to ``[N * factor, H, W, C / factor]``; means
+    over W and over H through the shared ``conv1x1``, sigmoid gates, a
+    per-(sample, channel) norm over H x W (population variance, eps 1e-5,
+    ``gn_scale`` / ``gn_bias``), ``conv3x3``, and two softmax-weighted
+    sums over the channels give a per-pixel sigmoid gate on the input."""
+
+    def __init__(self, c1: int, factor: int = 8, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.factor = factor
+        cg = c1 // factor
+        self.conv1x1 = SnnConv(cg, cg, 1)
+        self.conv3x3 = SnnConv(cg, cg, 3, 1, 1)
+        self.gn_scale = nn.Parameter(torch.ones(cg))
+        self.gn_bias = nn.Parameter(torch.zeros(cg))
+
+    def forward(self, x):
+        t, b, h, w, c = x.shape
+        g = self.factor
+        cg = c // g
+        gx = x.reshape(t, b * g, h, w, cg)
+        x_h = gx.mean(dim=3, keepdim=True)                    # [t, bg, h, 1, cg]
+        x_w = gx.mean(dim=2, keepdim=True).transpose(2, 3)    # [t, bg, w, 1, cg]
+        hw = self.conv1x1(torch.cat([x_h, x_w], dim=2))
+        x_h2, x_w2 = hw[:, :, :h], hw[:, :, h:].transpose(2, 3)
+        x1 = gx * torch.sigmoid(x_h2) * torch.sigmoid(x_w2)
+        mean = x1.mean(dim=(2, 3), keepdim=True)
+        var = x1.var(dim=(2, 3), unbiased=False, keepdim=True)
+        x1 = (x1 - mean) / torch.sqrt(var + 1e-5) * self.gn_scale.to(x1.dtype) \
+            + self.gn_bias.to(x1.dtype)
+        x2 = self.conv3x3(gx)
+        x11 = torch.softmax(x1.mean(dim=(2, 3)), dim=-1)     # [t, bg, cg]
+        x12 = x2.reshape(t, b * g, h * w, cg)
+        x21 = torch.softmax(x2.mean(dim=(2, 3)), dim=-1)
+        x22 = x1.reshape(t, b * g, h * w, cg)
+        weights = (torch.einsum("tgc,tgnc->tgn", x11, x12)
+                   + torch.einsum("tgc,tgnc->tgn", x21, x22)).reshape(t, b * g, h, w, 1)
+        return (gx * torch.sigmoid(weights)).reshape(t, b, h, w, c)
+
+
+# --- RepVGG / RT-DETR neck (reference common2.py:335-560) --------------------------
+
+
+class RepConv(nn.Module):
+    """Rep-style double branch (reference RepConv): one ``act`` neuron, then
+    ``conv1`` (3x3, stride s) -> ``bn1`` plus ``conv2`` (1x1, stride s) ->
+    ``bn2``, plus ``id_bn`` of the input when ``use_id_bn`` is set and
+    ``c1 == c2``, ``s == 1``.  ``k`` is the JAX block's field, unused
+    there too (the branches are 3x3 and 1x1)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, use_id_bn: bool = False,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.id_bn = (TBatchNorm(c1, 1.0, snn) if use_id_bn and c1 == c2 and s == 1
+                      else None)
+        self.act = MemUpdate(c1, snn=snn)
+        self.conv1 = SnnConv(c1, c2, 3, s, 1)
+        self.bn1 = TBatchNorm(c2, 1.0, snn)
+        self.conv2 = SnnConv(c1, c2, 1, s, 0)
+        self.bn2 = TBatchNorm(c2, 1.0, snn)
+
+    def forward(self, x):
+        id_out = None if self.id_bn is None else self.id_bn(x)
+        y = self.act(x)
+        out = self.bn1(self.conv1(y)) + self.bn2(self.conv2(y))
+        return out if id_out is None else out + id_out
+
+
+class RepC3(nn.Module):
+    """Rep CSP block of the RT-DETR neck (reference RepC3): ``cv1``
+    (``Conv_2`` 1x1 to c2) -> n ``RepConv`` (``m0`` ...), plus ``cv2``
+    (``Conv_2`` 1x1 of the input), and ``cv3`` (``Conv_2`` 1x1) only when
+    ``c2 * e != c2``.  The YAML's repeat count is ``n`` (``parse_model``
+    inserts it, as JAX's does)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv_2(c1, c2, 1, 1, snn=snn)
+        for i in range(n):
+            self.add_module(f"m{i}", RepConv(c2 if i == 0 else c_, c_, snn=snn))
+        self.cv2 = Conv_2(c1, c2, 1, 1, snn=snn)
+        self.cv3 = Conv_2(c2, c2, 1, 1, snn=snn) if c_ != c2 else None
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        for i in range(self.n):
+            y1 = getattr(self, f"m{i}")(y1)
+        y = y1 + self.cv2(x)
+        return y if self.cv3 is None else self.cv3(y)
+
+
+class TokenLIF(nn.Module):
+    """Plain-LIF activation for token tensors ``[T, N, L, C]`` (JAX
+    ``TokenLIF``: always ``lif_scan(act=False)``, whatever ``snn.ecs``
+    says).  Eval without autograd takes ``snn/fused.lif_fused`` (any dense
+    shape behind T), training or autograd on ``lif_scan``.  No parameters
+    and no state across calls: one module serves several sites."""
+
+    def __init__(self, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.snn = snn
+
+    def forward(self, x):
+        if x.device.type == "meta":
+            return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        if not self.training and not torch.is_grad_enabled():
+            return lif_fused(x.contiguous(), self.snn, False)
+        return lif_scan(x, self.snn, False)
+
+
+def sincos_pos_embed_2d(w: int, h: int, dim: int, temperature: float = 10000.0,
+                        device=None) -> torch.Tensor:
+    """2-D sine-cosine position embedding ``[1, w * h, dim]`` in float32
+    (reference common2.py:545-560).  The grid is ``meshgrid(w, h,
+    indexing="ij")``, so the rows run w-major, as in JAX."""
+    if dim % 4:
+        raise ValueError(f"sincos_pos_embed_2d: dim must be a multiple of 4, got {dim}")
+    f32 = torch.float32
+    gw, gh = torch.meshgrid(torch.arange(w, dtype=f32, device=device),
+                            torch.arange(h, dtype=f32, device=device), indexing="ij")
+    pos_dim = dim // 4
+    omega = torch.arange(pos_dim, dtype=f32, device=device) / pos_dim
+    omega = 1.0 / (temperature ** omega)
+    out_w = gw.reshape(-1)[:, None] * omega[None]
+    out_h = gh.reshape(-1)[:, None] * omega[None]
+    return torch.cat([torch.sin(out_w), torch.cos(out_w), torch.sin(out_h),
+                      torch.cos(out_h)], dim=1)[None]
+
+
+class _MultiHeadAttention(nn.Module):
+    """flax ``MultiHeadDotProductAttention`` with its defaults: ``query``,
+    ``key``, ``value`` and ``out`` projections with bias (flax kernels
+    ``[C, heads, head_dim]`` and ``[heads, head_dim, C]``, here
+    ``nn.Linear``), the query divided by ``sqrt(head_dim)`` before the
+    product, softmax over the keys in the input's dtype.  JAX computes this
+    outside any Pallas kernel; here it is ``torch.matmul`` and ``softmax``."""
+
+    def __init__(self, c: int, num_heads: int):
+        super().__init__()
+        if c % num_heads:
+            raise ValueError(f"{c} channels do not split into {num_heads} heads")
+        self.h = num_heads
+        self.query, self.key, self.value, self.out = (nn.Linear(c, c) for _ in range(4))
+
+    def forward(self, q_in, k_in, v_in):
+        b, length, c = q_in.shape
+        h, d = self.h, c // self.h
+        q = self.query(q_in).view(b, length, h, d).transpose(1, 2)
+        k = self.key(k_in).view(b, length, h, d).transpose(1, 2)
+        v = self.value(v_in).view(b, length, h, d).transpose(1, 2)
+        w = torch.softmax(torch.matmul(q / math.sqrt(d), k.transpose(-1, -2)), dim=-1)
+        return self.out(torch.matmul(w, v).transpose(1, 2).reshape(b, length, c))
+
+
+class _LayerNorm(nn.Module):
+    """flax ``LayerNorm`` with its defaults: eps 1e-6, statistics in at least
+    float32 with the fast variance ``max(0, E[x^2] - E[x]^2)``; the result
+    in the input's dtype.  In float64 everything stays float64."""
+
+    def __init__(self, c: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dt)
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp(min=0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt)
+        return ((xf - mean) * mul + self.bias.to(dt)).to(x.dtype)
+
+
+class AIFI(nn.Module):
+    """RT-DETR intra-scale transformer encoder (reference AIFI): a spiking
+    encoder layer over the H*W tokens with the 2-D sin-cos position
+    embedding.  The neuron (one ``TokenLIF``, ``act``, applied at six
+    points) runs over the true T axis (the reference flattens t into the
+    batch; JAX does not).  As in JAX, the embedding's rows are w-major and
+    the tokens ``x.reshape(t, n, h * w, c)`` h-major; they are added as they
+    are.  ``cm`` is the feed-forward width."""
+
+    def __init__(self, c1: int, cm: int = 2048, num_heads: int = 8,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.act = TokenLIF(snn)
+        self.ma = _MultiHeadAttention(c1, num_heads)
+        self.norm1 = _LayerNorm(c1)
+        self.norm2 = _LayerNorm(c1)
+        self.fc1 = nn.Linear(c1, cm)
+        self.fc2 = nn.Linear(cm, c1)
+
+    def forward(self, x):
+        t, n, h, w, c = x.shape
+        pos = sincos_pos_embed_2d(w, h, c, device=x.device)
+        act = self.act
+        src = act(x.reshape(t, n, h * w, c))
+        q = src + pos[None].expand(t, n, h * w, c).to(src.dtype)
+        attn = self.ma(q.reshape(t * n, h * w, c), q.reshape(t * n, h * w, c),
+                       src.reshape(t * n, h * w, c)).reshape(t, n, h * w, c)
+        src = src + act(attn)
+        src = act(self.norm1(act(src)))
+        y = act(self.fc2(act(self.fc1(src))))
+        src = self.norm2(src + y)
+        return src.reshape(t, n, h, w, c)

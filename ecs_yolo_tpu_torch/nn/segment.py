@@ -130,11 +130,13 @@ class Panoptic(nn.Module):
 # --- losses ------------------------------------------------------------------------
 
 
-def resize_nearest(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """The last two axes of ``x`` resized to ``hw`` by nearest neighbour as
-    ``jax.image.resize(..., "nearest")`` indexes: output ``i`` reads input
-    ``floor((i + 0.5) * m / n)``, computed in float32."""
-    for d, n in zip((-2, -1), hw):
+def resize_nearest(x: torch.Tensor, hw: Tuple[int, int],
+                   axes: Tuple[int, int] = (-2, -1)) -> torch.Tensor:
+    """The two ``axes`` of ``x`` (the last two by default) resized to ``hw``
+    by nearest neighbour as ``jax.image.resize(..., "nearest")`` indexes:
+    output ``i`` reads input ``floor((i + 0.5) * m / n)``, computed in
+    float32."""
+    for d, n in zip(axes, hw):
         m = x.shape[d]
         if m == n:
             continue

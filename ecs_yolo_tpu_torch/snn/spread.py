@@ -333,7 +333,7 @@ class _BinaryDw3(torch.autograd.Function):
 
 def binary_dw3_conv(s: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise 3x3 SAME convolution plus bias over a BINARY ``[N, H, W, C]``
-    plane ``s`` (values 0 or 1, float32 or bfloat16).
+    plane ``s`` (values 0 or 1, float32 or bfloat16), any C.
 
     ``k`` is the canonical ``[3, 3, 1, C]`` depthwise kernel, ``b`` the ``[C]``
     bias; both are cast to ``s``'s dtype.  The kernel reads the plane in its
@@ -341,8 +341,16 @@ def binary_dw3_conv(s: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> torch.
     in the same launch, the int8 plane kept for the backward.
     """
     dt = s.dtype
-    return _BinaryDw3.apply(s, k if k.dtype == dt else k.to(dt),
-                            b if b.dtype == dt else b.to(dt))
+    k, b = (k if k.dtype == dt else k.to(dt)), (b if b.dtype == dt else b.to(dt))
+    c = s.shape[-1]
+    pad = -c % 8
+    if pad:
+        # the kernel takes channel groups of 8 (the TPU kernel any C as one
+        # block): zero channels up to the next group, sliced off after; a
+        # depthwise product never mixes channels, so this is exact
+        s, k, b = (F.pad(t, (0, pad)) for t in (s, k, b))
+        return _BinaryDw3.apply(s, k, b)[..., :c]
+    return _BinaryDw3.apply(s, k, b)
 
 
 binary_dw3_conv.launches = 0

@@ -1,9 +1,14 @@
-"""Two repaired faults of the port (CPU, no JAX): the val dataset's label
+"""Repaired faults of the port (CPU, no JAX): the val dataset's label
 cache, which must key on the label files and hold the rows before
-``single_cls``, and the detect CLI, which must read the port's own
-checkpoint format with its EMA parameters.
+``single_cls``; the detect CLI, which must read the port's own checkpoint
+format with its EMA parameters; the disk image cache, which must not hand
+out the resized shape as the native size when an image's ``.hw0.npy``
+sidecar is missing; and the RAM-cache guard, which must count images
+smaller than ``img_size`` at the size they are upscaled to.
 """
 
+import builtins
+import io
 import os
 from pathlib import Path
 
@@ -49,6 +54,89 @@ def test_edited_label_file_is_read_again(tmp_path):
                                   np.float32))
     for i in (0, 2):
         np.testing.assert_array_equal(again.labels[i], first.labels[i])
+
+
+def _disk_cached(src, cache):
+    """A val dataset over ``src`` with the disk image cache, every image
+    loaded once (cached)."""
+    ds = PD.Dataset(src, img_size=64, cache_images="disk", cache_dir=cache,
+                    augment=False, uint8_out=True)
+    for i in range(ds.n):
+        ds.load_image(i)
+    return ds
+
+
+def test_disk_cache_without_its_sidecar_decodes_the_native_size_again(tmp_path):
+    src = write_split(tmp_path / "s", sizes=SIZES, nc=3)
+    cache = tmp_path / "npy"
+    ds = _disk_cached(src, cache)
+    sidecars = sorted(cache.glob("*.hw0.npy"))
+    assert len(sidecars) == len(SIZES) and not list(cache.glob("*.tmp"))
+    for p in sidecars:          # a run stopped between its two writes
+        p.unlink()
+    again = PD.Dataset(src, img_size=64, cache_images="disk", cache_dir=cache,
+                       augment=False, uint8_out=True)
+    for i, (h0, w0) in enumerate(SIZES):
+        im, hw0, hw = again.load_image(i)
+        assert hw0 == (h0, w0) and hw == im.shape[:2]
+        assert max(hw) == 64
+    assert len(list(cache.glob("*.hw0.npy"))) == len(SIZES)
+    assert not list(cache.glob("*.tmp"))
+    for i, (h0, w0) in enumerate(SIZES):    # now served from the cache, sidecar read
+        assert again.load_image(i)[1] == (h0, w0)
+
+
+def test_val_pass_over_a_cache_without_sidecars_keeps_native_boxes(monkeypatch, tmp_path,
+                                                                     narrow_model):
+    from ecs_yolo_tpu_torch import val as port_val
+
+    src = write_split(tmp_path / "s", sizes=SIZES, nc=3)
+    native = []
+    real = port_val.to_native
+    monkeypatch.setattr(port_val, "to_native",
+                        lambda xyxy, meta: native.append(real(xyxy, meta)) or native[-1])
+
+    def boxes(ds):
+        del native[:]
+        port_val.run(narrow_model, str(src), imgsz=64, batch_size=2, dataset=ds,
+                     conf_thres=0.0, device="cpu", workers=1)
+        return [b.copy() for b in native]
+
+    plain = boxes(None)
+    ds = _disk_cached(src, tmp_path / "npy")
+    for p in (tmp_path / "npy").glob("*.hw0.npy"):
+        p.unlink()
+    cached = boxes(ds)
+    assert len(plain) == len(cached) == 2 * len(SIZES)      # labels and detections
+    assert sum(len(b) for b in plain) > len(SIZES)
+    for a, b in zip(plain, cached):
+        np.testing.assert_array_equal(a, b)
+
+
+def _meminfo(kb):
+    """``open`` for the dataset module with ``/proc/meminfo`` reading
+    ``MemAvailable: kb``."""
+    def fake(path, *a, **k):
+        if str(path) == "/proc/meminfo":
+            return io.StringIO(f"MemTotal: 999999 kB\nMemAvailable: {kb} kB\n")
+        return builtins.open(path, *a, **k)
+    return fake
+
+
+@pytest.mark.parametrize("kb,cached", [(20, False), (50, True)])
+def test_ram_cache_guard_counts_small_images_at_their_upscaled_size(monkeypatch, tmp_path,
+                                                                   kb, cached):
+    """Three 32x32 images at img_size 64 take 3 * 3 * 64 * 64 = 36864 bytes
+    once upscaled; the old estimate, 3 * 3 * 32 * 32 = 9216, passed 80 % of
+    20 kB (16384 bytes), which the cache exceeds."""
+    src = write_split(tmp_path / "s", sizes=[(32, 32)] * 3, nc=3)
+    monkeypatch.setattr(PD, "open", _meminfo(kb), raising=False)
+    ds = PD.Dataset(src, img_size=64, cache_images="ram", augment=False)
+    assert (ds.cache_images == "ram") is cached
+    if cached:
+        for i in range(ds.n):
+            ds.load_image(i)
+        assert sum(im.nbytes for im in ds.ims) == 3 * 3 * 64 * 64 < 0.8 * kb * 1024
 
 
 @pytest.fixture(scope="module")

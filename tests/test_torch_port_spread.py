@@ -95,7 +95,7 @@ def test_compose_m_matches_jax():
 
 @pytest.mark.parametrize("c,w,route", [(16, 8, "gemm"), (64, 6, "gemm"),
                                        (24, 8, "dw3"), (16, 7, "dw3"),
-                                       (128, 8, "dw3")])
+                                       (128, 8, "dw3"), (3, 8, "dw3")])
 def test_kernel_spread_is_the_spread_in_f64(c, w, route):
     """Either route computes ``pw1x1(dw3x3(s) + dwb) + pwb``: against the
     library-convolution spread in float64, values and all five gradients to
@@ -333,12 +333,11 @@ def test_dw3_tile_walk_reference_is_the_plain_version_bit_for_bit(shape, sms, dt
     assert torch.equal(got, want) and torch.equal(s8, s.to(torch.int8))
 
 
-def test_k4_launch_binds_once_and_launches_once_a_call(monkeypatch):
-    """A stub library in place of the built one: over many calls the entry's
-    argtypes are set once and the library loaded once; each call passes the
-    float plane, the int8-out and out pointers, the dtype codes and the
-    plan, counts one launch, and keeps the plane it wrote for the
-    backward."""
+@pytest.fixture
+def k4_stub(monkeypatch):
+    """A stub library in place of the built one: ``(Lib, calls, loads)``,
+    ``calls`` the 18 int64 arguments of each launch, ``loads`` the names
+    of the libraries loaded."""
     import ctypes
 
     from ecs_yolo_tpu_torch import _build
@@ -365,6 +364,16 @@ def test_k4_launch_binds_once_and_launches_once_a_call(monkeypatch):
     monkeypatch.setattr(S, "_entries", {})
     monkeypatch.setattr(S, "use_kernel", lambda x: True)
     monkeypatch.setattr(S, "_stream", lambda t: 7)
+    return Lib, calls, loads
+
+
+def test_k4_launch_binds_once_and_launches_once_a_call(k4_stub):
+    """A stub library in place of the built one: over many calls the entry's
+    argtypes are set once and the library loaded once; each call passes the
+    float plane, the int8-out and out pointers, the dtype codes and the
+    plan, counts one launch, and keeps the plane it wrote for the
+    backward."""
+    Lib, calls, loads = k4_stub
     s, k, b = (a.bfloat16() for a in _dyadic_dw3((2, 5, 6, 16), seed=0))
     s.requires_grad_(True)
     before = S.binary_dw3_conv.launches
@@ -378,3 +387,19 @@ def test_k4_launch_binds_once_and_launches_once_a_call(monkeypatch):
     assert calls[-1] == (1, 1, 1, s.data_ptr(), k.data_ptr(), b.data_ptr(), y.data_ptr(),
                          s8.data_ptr(), 2, 5, 6, 16, plan.rows, plan.strips, plan.tw, plan.gb,
                          plan.grid, 7)
+
+
+def test_k4_takes_a_narrow_plane_on_channels_padded_to_a_group(k4_stub):
+    """C % 8 != 0 (the 3-channel site on the raw image): one launch on the
+    plane zero-padded to 8 channels, the output sliced back to C, and the
+    gradients of s, k and b of C channels (the stub writes nothing, so
+    shapes only: ``test_kernel_spread_is_the_spread_in_f64`` holds the
+    values)."""
+    _, calls, _ = k4_stub
+    leaves = [a.requires_grad_(True) for a in _dyadic_dw3((2, 5, 6, 3), seed=1)]
+    before = S.binary_dw3_conv.launches
+    y = S.binary_dw3_conv(*leaves)
+    assert S.binary_dw3_conv.launches == before + 1 and len(calls) == 1
+    assert calls[0][8:12] == (2, 5, 6, 8) and tuple(y.shape) == (2, 5, 6, 3)
+    grads = torch.autograd.grad(y, leaves, torch.ones_like(y))
+    assert [tuple(g.shape) for g in grads] == [(2, 5, 6, 3), (3, 3, 1, 3), (3,)]
