@@ -85,10 +85,13 @@ the port's paths at full width with random weights from a seed:
   ``train.driver.train`` epoch of res10-seg whose val pass must give
   ``plain_kernels()``'s NMS output; K1 and K4 at the shapes the heads add
   (80x80x32, 20x20x768) in ``kernel_check`` records;
-* the block library (phase ``zoo``, after ``segment``): the 14 YAMLs of
+* the block library (phase ``zoo``, after ``segment``): the 24 YAMLs of
   ``ZOO_SITES`` (the EE / SEW residuals, the v9 ``CBLinear`` / ``CBFuse``
   wiring, ``EMA``, the ``AIFI`` encoder with ``RepC3``, and ``resnet18``,
-  ``resnet34-cat``, ``botnet10``, ``resnet-test``, ``resnet10heads``) at
+  ``resnet34-cat``, ``botnet10``, ``resnet-test``, ``resnet10heads``; the
+  star / GSConv / context-guide family, ``starnet``, ``starnet2``,
+  ``starnet4``, ``ceshi``, ``resnet_v8``; the CSP / HG / Ghost family,
+  ``yolov5s``, ``yolov8s``, ``cspresnet10``, ``HGresnet``, ``test``) at
   640 px, nc 13, T=4, bf16: each built on the card, one b2 eval forward
   (b8 for ``ZOO_TIMED``, then timed and profiled) with every neuron site
   held to its plain version (K1 / K2 spike share, SiLU sites in ulps, the
@@ -96,10 +99,12 @@ the port's paths at full width with random weights from a seed:
   the table, one b2 bf16 train step (K4 / K5 launches, peak memory); K2 at
   ``res10-ee``'s stem site (the raw image, broadcast over T, C = 3) and K6
   at ``resnetaifi``'s token sites timed beside their bounds;
-  ``resnet10-v9``'s float32 step teacher-forced with the planted K4 fault
-  and one ``train.driver.train`` epoch whose val pass must give
-  ``plain_kernels()``'s NMS output; ``resnet_rtdetr``'s bf16 step under
-  sync-debug "error"; ``detect.run`` of ``resnetaifi``;
+  the float32 step of ``resnet10-v9`` and of ``ceshi`` teacher-forced
+  with the planted K4 fault; one ``train.driver.train`` epoch of
+  ``resnet10-v9`` and one of ``yolov8s``, whose val pass must give
+  ``plain_kernels()``'s NMS output; the bf16 step of ``resnet_rtdetr`` and
+  of ``HGresnet`` under sync-debug "error"; ``detect.run`` of
+  ``resnetaifi`` and of ``starnet4``;
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
@@ -2026,7 +2031,19 @@ ZOO_SITES = {"resnet18.yaml": (35, 35, 0, 0, 27, 72),
              "resnet_rtdetr.yaml": (55, 49, 0, 6, 24, 123),
              "botnet10.yaml": (24, 24, 0, 0, 15, 57),
              "resnet-test.yaml": (34, 34, 0, 0, 15, 87),
-             "resnet10heads.yaml": (30, 30, 0, 0, 18, 72)}
+             "resnet10heads.yaml": (30, 30, 0, 0, 18, 72),
+             # the star / GSConv / context-guide family and the CSP / HG /
+             # Ghost family: every site on K1, none on K2
+             "starnet.yaml": (62, 62, 0, 0, 42, 144),
+             "starnet2.yaml": (74, 74, 0, 0, 51, 171),
+             "starnet4.yaml": (28, 28, 0, 0, 21, 63),
+             "ceshi.yaml": (106, 106, 0, 0, 69, 249),
+             "resnet_v8.yaml": (46, 46, 0, 0, 24, 114),
+             "yolov5s.yaml": (68, 68, 0, 0, 48, 156),
+             "yolov8s.yaml": (56, 56, 0, 0, 93, 75),
+             "cspresnet10.yaml": (44, 44, 0, 0, 45, 87),
+             "HGresnet.yaml": (48, 48, 0, 0, 21, 123),
+             "test.yaml": (66, 66, 0, 0, 69, 129)}
 HEAD_OTHER_BATCH = 2       # the four other YAMLs: one detect batch, one step at b2
 HEAD_STEPS = 3             # timed bf16 steps of res10v8
 HEAD_VAL_IMAGES = 16
@@ -2922,13 +2939,19 @@ def phase_segment(seed: int, root: Path, log) -> dict:
 
 
 #: the ``zoo`` phase: b2 forwards and steps, b8 for the timed YAMLs; the
-#: float32 step (with the planted fault) and the ``train()`` epoch of
-#: ``ZOO_STEP_CFG``, sync-debug "error" on ``ZOO_SYNC_CFG``'s step,
-#: ``detect.run`` of ``ZOO_DETECT_CFG``; the epoch's image counts
+#: float32 step (with the planted fault) of ``ZOO_STEP_CFGS``, the
+#: ``train()`` epoch of ``ZOO_EPOCH_CFGS``, sync-debug "error" on the step
+#: of ``ZOO_SYNC_CFGS``, ``detect.run`` of ``ZOO_DETECT_CFGS``; the epoch's
+#: image counts
 ZOO_BATCH = 2
-ZOO_TIMED = ("resnet10-v9.yaml", "resnetaifi.yaml", "res10-ee.yaml")
-ZOO_STEP_CFG, ZOO_SYNC_CFG, ZOO_DETECT_CFG = ("resnet10-v9.yaml", "resnet_rtdetr.yaml",
-                                              "resnetaifi.yaml")
+ZOO_TIMED = ("resnet10-v9.yaml", "resnetaifi.yaml", "res10-ee.yaml", "yolov8s.yaml",
+             "ceshi.yaml")
+ZOO_STEP_CFGS = ("resnet10-v9.yaml", "ceshi.yaml")
+ZOO_EPOCH_CFGS = ("resnet10-v9.yaml", "yolov8s.yaml")
+ZOO_SYNC_CFGS = ("resnet_rtdetr.yaml", "HGresnet.yaml")
+ZOO_DETECT_CFGS = ("resnetaifi.yaml", "starnet4.yaml")
+#: a float32 step's gate tighter than ``HEAD_PARAM_GRAD_RTOL``, per YAML
+ZOO_F32_RTOL = {"ceshi.yaml": 1e-3}
 ZOO_TRAIN_IMAGES, ZOO_VAL_IMAGES = 16, 8
 
 
@@ -3068,12 +3091,13 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
     memory.  ``ZOO_TIMED``: the b8 forward timed and profiled;
     ``res10-ee``'s K2 stem site and ``resnetaifi``'s K6 token sites timed
     beside their plain versions and bounds (``zoo_site_check``).
-    ``ZOO_DETECT_CFG``:
-    ``detect.run`` over 4 synthetic images.  ``ZOO_STEP_CFG``: the float32
-    step teacher-forced against its ``plain_kernels()`` rerun with the
-    planted K4 fault (``f32_step_check``), and one ``train.driver.train``
-    epoch whose EMA val pass must give ``plain_kernels()``'s NMS output.
-    ``ZOO_SYNC_CFG``: its bf16 step through ``timed_steps`` (one step under
+    ``ZOO_DETECT_CFGS``: ``detect.run`` over 4 synthetic images.
+    ``ZOO_STEP_CFGS``: the float32 step teacher-forced against its
+    ``plain_kernels()`` rerun with the planted K4 fault
+    (``f32_step_check``; ``ZOO_F32_RTOL`` gates some tighter).
+    ``ZOO_EPOCH_CFGS``: one ``train.driver.train`` epoch whose EMA val pass
+    must give ``plain_kernels()``'s NMS output.  ``ZOO_SYNC_CFGS``: the bf16
+    step through ``timed_steps`` (one step under
     ``torch.cuda.set_sync_debug_mode("error")``)."""
     from ecs_yolo_tpu_torch import detect as detect_mod
     from ecs_yolo_tpu_torch import val as val_mod
@@ -3107,7 +3131,7 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
         sites = [m for m in model.modules() if isinstance(m, (MemUpdate, TokenLIF))]
         mem_sites = [m for m in sites if isinstance(m, MemUpdate)]
         state32 = ({k: v.detach().clone() for k, v in model.state_dict().items()}
-                   if cfg == ZOO_STEP_CFG else None)
+                   if cfg in ZOO_STEP_CFGS else None)
         cast_params(model, torch.bfloat16)
         reset()
         with torch.no_grad():
@@ -3156,7 +3180,7 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
         if not ok:
             raise AssertionError(f"{cfg}: a site disagrees or a launch count is off: {rec}")
 
-        if cfg == ZOO_DETECT_CFG:
+        if cfg in ZOO_DETECT_CFGS:
             reset()
             results = detect_mod.run(model, root / "detect", imgsz=IMGSZ)
             det = read()
@@ -3173,12 +3197,14 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
         for p in model.parameters():
             p.data = p.data.float()
         small = tuple(t[:ZOO_BATCH] for t in batch)
-        if cfg == ZOO_STEP_CFG:
+        if cfg in ZOO_STEP_CFGS:
             model.load_state_dict(state32)
             rec, tx, state = f32_step_check(model, small, mem_sites, plain_kernels, hyp,
                                             plant=True)
+            rtol = ZOO_F32_RTOL.get(cfg, HEAD_PARAM_GRAD_RTOL)
+            rec["zoo_param_grad_rtol"] = rtol
             emit({"phase": "zoo_train_step_fp32", "cfg": cfg, "batch": ZOO_BATCH, **rec}, log)
-            if not rec["ok"]:
+            if not rec["ok"] or rec["param_grad_rel_err_max"] > rtol:
                 raise AssertionError(f"{cfg} float32 step: kernel route disagrees: {rec}")
             del state32
         else:
@@ -3186,7 +3212,7 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
                                  momentum=hyp["momentum"], weight_decay=hyp["weight_decay"])
             state = create_train_state(model, tx)
         step = make_train_step(model, tx, hyp, compute_dtype=torch.bfloat16)
-        if cfg == ZOO_SYNC_CFG:
+        if cfg in ZOO_SYNC_CFGS:
             state, srec = timed_steps(step, state, small, 1, read, reset)
             per, peak, losses = srec["launches_per_step"], srec["peak_memory_gb"], srec["losses"]
         else:       # the first step: its launches, and its peak with cuDNN's workspaces
@@ -3214,26 +3240,29 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
         torch.cuda.empty_cache()
     del xb, batch
 
-    # --- resnet10-v9: an epoch of train.driver.train, val on the EMA copy ------------
+    # --- an epoch of train.driver.train each, val on the EMA copy ---------------------
     train_src = write_val_set(root / "train", seed + 500, ZOO_TRAIN_IMAGES)
     val_src = write_val_set(root / "val", seed + 501, ZOO_VAL_IMAGES)
-    h, launches, res, cmp, forwards = epoch_with_val(
-        driver, val_mod, plain_kernels, reset, read, cfg=ZOO_STEP_CFG, train_path=train_src,
-        val_path=val_src, nc=NC, batch_size=N, imgsz=IMGSZ, nbs=N, bf16=True, seed=seed,
-        workers=4, save_dir=str(root / "run"))
-    _, _, _, _, gemm, dw3 = ZOO_SITES[ZOO_STEP_CFG]
-    rec = {"phase": "zoo_train_run", "cfg": ZOO_STEP_CFG, "images": ZOO_TRAIN_IMAGES,
-           "batch": N, "loop_s": h["train_s"], "val_s": h["val_s"],
-           "images_per_s": ZOO_TRAIN_IMAGES / h["train_s"], "micro_steps": h["micro_steps"],
-           "mloss": h["mloss"], "loss_finite": h["loss_finite"], "launches": launches,
-           "val_seen": res["seen"], "val_forwards": forwards, **cmp}
-    emit(rec, log)
-    out["train_run"] = rec
-    if (not h["loss_finite"] or h["micro_steps"] != ZOO_TRAIN_IMAGES // N
-            or res["seen"] != ZOO_VAL_IMAGES or not cmp["val_equal"]
-            or launches["binary_dw3_conv"] != dw3 * h["micro_steps"]
-            or launches["packed_spread"] != gemm * h["micro_steps"]):
-        raise AssertionError(f"{ZOO_STEP_CFG} train() epoch failed its checks: {rec}")
+    out["train_run"] = {}
+    for j, cfg in enumerate(ZOO_EPOCH_CFGS):
+        h, launches, res, cmp, forwards = epoch_with_val(
+            driver, val_mod, plain_kernels, reset, read, cfg=cfg, train_path=train_src,
+            val_path=val_src, nc=NC, batch_size=N, imgsz=IMGSZ, nbs=N, bf16=True, seed=seed,
+            workers=4, save_dir=str(root / f"run{j}"))
+        _, _, _, _, gemm, dw3 = ZOO_SITES[cfg]
+        rec = {"phase": "zoo_train_run", "cfg": cfg, "images": ZOO_TRAIN_IMAGES,
+               "batch": N, "loop_s": h["train_s"], "val_s": h["val_s"],
+               "images_per_s": ZOO_TRAIN_IMAGES / h["train_s"],
+               "micro_steps": h["micro_steps"], "mloss": h["mloss"],
+               "loss_finite": h["loss_finite"], "launches": launches,
+               "val_seen": res["seen"], "val_forwards": forwards, **cmp}
+        emit(rec, log)
+        out["train_run"][cfg] = rec
+        if (not h["loss_finite"] or h["micro_steps"] != ZOO_TRAIN_IMAGES // N
+                or res["seen"] != ZOO_VAL_IMAGES or not cmp["val_equal"]
+                or launches["binary_dw3_conv"] != dw3 * h["micro_steps"]
+                or launches["packed_spread"] != gemm * h["micro_steps"]):
+            raise AssertionError(f"{cfg} train() epoch failed its checks: {rec}")
     if out["stem"] is None or len(out["tokens"]) != ZOO_SITES["resnetaifi.yaml"][3]:
         raise AssertionError("zoo: the K2 stem site or the K6 token sites were not timed")
     out["seconds"] = time.perf_counter() - t_phase
@@ -3455,11 +3484,11 @@ def main(argv=None) -> int:
                                           for c, m in seg["models"].items()},
             segment_detect_launches=seg["models"][SEG_CFG]["detect_launches"],
             zoo_launches_per_forward=zoo_launches(zoo, "ecs_lif_fused"),
-            zoo_detect_launches=zoo["models"][ZOO_DETECT_CFG]["detect_launches"][
-                "ecs_lif_fused"],
+            zoo_detect_launches={c: zoo["models"][c]["detect_launches"]["ecs_lif_fused"]
+                                 for c in ZOO_DETECT_CFGS},
             zoo_note=f"zoo_*: the {len(ZOO_SITES)} YAMLs of the zoo phase at 640 px, one "
                      f"forward each (b{N} for {', '.join(ZOO_TIMED)}, else b{ZOO_BATCH}), "
-                     f"and detect.run of {ZOO_DETECT_CFG} over 4 images",
+                     f"and detect.run of {', '.join(ZOO_DETECT_CFGS)} over 4 images each",
             events_note=f"events_*: event mode, res10 nc {EVENT_NC} at {EVENT_IMGSZ} px, "
                         f"T={EVENT_T}, N={N}, bf16: K1's launches in one forward and its "
                         "device, plain and bound ms summed over the forward's 24 sites "

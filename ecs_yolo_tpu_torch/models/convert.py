@@ -37,6 +37,18 @@ and the port's layer norm: ``fc1/kernel`` ``[in, out]`` -> ``fc1.weight``
 ``ma/out/kernel`` ``[heads, head_dim, C]`` -> ``ma.out.weight`` ``[C, heads *
 head_dim]``.
 
+The star, GSConv, context-guide, CSP, HG and Ghost blocks map path for
+path as well (``dw/depth/conv/kernel`` -> ``dw.depth.weight``,
+``shortcut/act/spread_dw_kernel`` -> ``shortcut.act.spread.0.weight``,
+``m0/cv1/conv/conv/kernel`` -> ``m0.cv1.conv.weight``,
+``b0/sc_dw/conv/bn/bn/scale`` -> ``b0.sc_dw.conv.bn.bn.weight``),
+``ClippedTPReLU``'s slope ``act/weight`` as it is, and ``ELA``'s flax 1-D
+conv kernel ``se/conv1d/kernel`` ``[k, 1, C]`` -> ``se.conv1d.weight``
+``[C, 1, k]``.  The inner blocks ``m{i}`` of ``BasicBlock_2C3``,
+``BasicBlock_1C3`` and ``Concat_res2C3`` are the port's ``BasicBlock_2``,
+``BasicBlock_1`` and ``Concat_res2``, whose leaves take those blocks' own
+map: ``m0/conv1/conv/kernel`` -> ``m0.residual_function.1.weight``.
+
 Every leaf of the JAX tree is mapped or the conversion raises, and
 ``load_state_dict(strict=True)`` on the port's model checks the other
 direction.
@@ -70,6 +82,9 @@ _MODULES = {
     "Concat_res2": {**_RESIDUAL, "sc_act": "shortcut.0",
                     "sc_conv": "shortcut.1", "sc_bn": "shortcut.2"},
 }
+# blocks whose inner blocks m{i} take another block's map
+_NESTED = {"BasicBlock_2C3": "BasicBlock_2", "BasicBlock_1C3": "BasicBlock_1",
+           "Concat_res2C3": "Concat_res2"}
 # leaf path inside a MemUpdate / SnnConv / TBatchNorm -> torch leaf name
 _LEAVES = {
     "spread_dw_kernel": "spread.0.weight", "spread_dw_bias": "spread.0.bias",
@@ -78,6 +93,7 @@ _LEAVES = {
     "bn/scale": "bn.weight", "bn/bias": "bn.bias",
     "bn/mean": "bn.running_mean", "bn/var": "bn.running_var",
     "gn_scale": "gn_scale", "gn_bias": "gn_bias",
+    "conv1d/kernel": "conv1d.weight", "weight": "weight",
 }
 # flax Dense / DenseGeneral / LayerNorm modules (AIFI) -> nn.Linear / layer norm
 _DENSE = {"query", "key", "value", "out", "fc1", "fc2", "norm1", "norm2"}
@@ -110,6 +126,9 @@ def _path_name(block: str, path: str) -> str:
 
 def _torch_name(block: str, path: str) -> str:
     """Torch name (relative to the block) of a JAX leaf path."""
+    inner = re.fullmatch(r"(m\d+)/(.+)", path) if block in _NESTED else None
+    if inner:
+        return f"{inner[1]}.{_torch_name(_NESTED[block], inner[2])}"
     if block not in _MODULES and block != "Detect":
         return _path_name(block, path)
     if block == "Detect":
@@ -133,6 +152,8 @@ def _layout(block: str, path: str, w: np.ndarray) -> np.ndarray:
     if w.ndim == 4:
         return np.transpose(w, (3, 2, 0, 1))          # HWIO -> OIHW
     parts = path.split("/")
+    if w.ndim == 3 and parts[-1] == "kernel" and parts[-2] not in _DENSE:
+        return np.transpose(w, (2, 1, 0))             # 1-D conv [k, I, O] -> [O, I, k]
     if len(parts) > 1 and parts[-2] in _DENSE:
         if parts[-1] == "bias":
             return w.reshape(-1)                      # [heads, head_dim] -> [C]

@@ -1,17 +1,23 @@
 """Model assembly: YAML -> ``nn.Module`` graph (counterpart of
 ``ecs_yolo_tpu/models/yolo.py``).
 
-Covers the rows of the 23 YAMLs in ``models/yaml/``: ``Conv_1``,
-``BasicBlock_1``, ``BasicBlock_2``, ``Concat_res2``, ``Conv``, ``Conv_2``,
-``Conv_3``, ``Conv_4``, ``BasicBlock`` (``nn/blocks.py``), ``BasicBlock_ms``,
-``ConcatBlock_ms``, ``BasicBlock_ms1`` (``nn/blocks_tail.py``), ``RepC3``,
-``CBLinear``, ``CBFuse``, ``Silence``, ``EMA``, ``AIFI``
-(``nn/blocks_ext.py``), ``Sample``, ``Concat`` (repeated rows as
-``nn.Sequential``), the nine detection heads of ``nn/heads.py``
-(``Detect``, ``DDetect``, ``DualDetect``, ``DualDDetect``, ``TripleDetect``,
-``TripleDDetect``, ``v10Detect``, ``ASFF_DDetect``, ``ASFF_v10Detect``) and
-``Segment`` / ``Panoptic`` of ``nn/segment.py``.  Any other block raises
-``KeyError`` (ROADMAP Queue 1 item 11).  Layers are ``model.{i}``.  A
+Covers every row of the 33 YAMLs in ``models/yaml/`` (all of the JAX
+package's): ``Conv_1``, ``BasicBlock_1``, ``BasicBlock_2``, ``Concat_res2``,
+``Conv``, ``Conv_2``, ``Conv_3``, ``Conv_4``, ``BasicBlock``
+(``nn/blocks.py``); ``BasicBlock_ms``, ``ConcatBlock_ms``,
+``BasicBlock_ms1``, ``ContextGuideFusionModule``, ``HGBlock``
+(``nn/blocks_tail.py``); ``C3``, ``C2f``, ``SPPF``, ``BasicBlock_6``,
+``BasicBlock_1s``, ``StarBlock_2``, ``RepC3``, ``CBLinear``, ``CBFuse``,
+``Silence``, ``EMA``, ``AIFI`` (``nn/blocks_ext.py``); ``StarBlock_4``,
+``StarBlock_5``, ``StarBlock_2C2f`` (``nn/blocks_star.py``);
+``ResNetLayerBasic`` (``nn/blocks_tail2.py``); ``BasicBlock_2C3``,
+``BasicBlock_1C3``, ``Concat_res2C3`` (``nn/blocks_v9.py``); ``Sample``,
+``Concat`` (repeated rows as ``nn.Sequential``), the nine detection heads
+of ``nn/heads.py`` (``Detect``, ``DDetect``, ``DualDetect``,
+``DualDDetect``, ``TripleDetect``, ``TripleDDetect``, ``v10Detect``,
+``ASFF_DDetect``, ``ASFF_v10Detect``) and ``Segment`` / ``Panoptic`` of
+``nn/segment.py``.  Any other block raises ``KeyError`` (ROADMAP Queue 1
+item 11g: the registry names no YAML uses).  Layers are ``model.{i}``.  A
 ``CBLinear`` row's output is a list of tensors (its ``chs`` entry a tuple),
 which the forward caches like any other output for the ``CBFuse`` rows.
 
@@ -44,10 +50,13 @@ from ..config import DEFAULT_SNN, SNNConfig
 from ..device import resolve_device
 from ..nn import blocks as B
 from ..nn import blocks_ext as BX
+from ..nn import blocks_star as BS
 from ..nn import blocks_tail as BT
+from ..nn import blocks_tail2 as BT2
+from ..nn import blocks_v9 as BV
 from ..nn import heads as H
 from ..nn import segment as SEG
-from ..nn.initializers import lecun_linear_init_, torch_conv_init_
+from ..nn.initializers import lecun_normal_init_, torch_conv_init_
 
 YAML_DIR = Path(__file__).parent / "yaml"
 
@@ -66,13 +75,31 @@ C2_BLOCKS = {
     "BasicBlock_ms": BT.BasicBlock_ms,
     "ConcatBlock_ms": BT.ConcatBlock_ms,
     "BasicBlock_ms1": BT.BasicBlock_ms1,
+    "C3": BX.C3,
+    "C2f": BX.C2f,
+    "SPPF": BX.SPPF,
+    "BasicBlock_6": BX.BasicBlock_6,
+    "BasicBlock_1s": BX.BasicBlock_1s,
+    "StarBlock_2": BX.StarBlock_2,
+    "StarBlock_4": BS.StarBlock_4,
+    "StarBlock_5": BS.StarBlock_5,
+    "StarBlock_2C2f": BS.StarBlock_2C2f,
+    "BasicBlock_2C3": BV.BasicBlock_2C3,
+    "BasicBlock_1C3": BV.BasicBlock_1C3,
+    "Concat_res2C3": BV.Concat_res2C3,
+    "ResNetLayerBasic": BT2.ResNetLayerBasic,
 }
 # blocks that repeat n times by inserting the count as the arg after c2
-CSP_N_BLOCKS = {"RepC3"}
+# (``StarBlock_2C2f`` is not one: its YAML passes n itself, as in JAX)
+CSP_N_BLOCKS = {"RepC3", "C3", "C2f", "BasicBlock_2C3", "BasicBlock_1C3", "Concat_res2C3"}
 # blocks that keep the input channel count; args passed through verbatim
 PASS_BLOCKS = {"Sample": B.Sample, "Silence": BX.Silence}
 # ... and those of them built with the input channel count and ``snn``
 PASS_C1_BLOCKS = {"EMA": BX.EMAAttention, "AIFI": BX.AIFI}
+# blocks with a channel rule of their own, built with the input channel
+# count (a list for a multi-input row) and ``snn``
+EXTRA_BLOCKS = {"ContextGuideFusionModule": BT.ContextGuideFusionModule,
+                "HGBlock": BT.HGBlock}
 HEADS = {
     "Detect": H.Detect,
     "DDetect": H.DDetect,
@@ -162,6 +189,15 @@ def parse_model(d: Dict[str, Any], ch: int):
         elif name == "CBFuse":
             c2 = chs[f[-1]]
             args = [tuple(args[0]) if args else ()]
+        elif name == "ContextGuideFusionModule":
+            c2 = 2 * chs[f[1]]
+        elif name == "HGBlock":
+            # [cm, c2, k, ...], neither width-scaled; a repeat count goes in
+            # at index 3 (the block's n), as JAX's parser puts it
+            c2 = args[1]
+            if n > 1:
+                args.insert(3, n)
+                n = 1
         elif name == "Concat":
             c2 = sum(chs[x] for x in f)
         elif name in HEADS:
@@ -228,6 +264,8 @@ def _construct(name: str, c1, args: Tuple, snn: SNNConfig) -> nn.Module:
         return PASS_C1_BLOCKS[name](c1, *args, snn=snn)
     if name in PASS_BLOCKS:
         return PASS_BLOCKS[name](*args)
+    if name in EXTRA_BLOCKS:
+        return EXTRA_BLOCKS[name](c1, *args, snn=snn)
     if name == "CBLinear":
         return BX.CBLinear(c1, *args, snn=snn)
     if name == "CBFuse":
@@ -372,15 +410,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Every parameter and buffer from ``generator``: torch-default conv
     inits, BN gamma = gamma0, beta 0, running mean 0 and variance 1; flax's
     defaults for the transformer and attention layers (``lecun_normal``
-    linear weights, zero biases, layer-norm and ``EMA`` group-norm scales 1
-    and shifts 0).  Raises on a parameter no rule covers (the model is
-    built on the ``meta`` device, so one would hold garbage)."""
+    linear weights and ``ELA``'s 1-D conv kernel, zero biases, layer-norm
+    and the ``EMA`` / ``ELA`` group-norm scales 1 and shifts 0);
+    ``ClippedTPReLU`` slopes at their init (0.25).  Raises on a parameter
+    no rule covers (the model is built on the ``meta`` device, so one would
+    hold garbage)."""
     done = set()
     for m in model.modules():
-        if isinstance(m, nn.modules.conv._ConvNd):
+        if isinstance(m, (nn.Linear, nn.Conv1d)):
+            lecun_normal_init_(m, generator)
+        elif isinstance(m, nn.modules.conv._ConvNd):
             torch_conv_init_(m, generator)
-        elif isinstance(m, nn.Linear):
-            lecun_linear_init_(m, generator)
         elif isinstance(m, B._BN):
             m.weight.fill_(m.gamma0)
             m.bias.zero_()
@@ -389,9 +429,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, BX._LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, BX.EMAAttention):
+        elif isinstance(m, (BX.EMAAttention, BT.ELA)):
             m.gn_scale.fill_(1.0)
             m.gn_bias.zero_()
+        elif isinstance(m, BS.ClippedTPReLU):
+            m.weight.fill_(m.init)
         else:
             continue
         done.update(map(id, m.parameters(recurse=False)))

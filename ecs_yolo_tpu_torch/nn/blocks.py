@@ -186,7 +186,14 @@ class MemUpdate(nn.Module):
     sends it to, and in training the depthwise spread kernel on its channels
     zero-padded to 8; every other site of ``BasicBlock_ms``, ``ConcatBlock_ms``,
     ``RepConv``, ``RepC3`` and the v9 / EMA models has ``C % 8 == 0`` and
-    takes the tensor-core kernel.  ``AIFI``'s token sites are not
+    takes the tensor-core kernel.  So does every site of the star, GSConv,
+    context-guide, CSP, HG and Ghost blocks (``starnet*``, ``ceshi``,
+    ``resnet_v8``, ``yolov5s``, ``yolov8s``, ``cspresnet10``, ``HGresnet``,
+    ``test``: widths that are multiples of 8, up to 1024 at 20x20); there
+    ``C2f`` and ``StarBlock_2C2f`` hand their first inner block a dense copy
+    of the second half of ``cv1``'s output, because a channel slice is a
+    strided view, which the tensor-core kernel's layout check would send to
+    ``ecs_lif_fused_rows``.  ``AIFI``'s token sites are not
     ``MemUpdate`` sites: ``nn/blocks_ext.TokenLIF`` sends them to
     ``lif_fused``.
 
@@ -478,6 +485,36 @@ class BasicBlock(nn.Module):
         if self.shortcut_conv is None:
             return y + x
         return y + self.shortcut_bn(self.shortcut_conv(x))
+
+
+class DepthWiseConv(nn.Module):
+    """Depthwise k x k (``depth``, one group a channel, padding ``p``) then
+    pointwise 1x1 (``point``), both with bias when ``use_bias`` (reference
+    DepthWiseConv); no neuron and no norm of its own."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int = 0,
+                 use_bias: bool = False):
+        super().__init__()
+        self.depth = SnnConv(c1, c1, k, s, p, g=c1, bias=use_bias)
+        self.point = SnnConv(c1, c2, 1, 1, 0, bias=use_bias)
+
+    def forward(self, x):
+        return self.point(self.depth(x))
+
+
+class Shortcut(nn.Module):
+    """MaxPool(1,s,s) -> mem_update -> 1x1 conv -> BN (reference
+    ``shortcut``)."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.s = s
+        self.act = MemUpdate(c1, snn=snn)
+        self.conv = SnnConv(c1, c2, 1, 1, 0)
+        self.bn = TBatchNorm(c2, 1.0, snn)
+
+    def forward(self, x):
+        return self.bn(self.conv(self.act(max_pool_t(x, self.s))))
 
 
 class DFL(nn.Module):

@@ -1,30 +1,43 @@
 """The part of the extended block library that is ported (counterpart of
-``ecs_yolo_tpu/nn/blocks_ext.py``): ``interpolate_nearest``, ``GSConv`` and
-``ASFF2`` for the ASFF heads; ``Silence``, ``CBLinear`` and ``CBFuse`` for the
-v9 wiring; ``EMAAttention`` (registry name ``EMA``); ``RepConv``, ``RepC3``,
+``ecs_yolo_tpu/nn/blocks_ext.py``): the YOLOv5 / v8 CSP family
+(``spatial_max_pool_same``, ``DWConv``, ``LightConv``, ``Bottleneck``,
+``C3``, ``C2f``, ``SPPF``, ``GhostConv``, ``GhostBottleneck``); the
+slim-neck family (``GSConv``, ``BasicBlock_6``, ``BasicBlock_1s``) and
+``DropPath`` / ``StarBlock_2``; ``interpolate_nearest`` and ``ASFF2`` for
+the ASFF heads; ``Silence``, ``CBLinear`` and ``CBFuse`` for the v9 wiring;
+``EMAAttention`` (registry name ``EMA``); ``RepConv``, ``RepC3``,
 ``TokenLIF``, ``sincos_pos_embed_2d`` and ``AIFI`` for the RT-DETR neck.
-The rest of that file is not ported yet (ROADMAP Queue 1 item 11).
+The rest of that file is not ported yet (ROADMAP Queue 1 item 11g).
 Features are ``[T, N, H, W, C]``; the channel axis is the last.
 
 Child modules carry the JAX module names (``cv1``, ``m0``, ``conv1x1``,
-``ma.query``, ``norm1``, ``fc1``, ...), so ``models/convert.py`` maps the
-JAX tree path for path; flax ``Dense`` / ``DenseGeneral`` kernels become
-``nn.Linear`` weights there.
+``ma.query``, ``norm1``, ``fc1``, ``dw_act``, ``sc_dw``, ...), so
+``models/convert.py`` maps the JAX tree path for path; flax ``Dense`` /
+``DenseGeneral`` kernels become ``nn.Linear`` weights there.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..config import DEFAULT_SNN, SNNConfig
 from ..snn.fused import lif_fused
 from ..snn.neuron import lif_scan
-from .blocks import Conv_2, Conv_3, Conv_4, MemUpdate, SnnConv, TBatchNorm
+from .blocks import (Conv_2, Conv_3, Conv_4, DepthWiseConv, MemUpdate, Shortcut, SnnConv,
+                     TBatchNorm, _nchw, _nhwc, fold_t, max_pool_t, unfold_t)
 from .segment import resize_nearest
+
+
+def spatial_max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-step spatial max pool of ``[T, N, H, W, C]``, stride 1, padding
+    ``k // 2`` (``F.max_pool2d`` pads with -inf, as flax's ``max_pool``)."""
+    y, t = fold_t(x)
+    return unfold_t(_nhwc(F.max_pool2d(_nchw(y), k, 1, k // 2)), t)
 
 
 def interpolate_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -32,22 +45,308 @@ def interpolate_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.repeat_interleave(factor, dim=-3).repeat_interleave(factor, dim=-2)
 
 
-class GSConv(nn.Module):
-    """Half-channel conv + depthwise 5x5 with a channel shuffle (reference
-    GSConv at the 1x1, stride 1 that ASFF2 builds): ``cv1`` (Conv_3 to
-    ``c2 // 2``), ``cv2`` (Conv_4 5x5, one group a channel), concatenated,
-    then the even channels before the odd ones."""
+# --- CSP family (reference :2143-2500) ---------------------------------------------
 
-    def __init__(self, c1: int, c2: int, snn: SNNConfig = DEFAULT_SNN):
+
+class DWConv(nn.Module):
+    """``Conv_3`` with ``gcd(c1, c2)`` groups (reference DWConv)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.conv = Conv_3(c1, c2, k, s, g=math.gcd(c1, c2), snn=snn)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class LightConv(nn.Module):
+    """1x1 ``Conv_3`` (``conv1``) then a k x k ``DWConv`` (``conv2``)
+    (reference LightConv)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.conv1 = Conv_3(c1, c2, 1, snn=snn)
+        self.conv2 = DWConv(c2, c2, k, snn=snn)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class Bottleneck(nn.Module):
+    """``Conv_3`` (``k[0]``, to ``c2 * e``) -> ``Conv_4`` (``k[1]``, ``g``
+    groups), plus the input when ``shortcut`` and ``c1 == c2`` (reference
+    Bottleneck)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
+                 k: Tuple[int, int] = (3, 3), e: float = 0.5, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.add = bool(shortcut) and c1 == c2
+        self.cv1 = Conv_3(c1, c_, k[0], 1, snn=snn)
+        self.cv2 = Conv_4(c_, c2, k[1], 1, g=g, snn=snn)
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3(nn.Module):
+    """CSP with three convs (reference C3): ``cv1`` (1x1 to ``c2 * e``) ->
+    ``m0 ... m{n-1}`` (``Bottleneck`` at ``k=(1, 3)``, ``e=1``), beside
+    ``cv2`` (1x1 of the input), concatenated, then ``cv3`` (1x1,
+    ``Conv_4``).  The YAML's repeat count is ``n``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv_3(c1, c_, 1, 1, snn=snn)
+        for i in range(n):
+            self.add_module(f"m{i}", Bottleneck(c_, c_, shortcut, g, k=(1, 3), e=1.0,
+                                                snn=snn))
+        self.cv2 = Conv_3(c1, c_, 1, 1, snn=snn)
+        self.cv3 = Conv_4(2 * c_, c2, 1, snn=snn)
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        for i in range(self.n):
+            y1 = getattr(self, f"m{i}")(y1)
+        return self.cv3(torch.cat([y1, self.cv2(x)], dim=-1))
+
+
+def _split_inner(block: nn.Module, y: torch.Tensor, c: int) -> torch.Tensor:
+    """The C2f walk: ``y``'s two halves of ``c`` channels, then each of
+    ``block.m0 ... m{n-1}`` on the output before it, all concatenated.  The
+    first inner block takes a dense copy of the second half: the slice is a
+    strided view, whose neuron site the tensor-core kernel would refuse
+    (``nn/blocks.MemUpdate``); the concat reads ``y`` whole in place of its
+    two halves."""
+    ys = [y]
+    h = y[..., c:].contiguous()
+    for i in range(block.n):
+        h = getattr(block, f"m{i}")(h)
+        ys.append(h)
+    return torch.cat(ys, dim=-1)
+
+
+class C2f(nn.Module):
+    """Fast CSP with two convs (reference C2f): ``cv1`` (1x1 to ``2c``,
+    ``c = c2 * e``) split in halves, ``m0 ... m{n-1}`` (``Bottleneck`` at
+    3x3, ``e=1``) chained on the second half, every piece concatenated,
+    then ``cv2`` (1x1, ``Conv_4``).  The YAML's repeat count is ``n``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
+                 e: float = 0.5, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv_3(c1, 2 * c, 1, 1, snn=snn)
+        for i in range(n):
+            self.add_module(f"m{i}", Bottleneck(c, c, shortcut, g, k=(3, 3), e=1.0,
+                                                snn=snn))
+        self.cv2 = Conv_4((2 + n) * c, c2, 1, snn=snn)
+
+    def forward(self, x):
+        return self.cv2(_split_inner(self, self.cv1(x), self.c))
+
+
+class SPPF(nn.Module):
+    """Fast spatial pyramid pooling (reference SPPF): ``cv1`` (1x1 to half
+    the input's channels), three chained k x k stride-1 max pools, the four
+    concatenated, then ``cv2`` (1x1, ``Conv_4``)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = k
+        self.cv1 = Conv_3(c1, c_, 1, 1, snn=snn)
+        self.cv2 = Conv_4(4 * c_, c2, 1, snn=snn)
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(spatial_max_pool_same(ys[-1], self.k))
+        return self.cv2(torch.cat(ys, dim=-1))
+
+
+class GhostConv(nn.Module):
+    """Ghost conv (reference GhostConv): ``cv1`` (``Conv_3`` to half of c2,
+    k, s, g groups) and its cheap depthwise 5x5 ``cv2`` (``Conv_4``),
+    concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
         super().__init__()
         c_ = c2 // 2
-        self.cv1 = Conv_3(c1, c_, 1, 1, snn=snn)
+        self.cv1 = Conv_3(c1, c_, k, s, g=g, snn=snn)
+        self.cv2 = Conv_4(c_, c_, 5, 1, g=c_, snn=snn)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], dim=-1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck (reference GhostBottleneck): ``pw`` (``GhostConv`` to
+    half of c2), at ``s == 2`` a ``DWConv`` ``dw`` (k, stride 2), ``pw2``
+    (``GhostConv`` to c2); the shortcut is ``sc_dw`` (``DWConv`` k, stride
+    2) -> ``sc_pw`` (1x1 ``Conv_3``) at ``s == 2``, else a 1x1 conv ``sc``
+    when the widths differ, else the input."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = c2 // 2
+        self.s2 = s == 2
+        self.pw = GhostConv(c1, c_, 1, 1, snn=snn)
+        self.dw = DWConv(c_, c_, k, s, snn=snn) if self.s2 else None
+        self.pw2 = GhostConv(c_, c2, 1, 1, snn=snn)
+        self.sc_dw = self.sc_pw = self.sc = None
+        if self.s2:
+            self.sc_dw = DWConv(c1, c1, k, s, snn=snn)
+            self.sc_pw = Conv_3(c1, c2, 1, 1, snn=snn)
+        elif c1 != c2:
+            self.sc = SnnConv(c1, c2, 1)
+
+    def forward(self, x):
+        y = self.pw(x)
+        if self.dw is not None:
+            y = self.dw(y)
+        y = self.pw2(y)
+        if self.s2:
+            sc = self.sc_pw(self.sc_dw(x))
+        else:
+            sc = x if self.sc is None else self.sc(x)
+        return y + sc
+
+
+# --- slim-neck GSConv family (reference :4228, :1392, :1144) ------------------------
+
+
+class GSConv(nn.Module):
+    """Half-channel conv + depthwise 5x5 with a channel shuffle (reference
+    GSConv): ``cv1`` (``Conv_3`` to ``c2 // 2``, k, s, g groups), ``cv2``
+    (``Conv_4`` 5x5, one group a channel), concatenated, then the even
+    channels before the odd ones.  ``ASFF2`` builds it at 1x1, stride 1."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv_3(c1, c_, k, s, g=g, snn=snn)
         self.cv2 = Conv_4(c_, c_, 5, 1, g=c_, snn=snn)
 
     def forward(self, x):
         y1 = self.cv1(x)
         y = torch.cat([y1, self.cv2(y1)], dim=-1)
         return torch.cat([y[..., 0::2], y[..., 1::2]], dim=-1)
+
+
+class _GSResidual(nn.Module):
+    """``conv2(conv1(x))`` (two ``GSConv``) plus the ``Shortcut`` of x when
+    the stride or the width changes, else x."""
+
+    def __init__(self, c1: int, c2: int, s: int, conv1: nn.Module, conv2: nn.Module,
+                 snn: SNNConfig):
+        super().__init__()
+        self.shortcut = Shortcut(c1, c2, s, snn=snn) if s != 1 or c1 != c2 else None
+        self.conv1, self.conv2 = conv1, conv2
+
+    def forward(self, x):
+        sc = x if self.shortcut is None else self.shortcut(x)
+        return self.conv2(self.conv1(x)) + sc
+
+
+class BasicBlock_6(_GSResidual):
+    """GSConv residual block (reference BasicBlock_6): ``conv1`` (k, s) and
+    ``conv2`` (k, 1), both ``GSConv`` to c2.  ``e`` is the JAX block's
+    field, unused there too."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, e: float = 2.0,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__(c1, c2, s, GSConv(c1, c2, k, s, snn=snn),
+                         GSConv(c2, c2, k, 1, snn=snn), snn)
+
+
+class BasicBlock_1s(_GSResidual):
+    """GSConv residual with a fixed 1024 hidden width (reference
+    BasicBlock_1s): ``conv1`` (``GSConv`` 3x3, stride s, to 1024) and
+    ``conv2`` (``GSConv`` 3x3 to c2).  ``e`` is unused, as in JAX."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: float = 0.5,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__(c1, c2, s, GSConv(c1, 1024, 3, s, snn=snn),
+                         GSConv(1024, c2, 3, 1, snn=snn), snn)
+
+
+# --- StarNet (reference :4437-4492, :4772) ------------------------------------------
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (reference DropPath): the identity unless ``rate >
+    0``, the module is training and a ``generator`` has been set on it (JAX
+    draws only when a ``dropout`` rng is given).  Then each index of the
+    leading axis (T, as in JAX) is kept with probability ``1 - rate`` and
+    scaled by its inverse; the mask is drawn on the generator's device."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if self.rate == 0.0 or not self.training or self.generator is None:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        u = torch.rand(shape, generator=self.generator, device=self.generator.device)
+        return x * (u < keep).to(x.device, x.dtype) / keep
+
+
+class StarBlock_2(nn.Module):
+    """StarNet element-wise product block on spiking convs (reference
+    StarBlock_2): ``dw_act`` -> ``dw`` (``DepthWiseConv`` k, stride s, no
+    bias) -> ``dw_bn``; ``f1`` and ``f2`` (1x1 ``Conv_3`` to ``mlp_ratio *
+    c1``) of that, ``relu6(f1) * f2``; ``g`` (1x1 ``Conv_4`` to c2) ->
+    ``dw2_act`` -> ``dw2`` (``DepthWiseConv`` k) -> ``dw2_bn`` (gamma 0.2 *
+    thresh) -> ``drop``; plus the input, or at a stride or width change
+    MaxPool(1,s,s) -> ``sc_act`` -> ``sc_conv`` (1x1 with bias) ->
+    ``sc_bn``.  ``F.relu6`` is a hardtanh, whose gradient is 0 at 0 and 6
+    as ``jax.nn.relu6``'s."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, mlp_ratio: int = 3,
+                 drop_path: float = 0.0, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.s = s
+        p = (k - 1) // 2
+        self.dw_act = MemUpdate(c1, snn=snn)
+        self.dw = DepthWiseConv(c1, c1, k, s, p)
+        self.dw_bn = TBatchNorm(c1, 1.0, snn)
+        self.f1 = Conv_3(c1, mlp_ratio * c1, 1, 1, snn=snn)
+        self.f2 = Conv_3(c1, mlp_ratio * c1, 1, 1, snn=snn)
+        self.g = Conv_4(mlp_ratio * c1, c2, 1, 1, snn=snn)
+        self.dw2_act = MemUpdate(c2, snn=snn)
+        self.dw2 = DepthWiseConv(c2, c2, k, 1, p)
+        self.dw2_bn = TBatchNorm(c2, 0.2, snn)
+        self.drop = DropPath(drop_path)
+        self.sc_act = self.sc_conv = self.sc_bn = None
+        if s != 1 or c1 != c2:
+            self.sc_act = MemUpdate(c1, snn=snn)
+            self.sc_conv = SnnConv(c1, c2, 1, 1, 0, bias=True)
+            self.sc_bn = TBatchNorm(c2, 1.0, snn)
+
+    def forward(self, x):
+        y = self.dw_bn(self.dw(self.dw_act(x)))
+        y = self.g(F.relu6(self.f1(y)) * self.f2(y))
+        y = self.drop(self.dw2_bn(self.dw2(self.dw2_act(y))))
+        if self.sc_act is None:
+            return x + y
+        return self.sc_bn(self.sc_conv(self.sc_act(max_pool_t(x, self.s)))) + y
+
+
+# --- ASFF fusion (reference :5051-5100) --------------------------------------------
 
 
 class ASFF2(nn.Module):

@@ -3,11 +3,12 @@
 
 A conv weight and its bias both draw from ``U(-1/sqrt(fan_in),
 1/sqrt(fan_in))``: ``kaiming_uniform_(a=sqrt(5))`` gives that bound for the
-weight.  A linear layer takes flax's ``Dense`` defaults, the JAX package's
-initializer for its transformer layers: ``lecun_normal`` (a normal of
-variance ``1 / fan_in`` truncated at two standard deviations) for the
-weight, zeros for the bias.  Values are drawn on the CPU and copied, so one
-seed gives the same weights on every device.
+weight.  A linear layer and a 1-D conv take flax's ``Dense`` / ``Conv``
+defaults, the JAX package's initializer for its transformer layers and
+``ELA``: ``lecun_normal`` (a normal of variance ``1 / fan_in`` truncated at
+two standard deviations) for the weight, zeros for the bias.  Values are
+drawn on the CPU and copied, so one seed gives the same weights on every
+device.
 """
 
 from __future__ import annotations
@@ -39,15 +40,18 @@ def torch_conv_init_(conv: nn.modules.conv._ConvNd,
 
 
 @torch.no_grad()
-def lecun_linear_init_(linear: nn.Linear, generator: torch.Generator) -> None:
-    """Weight and bias of an ``nn.Linear`` as flax ``Dense`` initialises
-    them: truncated-normal ``lecun_normal`` weight, zero bias."""
-    w = linear.weight
+def lecun_normal_init_(layer: nn.Module, generator: torch.Generator) -> None:
+    """Weight and bias of an ``nn.Linear`` or ``nn.Conv1d`` as flax ``Dense``
+    / ``Conv`` initialise them by default: a truncated-normal
+    ``lecun_normal`` weight (fan-in: every weight dim but the output's),
+    zero bias."""
+    w = layer.weight
     if w.is_meta:           # holds no values: nothing to draw
         return
-    std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978   # flax's truncation factor
+    fan_in = math.prod(w.shape[1:])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978   # flax's truncation factor
     v = torch.empty(w.shape, dtype=torch.float32)
     nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std, generator=generator)
     w.copy_(v)
-    if linear.bias is not None:
-        linear.bias.zero_()
+    if layer.bias is not None:
+        layer.bias.zero_()

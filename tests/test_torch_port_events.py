@@ -192,7 +192,8 @@ def test_event_model_matches_jax_f64_in_eval_and_training():
     assert pm.spec == module.spec and pm.tinv_prefix == module.tinv_prefix > 0
     v = _random_variables(lambda: module.init(jax.random.PRNGKey(0),
                                               jnp.zeros((1, 64, 64, 3)), training=False), 5)
-    x = np.random.RandomState(2).rand(2, T, 64, 64, 3)
+    # 32 px: XLA's cheap compile runs the float64 graph slowly, by pixel
+    x = np.random.RandomState(2).rand(2, T, 32, 32, 3)
 
     def run(v_, x_):
         out = module.apply(v_, x_, training=False)

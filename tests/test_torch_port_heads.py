@@ -76,10 +76,11 @@ def _assert_tree_close(got, want, tol=1e-9):
 _FAST = dict(xla_backend_optimization_level=0, xla_llvm_disable_expensive_passes=True)
 
 
-def _jax_f64(module, xs, seed, training=False):
+def _jax_f64(module, xs, seed, training=False, compiler_options=_FAST):
     """Seeded variables for ``module`` on ``xs`` (an array or a list), and
     in float64 its eval output, or with ``training`` its eval output, its
-    training output and its updated BN statistics (one jit)."""
+    training output and its updated BN statistics (one jit, with XLA's
+    cheap compile unless ``compiler_options`` says otherwise)."""
     as_list = isinstance(xs, list)
     x32 = [jnp.asarray(a) for a in xs] if as_list else jnp.asarray(xs)
     v = _random_variables(lambda: module.init(jax.random.PRNGKey(0), x32), seed)
@@ -95,7 +96,7 @@ def _jax_f64(module, xs, seed, training=False):
         v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), v)
         x64 = ([np.asarray(a, np.float64) for a in xs] if as_list
                else np.asarray(xs, np.float64))
-        return v, jax.jit(run, compiler_options=_FAST)(v64, x64)
+        return v, jax.jit(run, compiler_options=compiler_options)(v64, x64)
 
 
 # --- blocks ------------------------------------------------------------------------
