@@ -149,6 +149,7 @@ power limit, the ``{"kernels": ...}`` summary and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -2058,6 +2059,15 @@ HEAD_PARAM_GRAD_RTOL = 1e-2
 #: the planted fault that gate must see: K4 writing every PLANT_STRIDE-th
 #: element of the int8 spike plane its backward reads flipped
 PLANT_STRIDE = 997
+#: the probes' float32 step holds a bias's gradient error relative to the
+#: larger of its own plain gradient and its module's weight's: a bias whose
+#: gradient is a sum that cancels (zero in exact arithmetic behind a
+#: training-mode BN: DSSA's ``Wproj``, MHSA's ``proj_conv``, RepNCSP's
+#: ``cv3_conv``; near zero beside its weight's in ASFF2's ``w0`` / ``w1`` /
+#: ``wl``) keeps the spread kernels' float32 rounding as a large share of a
+#: tiny value
+LAYER_SCALED_NOTE = ("a bias's error over the larger of its plain gradient norm and its "
+                     "module weight's")
 
 
 def launch_counters() -> tuple:
@@ -2139,7 +2149,8 @@ def head_model(cfg: str, seed: int, xb: torch.Tensor, bn_cls):
     return model
 
 
-def f32_step_check(model, batch, sites, plain_kernels, hyp, plant=False) -> tuple:
+def f32_step_check(model, batch, sites, plain_kernels, hyp, plant=False,
+                   layer_scaled=False) -> tuple:
     """One float32 training step's loss and gradients on the kernel route
     against the same step under ``plain_kernels()`` from the same state, each
     site of the plain rerun handing on the kernel run's output (its gradient
@@ -2147,7 +2158,10 @@ def f32_step_check(model, batch, sites, plain_kernels, hyp, plant=False) -> tupl
     against its plain version on its real input.  With ``plant`` the kernel
     step is run again with K4 writing a wrong int8 plane (``PLANT_STRIDE``),
     which leaves the forward as it is and must move a gradient past
-    ``HEAD_PARAM_GRAD_RTOL``."""
+    ``HEAD_PARAM_GRAD_RTOL``.  Each gradient's error is relative to its
+    plain value; with ``layer_scaled`` a bias's error is relative to the
+    larger of its plain gradient and the plain gradient of its module's
+    weight (``LAYER_SCALED_NOTE``)."""
     from ecs_yolo_tpu_torch.snn import spread as S
     from ecs_yolo_tpu_torch.train.optim import build_optimizer
     from ecs_yolo_tpu_torch.train.trainer import create_train_state, make_grad_fn
@@ -2186,9 +2200,14 @@ def f32_step_check(model, batch, sites, plain_kernels, hyp, plant=False) -> tupl
             h.remove()
     del seen, kept
 
+    def scale(k):
+        n, w = grads_p[k].norm(), k[:-len("bias")] + "weight"
+        if layer_scaled and k.endswith(".bias") and w in grads_p:
+            n = torch.maximum(n, grads_p[w].norm())
+        return n.clamp(min=1e-30)
+
     def rel(grads):
-        return {k: float((grads[k] - grads_p[k]).norm() / grads_p[k].norm().clamp(min=1e-30))
-                for k in grads}
+        return {k: float((grads[k] - grads_p[k]).norm() / scale(k)) for k in grads}
 
     err = rel(grads_k)
     rec = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
@@ -2203,6 +2222,16 @@ def f32_step_check(model, batch, sites, plain_kernels, hyp, plant=False) -> tupl
            "param_grad_rel_err_max": max(err.values()),
            "worst_param_grad_rel_err": sorted(err.items(), key=lambda kv: -kv[1])[:6],
            "param_grad_rtol": HEAD_PARAM_GRAD_RTOL}
+    if layer_scaled:        # also each parameter against its own plain gradient
+        raw = {k: float((grads_k[k] - grads_p[k]).norm() / grads_p[k].norm().clamp(min=1e-30))
+               for k in grads_k}
+        weight_of = lambda k: k[:-len("bias")] + "weight"
+        rec["bias_grad_err"] = LAYER_SCALED_NOTE
+        rec["param_grad_rel_err_max_unscaled"] = max(raw.values())
+        rec["worst_unscaled"] = [   # name, error, plain gradient norm, its module weight's
+            [k, v, float(grads_p[k].norm()),
+             float(grads_p[weight_of(k)].norm()) if weight_of(k) in grads_p else None]
+            for k, v in sorted(raw.items(), key=lambda kv: -kv[1])[:8]]
     ok = (len(shares) + len(silu) == len(input_diff) == len(sites)
           and sites_ok(shares, silu, torch.float32) and rec["grads_finite"]
           and rec["loss_rel_err"] <= HEAD_PARAM_GRAD_RTOL
@@ -2275,8 +2304,8 @@ def phase_heads(seed: int, train_src: Path, val_root: Path, log) -> dict:
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         write_images(Path(tmp))
-        ims = [im for _, im, _ in LoadImages(tmp, IMGSZ)]
-        xb = torch.from_numpy(np.concatenate(ims * 2)).cuda().float() / 255.0
+        ims = [im for _, im, _ in LoadImages(tmp, IMGSZ)]     # already in 0-1
+        xb = torch.from_numpy(np.concatenate(ims * 2)).cuda()
         batch = train_batch(seed=3)
 
         # --- res10v8: serving ---------------------------------------------------
@@ -2938,21 +2967,124 @@ def phase_segment(seed: int, root: Path, log) -> dict:
     return out
 
 
-#: the ``zoo`` phase: b2 forwards and steps, b8 for the timed YAMLs; the
-#: float32 step (with the planted fault) of ``ZOO_STEP_CFGS``, the
+#: the ``zoo`` phase: b2 forwards and steps, b8 for the timed YAMLs (a
+#: probe's checked forward is b2, its timed one b8); the float32 step
+#: (with the planted fault) of ``ZOO_STEP_CFGS``, the
 #: ``train()`` epoch of ``ZOO_EPOCH_CFGS``, sync-debug "error" on the step
 #: of ``ZOO_SYNC_CFGS``, ``detect.run`` of ``ZOO_DETECT_CFGS``; the epoch's
 #: image counts
 ZOO_BATCH = 2
 ZOO_TIMED = ("resnet10-v9.yaml", "resnetaifi.yaml", "res10-ee.yaml", "yolov8s.yaml",
-             "ceshi.yaml")
-ZOO_STEP_CFGS = ("resnet10-v9.yaml", "ceshi.yaml")
+             "ceshi.yaml", "probe-v5", "probe-gelan")
+ZOO_STEP_CFGS = ("resnet10-v9.yaml", "ceshi.yaml", "probe-gelan")
 ZOO_EPOCH_CFGS = ("resnet10-v9.yaml", "yolov8s.yaml")
-ZOO_SYNC_CFGS = ("resnet_rtdetr.yaml", "HGresnet.yaml")
-ZOO_DETECT_CFGS = ("resnetaifi.yaml", "starnet4.yaml")
+ZOO_SYNC_CFGS = ("resnet_rtdetr.yaml", "HGresnet.yaml", "probe-v5", "probe-gelan")
+ZOO_DETECT_CFGS = ("resnetaifi.yaml", "starnet4.yaml", "probe-v5")
 #: a float32 step's gate tighter than ``HEAD_PARAM_GRAD_RTOL``, per YAML
 ZOO_F32_RTOL = {"ceshi.yaml": 1e-3}
 ZOO_TRAIN_IMAGES, ZOO_VAL_IMAGES = 16, 8
+
+
+#: the two probe models of the zoo phase: the registry rows no YAML of the
+#: JAX package names (ROADMAP Queue 1 item 11g-1), each set into one of the
+#: port's YAMLs at that YAML's own nc, depth, width and anchors (its
+#: backbone and head replaced): name -> (base YAML, backbone, head).
+#: probe-v5 is yolov5s with Ultralytics' v5.0 and ghost rows (a Focus stem,
+#: BottleneckCSP / C3Ghost / GhostConv, BoT3 at P5, SPP for SPPF, C3SPP /
+#: CrossConv / MixConv2d in the neck, a strided BottleneckTransformer from
+#: P4 to P5); probe-gelan is resnet10 with a
+#: Conv_A + zeropad + Pools stem (T-invariant: it runs once at T=1), DSSA /
+#: MHSA / SELayer at P5, ASFF3 / ASFF2 fusion, the RepN rows and
+#: RepNCSPELAN4 in place of the head's BasicBlock_2 rows, Conv_5 / Conv_6,
+#: Contract / Expand.  Its Sum rows add a healthy map to the outputs that
+#: are near-constant at init (MHSA's saturated attention behind a BN; the
+#: 0.2-gamma BNs closing ASFF3 and ASFF2), so that no neuron behind them
+#: stays silent and the float32 step's gradient stays finite (a silent
+#: chain of zero-variance BNs overflows it, as in the CPU tests' yolov8s)
+PROBES = {
+    "probe-v5": ("yolov5s.yaml", [
+        [-1, 1, "Focus", [64, 3]],                    # 0 P1/2
+        [-1, 1, "GhostConv", [128, 3, 2]],            # 1 P2/4
+        [-1, 3, "BottleneckCSP", [128]],              # 2
+        [-1, 1, "Conv_3", [256, 3, 2]],               # 3 P3/8
+        [-1, 6, "C3Ghost", [256]],                    # 4
+        [-1, 1, "GhostConv", [512, 3, 2]],            # 5 P4/16
+        [-1, 9, "BottleneckCSP", [512]],              # 6
+        [-1, 1, "Conv_3", [1024, 3, 2]],              # 7 P5/32
+        [-1, 3, "BoT3", [1024]],                      # 8
+        [-1, 1, "SPP", [1024, [5, 9, 13]]],           # 9
+    ], [
+        [-1, 1, "DWConv", [512, 3, 1]],               # 10
+        [-1, 1, "Sample", ["None", 2, "nearest"]],    # 11
+        [[-1, 6], 1, "Concat", [2]],                  # 12
+        [-1, 1, "C3SPP", [512, [5, 9, 13]]],          # 13
+        [-1, 1, "LightConv", [256, 3]],               # 14
+        [-1, 1, "Sample", ["None", 2, "nearest"]],    # 15
+        [[-1, 4], 1, "Concat", [2]],                  # 16
+        [-1, 1, "CrossConv", [256, 3, 1]],            # 17 P3/8
+        [-1, 1, "MixConv2d", [256, [1, 3], 2]],       # 18
+        [[-1, 14], 1, "Concat", [2]],                 # 19
+        [-1, 1, "GhostBottleneck", [512, 3, 1]],      # 20
+        [-1, 1, "ELA", [7]],                          # 21 P4/16
+        [-1, 1, "BottleneckTransformer", [512, 2, 4]],  # 22 2x2 average pool
+        [[-1, 10], 1, "Concat", [2]],                 # 23
+        [-1, 1, "GSConv", [1024, 3, 1]],              # 24
+        [-1, 1, "Bottleneck", [1024]],                # 25
+        [-1, 1, "ClippedTPReLU", []],                 # 26 P5/32
+        [[17, 21, 26], 1, "DDetect", ["nc"]],         # 27
+    ]),
+    "probe-gelan": ("resnet10.yaml", [
+        [-1, 1, "Conv_A", [64, 7, 2]],                # 0 P1/2
+        [-1, 1, "zeropad", [[1, 1, 1, 1]]],           # 1
+        [-1, 1, "Pools", [3, 2]],                     # 2 P2/4
+        [-1, 1, "BasicBlock_2", [64, 3, 1]],          # 3
+        [-1, 1, "Concat_res2", [128, 3, 2]],          # 4 P3/8
+        [-1, 1, "Concat_res2", [256, 3, 2]],          # 5 P4/16
+        [-1, 1, "Concat_res2", [512, 3, 2]],          # 6 P5/32
+    ], [
+        [-1, 1, "DSSA", [8]],                         # 7
+        [-1, 1, "MHSA", [512, 8]],                    # 8
+        [[-1, 7], 1, "Sum", [2, True]],               # 9
+        [-1, 1, "SELayer", [16]],                     # 10
+        [[-1, 5, 4], 1, "ASFF3", [0]],                # 11 P5, with P4 and P3
+        [[-1, 10], 1, "Sum", [2]],                    # 12
+        [-1, 1, "RepConvN", [512, 3, 1]],             # 13
+        [-1, 1, "RepNBottleneck", [512]],             # 14
+        [-1, 1, "RepConv", [512]],                    # 15
+        [[-1, 5], 1, "ASFF2", [1]],                   # 16 P4, with P5
+        [[-1, 5], 1, "Sum", [2]],                     # 17
+        [-1, 2, "RepNCSP", [256]],                    # 18
+        [-1, 1, "RepNCSPELAN4", [256, 256, 128, 1]],  # 19
+        [15, 1, "Expand", [2]],                       # 20 P5 -> P4
+        [-1, 1, "Conv_5", [256, 3, 1]],               # 21
+        [[19, 21], 1, "Sum", [2]],                    # 22
+        [-1, 1, "Conv_B", [256, 3, 1]],               # 23
+        [-1, 1, "Conv_6", [256, 3, 1]],               # 24
+        [-1, 1, "DepthWiseConv", [256, 3, 1, 1]],     # 25 P4/16
+        [5, 1, "Contract", [2]],                      # 26 P4 -> P5
+        [-1, 1, "shortcut", [512, 1]],                # 27
+        [[-1, 15], 1, "Concat", [2]],                 # 28
+        [-1, 1, "RepNCSPELAN4", [512, 512, 256, 1]],  # 29 P5/32
+        [[25, 29], 1, "Detect", ["nc", "anchors"]],   # 30
+    ]),
+}
+
+
+#: the probes at 640 px, T=4, nc 13, as ``ZOO_SITES``: (neuron sites, K1,
+#: K2 and K6 launches of one eval forward, K5 and K4 launches of one
+#: training forward); no site on K2 (``RepNCSPELAN4`` hands ``csp0`` a
+#: dense copy); K6 at the ``MHSA`` / ``DSSA`` token sites;
+#: tests/test_torch_port_blocks_reg.py holds it against the models' hooks
+PROBE_SITES = {"probe-v5": (77, 75, 0, 2, 57, 159), "probe-gelan": (74, 72, 0, 2, 24, 192)}
+
+
+def probe_cfg(name: str) -> dict:
+    """The model dict of probe ``name``: its base YAML (the port's copy)
+    with (a copy of) the probe's backbone and head."""
+    from ecs_yolo_tpu_torch.models.yolo import load_cfg
+
+    base, backbone, head = copy.deepcopy(PROBES[name])
+    return {**load_cfg(base), "backbone": backbone, "head": head}
 
 
 def cold_graph_ms(fn, x: torch.Tensor, replays: int = 3) -> float:
@@ -3035,7 +3167,10 @@ def zoo_narrow_spread(S, BS, log) -> dict:
     an element), and the gradients in float32 (``phase_spread_grads``).
     ``ms``: the wrapper's calls (pads and launch) replayed in a CUDA graph;
     ``padded_launch_ms`` the launch alone on planes padded beforehand;
-    ``wrapper_ms`` the calls eager."""
+    ``wrapper_ms`` the calls eager; ``library_ms`` / ``library_eager_ms``
+    the library's depthwise conv of the same C = 3 plane (``F.conv2d(groups
+    = 3)`` with bias, channels_last, as ``phase_spread`` times it at the
+    other K4 sites) replayed and eager."""
     import torch.nn.functional as F
 
     shape = (ZOO_BATCH, IMGSZ, IMGSZ, 3)
@@ -3043,17 +3178,21 @@ def zoo_narrow_spread(S, BS, log) -> dict:
     padded = [F.pad(t, (0, 5)) for t in (s, dw, dwb)]
     call, plain = (lambda: S.binary_dw3_conv(s, dw, dwb),
                    lambda: S.binary_dw3_conv_reference(s, dw, dwb))
+    s_n, kd = s.permute(0, 3, 1, 2), dw.permute(3, 2, 0, 1).contiguous()
+    lib = lambda: F.conv2d(s_n, kd, dwb, padding=1, groups=3)
     with torch.no_grad():
         got, want = call(), plain()
         ms, wrapper_ms, plain_ms = BS.graph_ms(call), cuda_ms(call, 5), cuda_ms(plain, 5)
         launch_ms = BS.graph_ms(lambda: S._dw3_kernel(*padded))
+        library_ms, library_eager_ms = BS.graph_ms(lib), cuda_ms(lib, 5)
     n = math.prod(shape)
     bms, by = bound(n * (2 + 2 + 1), 18 * n, torch.bfloat16)
     rec = {"phase": "zoo_kernel_check", "kernel": "binary_dw3_conv", "shape": list(shape),
            "dtype": "bfloat16", "channels_padded_to": 8,
            **check_spread("binary_dw3_conv", got, want, torch.bfloat16),
            "ms": ms, "padded_launch_ms": launch_ms, "wrapper_ms": wrapper_ms,
-           "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "ms_over_bound": ms / bms}
+           "plain_ms": plain_ms, "library_ms": library_ms, "library_eager_ms": library_eager_ms,
+           "bound_ms": bms, "bound_by": by, "ms_over_bound": ms / bms}
     emit(rec, log)
     phase_spread_grads(S, log, [shape])
     return rec
@@ -3078,19 +3217,23 @@ def zoo_sites_sum(recs) -> dict:
 
 
 def phase_zoo(seed: int, root: Path, log) -> dict:
-    """The block library's YAMLs on the card (``ZOO_SITES``), 640 px, nc 13,
-    T=4, bf16 parameters with float32 BN statistics, random weights from
-    ``seed``, BN calibrated on the batch.
+    """The block library's YAMLs on the card (``ZOO_SITES``) and the two
+    probe models of the registry rows no YAML names (``PROBES``,
+    ``PROBE_SITES``), 640 px, nc 13, T=4, bf16 parameters with float32 BN
+    statistics, random weights from ``seed``, BN calibrated on the batch.
 
-    Each YAML: one eval forward (b``ZOO_BATCH``; b8 for ``ZOO_TIMED``) with
-    every neuron site held to the plain version of its kernel on its real
-    input (K1 and K2 spike shares within ``SPIKE_BOUND``, SiLU sites within
-    ``LIF_SILU_ULPS_BF16``, the ``AIFI`` token sites on K6 equal) and its
-    K1 / K2 / K6 launches equal to ``ZOO_SITES``; one b``ZOO_BATCH`` bf16
+    Each model: one eval forward (b``ZOO_BATCH``; b8 for the YAMLs of
+    ``ZOO_TIMED``) with every neuron site held to the plain version of its
+    kernel on its real input (K1 and K2 spike shares within
+    ``SPIKE_BOUND``, SiLU sites within ``LIF_SILU_ULPS_BF16``, the
+    ``TokenLIF`` sites on K6 equal) and its K1 / K2 / K6 launches equal to
+    the table; one b``ZOO_BATCH`` bf16
     train step, its K4 / K5 launches equal to the table and its peak
     memory.  ``ZOO_TIMED``: the b8 forward timed and profiled;
-    ``res10-ee``'s K2 stem site and ``resnetaifi``'s K6 token sites timed
-    beside their plain versions and bounds (``zoo_site_check``).
+    ``res10-ee``'s K2 stem site and the K6 token sites of ``resnetaifi``
+    and of the probes' ``MHSA`` / ``DSSA`` timed beside their plain
+    versions and bounds (``zoo_site_check``; a probe's at the b2 check's
+    inputs).
     ``ZOO_DETECT_CFGS``: ``detect.run`` over 4 synthetic images.
     ``ZOO_STEP_CFGS``: the float32 step teacher-forced against its
     ``plain_kernels()`` rerun with the planted K4 fault
@@ -3119,15 +3262,20 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
     reset, read = launch_counters()
     (root / "detect").mkdir(parents=True)
     write_images(root / "detect")
-    ims = [im for _, im, _ in LoadImages(str(root / "detect"), IMGSZ)]
-    xb = torch.from_numpy(np.concatenate(ims * 2)).cuda().float() / 255.0
+    ims = [im for _, im, _ in LoadImages(str(root / "detect"), IMGSZ)]    # already in 0-1
+    xb = torch.from_numpy(np.concatenate(ims * 2)).cuda()
     batch = train_batch(seed=5)
-    out = {"models": {}, "stem": None, "tokens": []}
+    out = {"models": {}, "stem": None, "tokens": [], "probe_tokens": {c: [] for c in PROBES}}
     out["k4_narrow"] = zoo_narrow_spread(S, BS, log)
-    for j, (cfg, (n_sites, k1, k2, k6, gemm, dw3)) in enumerate(ZOO_SITES.items()):
+    t_probes = None
+    for j, (cfg, (n_sites, k1, k2, k6, gemm, dw3)) in enumerate(
+            {**ZOO_SITES, **PROBE_SITES}.items()):
         t0 = time.perf_counter()
-        b = N if cfg in ZOO_TIMED else ZOO_BATCH
-        model = head_model(cfg, seed + 60 + j, xb[:ZOO_BATCH], _BN)
+        if cfg in PROBES and t_probes is None:
+            t_probes = t0
+        b = N if cfg in ZOO_TIMED and cfg not in PROBES else ZOO_BATCH
+        model = head_model(probe_cfg(cfg) if cfg in PROBES else cfg, seed + 60 + j,
+                           xb[:ZOO_BATCH], _BN)
         sites = [m for m in model.modules() if isinstance(m, (MemUpdate, TokenLIF))]
         mem_sites = [m for m in sites if isinstance(m, MemUpdate)]
         state32 = ({k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -3153,6 +3301,10 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
                    tuple(xin.shape[2:]) for _, xin, _ in seen).items(), reverse=True)],
                "prediction_shape": list(pred.shape),
                "prediction_finite": bool(torch.isfinite(pred).all())}
+        if cfg in PROBES:       # what each site of the new rows fires
+            names = {id(m): n for n, m in model.named_modules()}
+            rec["site_firing_rates"] = [[names[id(m)], float(o.float().mean())]
+                                        for m, _, o in seen]
         want = {"ecs_lif_fused": k1, "ecs_lif_fused_rows": k2, "lif_fused": k6,
                 "binary_dw3_conv": 0, "packed_spread": 0}
         ok = (len(seen) == n_sites and sites_ok(shares, silu, torch.bfloat16)
@@ -3173,8 +3325,9 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
                     rec["k2_stem_ms"] = out["stem"]["ms"]
                     rec["k2_stem_bound_ms"] = out["stem"]["bound_ms"]
                 elif isinstance(m, TokenLIF):
-                    out["tokens"].append(zoo_site_check(FZ, BS, m, xin, plain_kernels,
-                                                        "lif_fused", log))
+                    tokens = out["probe_tokens"][cfg] if cfg in PROBES else out["tokens"]
+                    tokens.append(zoo_site_check(FZ, BS, m, xin, plain_kernels,
+                                                 "lif_fused", log))
         del seen, mem, tok
         emit(rec, log)
         if not ok:
@@ -3200,7 +3353,7 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
         if cfg in ZOO_STEP_CFGS:
             model.load_state_dict(state32)
             rec, tx, state = f32_step_check(model, small, mem_sites, plain_kernels, hyp,
-                                            plant=True)
+                                            plant=True, layer_scaled=cfg in PROBES)
             rtol = ZOO_F32_RTOL.get(cfg, HEAD_PARAM_GRAD_RTOL)
             rec["zoo_param_grad_rtol"] = rtol
             emit({"phase": "zoo_train_step_fp32", "cfg": cfg, "batch": ZOO_BATCH, **rec}, log)
@@ -3239,6 +3392,8 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
         del model, state, step, tx, sites, mem_sites, pred_out, pred
         torch.cuda.empty_cache()
     del xb, batch
+    out["probes_seconds"] = time.perf_counter() - t_probes
+    emit({"phase": "zoo_probes_seconds", "seconds": out["probes_seconds"]}, log)
 
     # --- an epoch of train.driver.train each, val on the EMA copy ---------------------
     train_src = write_val_set(root / "train", seed + 500, ZOO_TRAIN_IMAGES)
@@ -3263,7 +3418,8 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
                 or launches["binary_dw3_conv"] != dw3 * h["micro_steps"]
                 or launches["packed_spread"] != gemm * h["micro_steps"]):
             raise AssertionError(f"{cfg} train() epoch failed its checks: {rec}")
-    if out["stem"] is None or len(out["tokens"]) != ZOO_SITES["resnetaifi.yaml"][3]:
+    if (out["stem"] is None or len(out["tokens"]) != ZOO_SITES["resnetaifi.yaml"][3]
+            or any(len(out["probe_tokens"][c]) != PROBE_SITES[c][3] for c in PROBES)):
         raise AssertionError("zoo: the K2 stem site or the K6 token sites were not timed")
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "zoo_seconds", "seconds": out["seconds"]}, log)
@@ -3486,8 +3642,9 @@ def main(argv=None) -> int:
             zoo_launches_per_forward=zoo_launches(zoo, "ecs_lif_fused"),
             zoo_detect_launches={c: zoo["models"][c]["detect_launches"]["ecs_lif_fused"]
                                  for c in ZOO_DETECT_CFGS},
-            zoo_note=f"zoo_*: the {len(ZOO_SITES)} YAMLs of the zoo phase at 640 px, one "
-                     f"forward each (b{N} for {', '.join(ZOO_TIMED)}, else b{ZOO_BATCH}), "
+            zoo_note=f"zoo_*: the {len(ZOO_SITES)} YAMLs and the {len(PROBES)} probe models "
+                     f"({', '.join(PROBES)}) of the zoo phase at 640 px, one forward each "
+                     f"(b{N} for the YAMLs of {', '.join(ZOO_TIMED)}, else b{ZOO_BATCH}), "
                      f"and detect.run of {', '.join(ZOO_DETECT_CFGS)} over 4 images each",
             events_note=f"events_*: event mode, res10 nc {EVENT_NC} at {EVENT_IMGSZ} px, "
                         f"T={EVENT_T}, N={N}, bf16: K1's launches in one forward and its "
@@ -3562,6 +3719,10 @@ def main(argv=None) -> int:
             events_bound_ms=events["k6"].bound_ms,
             zoo_launches_per_forward=zoo_launches(zoo, "lif_fused"),
             zoo_token_sites=zoo_sites_sum(zoo["tokens"]),
+            zoo_probe_token_sites={c: zoo_sites_sum(r) for c, r in zoo["probe_tokens"].items()},
+            zoo_probe_note="zoo_probe_token_sites: per probe model, its MHSA attention "
+                           "outputs ([T, N, H*W, C]) and DSSA attention maps ([T, N, "
+                           f"H*W*heads, H*W]) at b{ZOO_BATCH}, summed as zoo_token_sites",
             zoo_note="zoo_*: the AIFI encoder's token sites ([T, N, H*W, C], the one "
                      "TokenLIF applied six times a forward; K6 whatever snn.ecs says), "
                      "launches per forward of each zoo YAML; zoo_token_sites sums the "

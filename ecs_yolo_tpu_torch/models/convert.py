@@ -49,6 +49,15 @@ conv kernel ``se/conv1d/kernel`` ``[k, 1, C]`` -> ``se.conv1d.weight``
 ``BasicBlock_1`` and ``Concat_res2``, whose leaves take those blocks' own
 map: ``m0/conv1/conv/kernel`` -> ``m0.residual_function.1.weight``.
 
+The registry rows of the rest of ``nn/blocks.py``, ``nn/blocks_ext.py``,
+``nn/experimental.py`` and ``nn/blocks_v9.py`` map path for path too:
+``MixConv2d``'s grouped kernels ``m{i}/conv/kernel`` HWIO -> ``m{i}.weight``
+OIHW, ``SELayer``'s ``Dense`` kernels ``fc1/kernel`` -> ``fc1.weight``
+(transposed), ``Sum``'s weight ``w`` as it is, ``DSSA``'s batch statistics
+``firing_rate_x`` / ``firing_rate_attn`` -> the buffers of the same names,
+``Conv_5``'s ``conv/depth/conv/kernel`` -> ``conv.depth.weight``, and a
+``Conv_7`` row's ``w`` -> ``conv.weight`` as in ``Detect``.
+
 Every leaf of the JAX tree is mapped or the conversion raises, and
 ``load_state_dict(strict=True)`` on the port's model checks the other
 direction.
@@ -93,7 +102,8 @@ _LEAVES = {
     "bn/scale": "bn.weight", "bn/bias": "bn.bias",
     "bn/mean": "bn.running_mean", "bn/var": "bn.running_var",
     "gn_scale": "gn_scale", "gn_bias": "gn_bias",
-    "conv1d/kernel": "conv1d.weight", "weight": "weight",
+    "conv1d/kernel": "conv1d.weight", "weight": "weight", "w": "w",
+    "firing_rate_x": "firing_rate_x", "firing_rate_attn": "firing_rate_attn",
 }
 # flax Dense / DenseGeneral / LayerNorm modules (AIFI) -> nn.Linear / layer norm
 _DENSE = {"query", "key", "value", "out", "fc1", "fc2", "norm1", "norm2"}
@@ -129,6 +139,8 @@ def _torch_name(block: str, path: str) -> str:
     inner = re.fullmatch(r"(m\d+)/(.+)", path) if block in _NESTED else None
     if inner:
         return f"{inner[1]}.{_torch_name(_NESTED[block], inner[2])}"
+    if block == "Conv_7" and path == "w":
+        return "conv.weight"
     if block not in _MODULES and block != "Detect":
         return _path_name(block, path)
     if block == "Detect":
@@ -147,7 +159,8 @@ def _torch_name(block: str, path: str) -> str:
 
 
 def _layout(block: str, path: str, w: np.ndarray) -> np.ndarray:
-    if block == "Detect" and re.fullmatch(r"w\d+/w", path):
+    if (block == "Detect" and re.fullmatch(r"w\d+/w", path)) or (
+            block == "Conv_7" and path == "w"):
         return w.reshape(1, w.shape[2], 1, 1, 1)      # Conv_7 [1,1,T,1]
     if w.ndim == 4:
         return np.transpose(w, (3, 2, 0, 1))          # HWIO -> OIHW

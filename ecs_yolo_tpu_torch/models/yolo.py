@@ -2,24 +2,18 @@
 ``ecs_yolo_tpu/models/yolo.py``).
 
 Covers every row of the 33 YAMLs in ``models/yaml/`` (all of the JAX
-package's): ``Conv_1``, ``BasicBlock_1``, ``BasicBlock_2``, ``Concat_res2``,
-``Conv``, ``Conv_2``, ``Conv_3``, ``Conv_4``, ``BasicBlock``
-(``nn/blocks.py``); ``BasicBlock_ms``, ``ConcatBlock_ms``,
-``BasicBlock_ms1``, ``ContextGuideFusionModule``, ``HGBlock``
-(``nn/blocks_tail.py``); ``C3``, ``C2f``, ``SPPF``, ``BasicBlock_6``,
-``BasicBlock_1s``, ``StarBlock_2``, ``RepC3``, ``CBLinear``, ``CBFuse``,
-``Silence``, ``EMA``, ``AIFI`` (``nn/blocks_ext.py``); ``StarBlock_4``,
-``StarBlock_5``, ``StarBlock_2C2f`` (``nn/blocks_star.py``);
-``ResNetLayerBasic`` (``nn/blocks_tail2.py``); ``BasicBlock_2C3``,
-``BasicBlock_1C3``, ``Concat_res2C3`` (``nn/blocks_v9.py``); ``Sample``,
-``Concat`` (repeated rows as ``nn.Sequential``), the nine detection heads
-of ``nn/heads.py`` (``Detect``, ``DDetect``, ``DualDetect``,
-``DualDDetect``, ``TripleDetect``, ``TripleDDetect``, ``v10Detect``,
-``ASFF_DDetect``, ``ASFF_v10Detect``) and ``Segment`` / ``Panoptic`` of
-``nn/segment.py``.  Any other block raises ``KeyError`` (ROADMAP Queue 1
-item 11g: the registry names no YAML uses).  Layers are ``model.{i}``.  A
-``CBLinear`` row's output is a list of tensors (its ``chs`` entry a tuple),
-which the forward caches like any other output for the ``CBFuse`` rows.
+package's) and the registry rows of the four JAX modules ``nn/blocks.py``,
+``nn/blocks_ext.py``, ``nn/experimental.py`` and ``nn/blocks_v9.py``: the
+tables below name each block and its module (``C2_BLOCKS``, width-scaled
+output channels; ``PASS_BLOCKS``, the input's channels; ``EXTRA_BLOCKS``,
+a channel rule of their own), the nine detection heads of
+``nn/heads.py`` and ``Segment`` / ``Panoptic`` of ``nn/segment.py``;
+repeated rows become ``nn.Sequential``.  Any other block of JAX's registry
+raises ``KeyError`` (ROADMAP Queue 1 item 11g-2 to 11g-4: ``nn/blocks_tail.py``'s
+and ``nn/blocks_tail2.py``'s rest, ``nn/blocks_star.py``'s rest).  Layers
+are ``model.{i}``.  A ``CBLinear`` row's output is a list of tensors (its
+``chs`` entry a tuple), which the forward caches like any other output
+for the ``CBFuse`` rows.
 
 A static image ``[N, H, W, C]`` is replicated over the model's T; an event
 batch ``[N, T, H, W, C]`` (``data/events.EventDataset``) is event mode: its
@@ -54,6 +48,7 @@ from ..nn import blocks_star as BS
 from ..nn import blocks_tail as BT
 from ..nn import blocks_tail2 as BT2
 from ..nn import blocks_v9 as BV
+from ..nn import experimental as BE
 from ..nn import heads as H
 from ..nn import segment as SEG
 from ..nn.initializers import lecun_normal_init_, torch_conv_init_
@@ -63,24 +58,51 @@ YAML_DIR = Path(__file__).parent / "yaml"
 # blocks whose first YAML arg is the output-channel count (width-scaled)
 C2_BLOCKS = {
     "Conv": B.Conv,
+    "Conv_A": B.Conv_A,
+    "Conv_B": B.Conv_B,
     "Conv_1": B.Conv_1,
     "Conv_2": B.Conv_2,
     "Conv_3": B.Conv_3,
     "Conv_4": B.Conv_4,
+    "Conv_5": B.Conv_5,
+    "Conv_6": B.Conv_6,
     "BasicBlock": B.BasicBlock,
     "BasicBlock_1": B.BasicBlock_1,
     "BasicBlock_2": B.BasicBlock_2,
     "Concat_res2": B.Concat_res2,
-    "RepC3": BX.RepC3,
-    "BasicBlock_ms": BT.BasicBlock_ms,
-    "ConcatBlock_ms": BT.ConcatBlock_ms,
-    "BasicBlock_ms1": BT.BasicBlock_ms1,
+    "shortcut": B.Shortcut,
+    "DepthWiseConv": B.DepthWiseConv,
+    "DWConv": BX.DWConv,
+    "LightConv": BX.LightConv,
+    "Bottleneck": BX.Bottleneck,
+    "BottleneckCSP": BX.BottleneckCSP,
     "C3": BX.C3,
+    "C3Ghost": BX.C3Ghost,
+    "C3SPP": BX.C3SPP,
     "C2f": BX.C2f,
+    "SPP": BX.SPP,
     "SPPF": BX.SPPF,
+    "Focus": BX.Focus,
+    "GhostConv": BX.GhostConv,
+    "GhostBottleneck": BX.GhostBottleneck,
+    "GSConv": BX.GSConv,
     "BasicBlock_6": BX.BasicBlock_6,
     "BasicBlock_1s": BX.BasicBlock_1s,
     "StarBlock_2": BX.StarBlock_2,
+    "RepConv": BX.RepConv,
+    "RepC3": BX.RepC3,
+    "MHSA": BX.MHSA,
+    "BottleneckTransformer": BX.BottleneckTransformer,
+    "BoT3": BX.BoT3,
+    "BasicBlock_ms": BT.BasicBlock_ms,
+    "ConcatBlock_ms": BT.ConcatBlock_ms,
+    "BasicBlock_ms1": BT.BasicBlock_ms1,
+    "CrossConv": BE.CrossConv,
+    "MixConv2d": BE.MixConv2d,
+    "RepConvN": BV.RepConvN,
+    "RepNBottleneck": BV.RepNBottleneck,
+    "RepNCSP": BV.RepNCSP,
+    "RepNCSPELAN4": BV.RepNCSPELAN4,
     "StarBlock_4": BS.StarBlock_4,
     "StarBlock_5": BS.StarBlock_5,
     "StarBlock_2C2f": BS.StarBlock_2C2f,
@@ -90,16 +112,45 @@ C2_BLOCKS = {
     "ResNetLayerBasic": BT2.ResNetLayerBasic,
 }
 # blocks that repeat n times by inserting the count as the arg after c2
-# (``StarBlock_2C2f`` is not one: its YAML passes n itself, as in JAX)
-CSP_N_BLOCKS = {"RepC3", "C3", "C2f", "BasicBlock_2C3", "BasicBlock_1C3", "Concat_res2C3"}
+# (``StarBlock_2C2f`` is not one: its YAML passes n itself, as in JAX;
+# nor ``C3SPP``, whose YAML args are ``(c2, k)``)
+CSP_N_BLOCKS = {"BottleneckCSP", "C3", "C3Ghost", "C2f", "RepC3", "BoT3", "RepNCSP",
+                "BasicBlock_2C3", "BasicBlock_1C3", "Concat_res2C3"}
 # blocks that keep the input channel count; args passed through verbatim
-PASS_BLOCKS = {"Sample": B.Sample, "Silence": BX.Silence}
-# ... and those of them built with the input channel count and ``snn``
-PASS_C1_BLOCKS = {"EMA": BX.EMAAttention, "AIFI": BX.AIFI}
-# blocks with a channel rule of their own, built with the input channel
-# count (a list for a multi-input row) and ``snn``
-EXTRA_BLOCKS = {"ContextGuideFusionModule": BT.ContextGuideFusionModule,
-                "HGBlock": BT.HGBlock}
+PASS_BLOCKS = {
+    "Sample": B.Sample,
+    "Pools": B.Pools,
+    "zeropad": B.ZeroPad,
+    "mem_update": B.MemUpdate,
+    "Conv_7": B.Conv_7,
+    "AIFI": BX.AIFI,
+    "EMA": BX.EMAAttention,
+    "DSSA": BX.DSSA,
+    "SELayer": BX.SELayer,
+    "Silence": BX.Silence,
+    "ELA": BT.ELA,
+    "ClippedTPReLU": BS.ClippedTPReLU,
+}
+# blocks with a channel rule of their own (``parse_model``)
+EXTRA_BLOCKS = {
+    "Contract": BX.Contract,
+    "Expand": BX.Expand,
+    "CBLinear": BX.CBLinear,
+    "CBFuse": BX.CBFuse,
+    "ASFF2": BX.ASFF2,
+    "ASFF3": BX.ASFF3,
+    "ContextGuideFusionModule": BT.ContextGuideFusionModule,
+    "HGBlock": BT.HGBlock,
+    "Sum": BE.Sum,
+}
+# the blocks built with the input channel count first (a list for a
+# multi-input row; the ASFF rows spread it after ``level``): every block
+# with parameters sized by it; and those built with ``snn``
+C1_FIRST = set(C2_BLOCKS) | {"mem_update", "AIFI", "EMA", "DSSA", "SELayer", "ELA",
+                             "ClippedTPReLU", "CBLinear", "ASFF2", "ASFF3",
+                             "ContextGuideFusionModule", "HGBlock"}
+SNN_AWARE = set(C2_BLOCKS) | {"mem_update", "AIFI", "EMA", "DSSA", "SELayer", "CBLinear",
+                              "ASFF2", "ASFF3", "ContextGuideFusionModule", "HGBlock"}
 HEADS = {
     "Detect": H.Detect,
     "DDetect": H.DDetect,
@@ -120,7 +171,7 @@ SEGMENT_HEADS = ("Segment", "Panoptic")
 
 # layers whose output on a T-replicated input is itself T-replicated (no
 # neuron recurrence, nothing across T): the T-invariant stem prefix
-_T_INVARIANT = {"Conv_1", "Sample"}
+_T_INVARIANT = {"Conv_1", "Conv_A", "Pools", "zeropad", "Sample"}
 _PROBE = 256  # image side of the shape-only stride probe
 
 
@@ -183,14 +234,22 @@ def parse_model(d: Dict[str, Any], ch: int):
             if name in CSP_N_BLOCKS:
                 args.insert(1, n)  # the repeat count is the block's own
                 n = 1
+        elif name == "Contract":
+            c2 = chs[f] * args[0] ** 2
+        elif name == "Expand":
+            c2 = chs[f] // args[0] ** 2
         elif name == "CBLinear":
             c2 = tuple(args[0])
             args = [tuple(args[0]), *args[1:]]
         elif name == "CBFuse":
             c2 = chs[f[-1]]
             args = [tuple(args[0]) if args else ()]
+        elif name in ("ASFF2", "ASFF3"):
+            c2 = chs[f[args[0]]] if isinstance(f, (list, tuple)) else chs[f]
         elif name == "ContextGuideFusionModule":
             c2 = 2 * chs[f[1]]
+        elif name == "Sum":
+            c2 = chs[f[0]]
         elif name == "HGBlock":
             # [cm, c2, k, ...], neither width-scaled; a repeat count goes in
             # at index 3 (the block's n), as JAX's parser puts it
@@ -209,7 +268,7 @@ def parse_model(d: Dict[str, Any], ch: int):
                 if isinstance(a, int):  # e.g. `anchors: 2` anchor-free count
                     a = [list(range(a * 2))] * len(f)
                 head_info["anchors_px"] = a
-        elif name in PASS_BLOCKS or name in PASS_C1_BLOCKS:
+        elif name in PASS_BLOCKS:
             c2 = chs[f if isinstance(f, int) else f[0]]
         else:
             raise KeyError(f"block {name!r} at layer {i} is not ported yet "
@@ -258,21 +317,18 @@ def _c_in(f, i: int, ch: int, chs: Sequence[int]):
 
 
 def _construct(name: str, c1, args: Tuple, snn: SNNConfig) -> nn.Module:
-    if name in C2_BLOCKS:
-        return C2_BLOCKS[name](c1, *args, snn=snn)
-    if name in PASS_C1_BLOCKS:
-        return PASS_C1_BLOCKS[name](c1, *args, snn=snn)
-    if name in PASS_BLOCKS:
-        return PASS_BLOCKS[name](*args)
-    if name in EXTRA_BLOCKS:
-        return EXTRA_BLOCKS[name](c1, *args, snn=snn)
-    if name == "CBLinear":
-        return BX.CBLinear(c1, *args, snn=snn)
-    if name == "CBFuse":
-        return BX.CBFuse(*args)
     if name == "Concat":
         return B.Concat(*args)
-    return HEADS[name](*args, ch=c1, snn=snn)
+    if name in HEADS:
+        return HEADS[name](*args, ch=c1, snn=snn)
+    if name == "Conv_7":            # its size is T, not a channel count
+        return B.Conv_7(snn.time_window)
+    cls = C2_BLOCKS.get(name) or PASS_BLOCKS.get(name) or EXTRA_BLOCKS[name]
+    if name in ("ASFF2", "ASFF3"):  # [level, rfb] around the levels' widths
+        args = (args[0], *c1, *args[1:])
+    elif name in C1_FIRST:
+        args = (c1, *args)
+    return cls(*args, snn=snn) if name in SNN_AWARE else cls(*args)
 
 
 def _remat_call(layer: nn.Module, x):
@@ -412,9 +468,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     defaults for the transformer and attention layers (``lecun_normal``
     linear weights and ``ELA``'s 1-D conv kernel, zero biases, layer-norm
     and the ``EMA`` / ``ELA`` group-norm scales 1 and shifts 0);
-    ``ClippedTPReLU`` slopes at their init (0.25).  Raises on a parameter
-    no rule covers (the model is built on the ``meta`` device, so one would
-    hold garbage)."""
+    ``ClippedTPReLU`` slopes at their init (0.25); ``Sum``'s weight at
+    ``-arange(1, n) / 2`` and ``DSSA``'s firing-rate buffers at 0.01, as
+    JAX's.  Raises on a parameter no rule covers (the model is built on the
+    ``meta`` device, so one would hold garbage)."""
     done = set()
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d)):
@@ -434,6 +491,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.gn_bias.zero_()
         elif isinstance(m, BS.ClippedTPReLU):
             m.weight.fill_(m.init)
+        elif isinstance(m, BE.Sum):
+            if m.w is not None:
+                m.w.copy_(-torch.arange(1.0, m.n) / 2)
+        elif isinstance(m, BX.DSSA):
+            m.firing_rate_x.fill_(0.01)
+            m.firing_rate_attn.fill_(0.01)
         else:
             continue
         done.update(map(id, m.parameters(recurse=False)))

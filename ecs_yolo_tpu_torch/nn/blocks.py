@@ -193,9 +193,11 @@ class MemUpdate(nn.Module):
     ``C2f`` and ``StarBlock_2C2f`` hand their first inner block a dense copy
     of the second half of ``cv1``'s output, because a channel slice is a
     strided view, which the tensor-core kernel's layout check would send to
-    ``ecs_lif_fused_rows``.  ``AIFI``'s token sites are not
-    ``MemUpdate`` sites: ``nn/blocks_ext.TokenLIF`` sends them to
-    ``lif_fused``.
+    ``ecs_lif_fused_rows``; ``RepNCSPELAN4`` does the same for its ``csp0``,
+    so every site of the registry rows without a YAML (``chip_smoke``'s
+    two probe models) takes the tensor-core kernel too.  The token sites of
+    ``AIFI``, ``MHSA`` and ``DSSA`` are not ``MemUpdate`` sites:
+    ``nn/blocks_ext.TokenLIF`` sends them to ``lif_fused``.
 
     In training mode an ``act=False`` ECS-LIF site keeps its mean spike
     density in ``firing_rate``, a 0-d tensor on the device that costs no
@@ -291,6 +293,33 @@ class Sample(nn.Module):
         return x.repeat_interleave(self.f, dim=-3).repeat_interleave(self.f, dim=-2)
 
 
+class Pools(nn.Module):
+    """Per-step max pool (reference Pools): window k, stride s, padding p
+    on both spatial axes (``F.max_pool2d`` pads with -inf, as flax's
+    ``max_pool``).  YAML args: [k, s, p]."""
+
+    def __init__(self, k: int, s: int, p: int = 0):
+        super().__init__()
+        self.k, self.s, self.p = k, s, p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, t = fold_t(x)
+        return unfold_t(_nhwc(F.max_pool2d(_nchw(y), self.k, self.s, self.p)), t)
+
+
+class ZeroPad(nn.Module):
+    """Per-step zero padding (reference ``zeropad``); ``padding`` is (left,
+    right, top, bottom), as in JAX."""
+
+    def __init__(self, padding: Sequence[int]):
+        super().__init__()
+        self.padding = tuple(padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        l, r, top, bottom = self.padding
+        return F.pad(x, (0, 0, l, r, top, bottom))
+
+
 class Concat(nn.Module):
     """Concatenate along channels (the reference's dim 2 of [T,N,C,H,W])."""
 
@@ -312,6 +341,20 @@ class Conv_1(nn.Module):
 
     def forward(self, x):
         return self.bn(self.conv(x))
+
+
+class Conv_A(nn.Module):
+    """conv -> BN -> SiLU, no neuron (reference Conv_A).  ``act_flag`` is
+    the JAX block's positional YAML slot, accepted and unused."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
+                 act_flag=None, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.conv = SnnConv(c1, c2, k, s, p, g)
+        self.bn = TBatchNorm(c2, 1.0, snn)
+
+    def forward(self, x):
+        return F.silu(self.bn(self.conv(x)))
 
 
 class Conv_7(nn.Module):
@@ -490,16 +533,41 @@ class BasicBlock(nn.Module):
 class DepthWiseConv(nn.Module):
     """Depthwise k x k (``depth``, one group a channel, padding ``p``) then
     pointwise 1x1 (``point``), both with bias when ``use_bias`` (reference
-    DepthWiseConv); no neuron and no norm of its own."""
+    DepthWiseConv); no neuron and no norm of its own.  ``snn`` is the JAX
+    block's field, unused there too."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int = 0,
-                 use_bias: bool = False):
+                 use_bias: bool = False, snn: SNNConfig = DEFAULT_SNN):
         super().__init__()
         self.depth = SnnConv(c1, c1, k, s, p, g=c1, bias=use_bias)
         self.point = SnnConv(c1, c2, 1, 1, 0, bias=use_bias)
 
     def forward(self, x):
         return self.point(self.depth(x))
+
+
+class Conv_5(nn.Module):
+    """mem_update -> ``DepthWiseConv`` (k x k depthwise, stride s, padding
+    ``autopad(k, p)``, then 1x1 to c2; no bias) -> BN (reference Conv_5).
+    ``g`` is the JAX block's field, unused there too."""
+
+    gamma_scale = 1.0
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.act = MemUpdate(c1, snn=snn)
+        self.conv = DepthWiseConv(c1, c2, k, s, autopad(k, p))
+        self.bn = TBatchNorm(c2, self.gamma_scale, snn)
+
+    def forward(self, x):
+        return self.bn(self.conv(self.act(x)))
+
+
+class Conv_6(Conv_5):
+    """``Conv_5`` with BN gamma 0.2 * thresh (reference Conv_6)."""
+
+    gamma_scale = 0.2
 
 
 class Shortcut(nn.Module):

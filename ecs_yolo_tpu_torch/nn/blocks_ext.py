@@ -1,14 +1,16 @@
-"""The part of the extended block library that is ported (counterpart of
-``ecs_yolo_tpu/nn/blocks_ext.py``): the YOLOv5 / v8 CSP family
-(``spatial_max_pool_same``, ``DWConv``, ``LightConv``, ``Bottleneck``,
-``C3``, ``C2f``, ``SPPF``, ``GhostConv``, ``GhostBottleneck``); the
-slim-neck family (``GSConv``, ``BasicBlock_6``, ``BasicBlock_1s``) and
-``DropPath`` / ``StarBlock_2``; ``interpolate_nearest`` and ``ASFF2`` for
-the ASFF heads; ``Silence``, ``CBLinear`` and ``CBFuse`` for the v9 wiring;
-``EMAAttention`` (registry name ``EMA``); ``RepConv``, ``RepC3``,
-``TokenLIF``, ``sincos_pos_embed_2d`` and ``AIFI`` for the RT-DETR neck.
-The rest of that file is not ported yet (ROADMAP Queue 1 item 11g).
-Features are ``[T, N, H, W, C]``; the channel axis is the last.
+"""The extended block library (counterpart of
+``ecs_yolo_tpu/nn/blocks_ext.py``, every registry row of it): the YOLOv5 /
+v8 CSP family (``spatial_max_pool_same``, ``DWConv``, ``LightConv``,
+``Bottleneck``, ``C3``, ``BottleneckCSP``, ``C2f``, ``SPPF``, ``SPP``,
+``C3SPP``, ``Focus``, ``Contract``, ``Expand``, ``GhostConv``,
+``GhostBottleneck``, ``C3Ghost``); the slim-neck family (``GSConv``,
+``BasicBlock_6``, ``BasicBlock_1s``) and ``DropPath`` / ``StarBlock_2``;
+``interpolate_nearest``, ``ASFF2`` and ``ASFF3``; ``Silence``,
+``CBLinear`` and ``CBFuse`` for the v9 wiring; ``EMAAttention`` (registry
+name ``EMA``); ``RepConv``, ``RepC3``, ``TokenLIF``,
+``sincos_pos_embed_2d`` and ``AIFI`` for the RT-DETR neck; ``SELayer``,
+the BoTNet blocks (``MHSA``, ``BottleneckTransformer``, ``BoT3``) and
+``DSSA``.  Features are ``[T, N, H, W, C]``; the channel axis is the last.
 
 Child modules carry the JAX module names (``cv1``, ``m0``, ``conv1x1``,
 ``ma.query``, ``norm1``, ``fc1``, ``dw_act``, ``sc_dw``, ...), so
@@ -28,8 +30,9 @@ from torch import nn
 from ..config import DEFAULT_SNN, SNNConfig
 from ..snn.fused import lif_fused
 from ..snn.neuron import lif_scan
-from .blocks import (Conv_2, Conv_3, Conv_4, DepthWiseConv, MemUpdate, Shortcut, SnnConv,
-                     TBatchNorm, _nchw, _nhwc, fold_t, max_pool_t, unfold_t)
+from .blocks import (Conv, Conv_2, Conv_3, Conv_4, Conv_5, Conv_6, DepthWiseConv, MemUpdate,
+                     Shortcut, SnnConv, TBatchNorm, _nchw, _nhwc, fold_t, max_pool_t,
+                     recomputing, unfold_t)
 from .segment import resize_nearest
 
 
@@ -104,16 +107,47 @@ class C3(nn.Module):
         self.n = n
         self.cv1 = Conv_3(c1, c_, 1, 1, snn=snn)
         for i in range(n):
-            self.add_module(f"m{i}", Bottleneck(c_, c_, shortcut, g, k=(1, 3), e=1.0,
-                                                snn=snn))
+            self.add_module(f"m{i}", self._inner(c_, shortcut, g, snn))
         self.cv2 = Conv_3(c1, c_, 1, 1, snn=snn)
         self.cv3 = Conv_4(2 * c_, c2, 1, snn=snn)
+
+    @staticmethod
+    def _inner(c_: int, shortcut: bool, g: int, snn: SNNConfig) -> nn.Module:
+        return Bottleneck(c_, c_, shortcut, g, k=(1, 3), e=1.0, snn=snn)
 
     def forward(self, x):
         y1 = self.cv1(x)
         for i in range(self.n):
             y1 = getattr(self, f"m{i}")(y1)
         return self.cv3(torch.cat([y1, self.cv2(x)], dim=-1))
+
+
+class BottleneckCSP(nn.Module):
+    """CSP bottleneck (reference BottleneckCSP): ``cv1`` (1x1 ``Conv_3`` to
+    ``c2 * e``) -> ``m0 ... m{n-1}`` (``Bottleneck`` 3x3, ``e=1``) -> ``cv3``
+    (a bare 1x1 conv), beside ``cv2`` (a bare 1x1 conv of the input);
+    concatenated, ``bn`` and SiLU, then ``cv4`` (1x1 ``Conv_3``).  The
+    YAML's repeat count is ``n``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        self.cv1 = Conv_3(c1, c_, 1, 1, snn=snn)
+        for i in range(n):
+            self.add_module(f"m{i}", Bottleneck(c_, c_, shortcut, g, e=1.0, snn=snn))
+        self.cv3 = SnnConv(c_, c_, 1, 1)
+        self.cv2 = SnnConv(c1, c_, 1, 1)
+        self.bn = TBatchNorm(2 * c_, 1.0, snn)
+        self.cv4 = Conv_3(2 * c_, c2, 1, 1, snn=snn)
+
+    def forward(self, x):
+        y1 = self.cv1(x)
+        for i in range(self.n):
+            y1 = getattr(self, f"m{i}")(y1)
+        y = torch.cat([self.cv3(y1), self.cv2(x)], dim=-1)
+        return self.cv4(F.silu(self.bn(y)))
 
 
 def _split_inner(block: nn.Module, y: torch.Tensor, c: int) -> torch.Tensor:
@@ -171,6 +205,93 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat(ys, dim=-1))
 
 
+class SPP(nn.Module):
+    """Spatial pyramid pooling (reference SPP): ``cv1`` (1x1 ``Conv_3`` to
+    half the input's channels), beside it its k x k stride-1 max pools for
+    each k (``spatial_max_pool_same``: spatial only, as JAX), concatenated,
+    then ``cv2`` (1x1 ``Conv_3``)."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13),
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = c1 // 2
+        self.k = tuple(k)
+        self.cv1 = Conv_3(c1, c_, 1, 1, snn=snn)
+        self.cv2 = Conv_3(c_ * (len(self.k) + 1), c2, 1, 1, snn=snn)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [spatial_max_pool_same(y, k) for k in self.k],
+                                  dim=-1))
+
+
+class C3SPP(nn.Module):
+    """``C3`` whose inner stack is one ``SPP`` (reference C3SPP): ``cv1`` /
+    ``cv2`` (1x1 ``Conv_3`` to ``c2 * e``), ``m`` (``SPP`` of ``cv1``'s
+    output, pools ``k``), concatenated, then ``cv3`` (1x1 ``Conv_4``).  Its
+    YAML args are ``(c2, k)``, so the parser inserts no repeat count, as
+    JAX's does not; ``n``, ``shortcut`` and ``g`` are unused there too."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13), n: int = 1,
+                 shortcut: bool = True, g: int = 1, e: float = 0.5,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv_3(c1, c_, 1, 1, snn=snn)
+        self.m = SPP(c_, c_, k, snn=snn)
+        self.cv2 = Conv_3(c1, c_, 1, 1, snn=snn)
+        self.cv3 = Conv_4(2 * c_, c2, 1, snn=snn)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], dim=-1))
+
+
+class Focus(nn.Module):
+    """Space to channels (reference Focus): the four stride-2 samplings of
+    the input in JAX's order (even rows and columns, odd rows, odd columns,
+    both odd), concatenated, then ``conv`` (``Conv``, k, s, to c2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.conv = Conv(4 * c1, c2, k, s, snn=snn)
+
+    def forward(self, x):
+        return self.conv(torch.cat([x[..., ::2, ::2, :], x[..., 1::2, ::2, :],
+                                    x[..., ::2, 1::2, :], x[..., 1::2, 1::2, :]], dim=-1))
+
+
+class Contract(nn.Module):
+    """Space to depth (reference Contract): ``[T, N, H, W, C]`` ->
+    ``[T, N, H/g, W/g, C*g*g]``, the channel index ``(dy * g + dx) * C +
+    c`` as JAX's channel-last reshape and transpose give it."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        g = self.gain
+        t, n, h, w, c = x.shape
+        x = x.reshape(t, n, h // g, g, w // g, g, c).permute(0, 1, 2, 4, 3, 5, 6)
+        return x.reshape(t, n, h // g, w // g, c * g * g)
+
+
+class Expand(nn.Module):
+    """Depth to space (reference Expand), the inverse of ``Contract``:
+    ``[T, N, H, W, C]`` -> ``[T, N, H*g, W*g, C/(g*g)]``."""
+
+    def __init__(self, gain: int = 2):
+        super().__init__()
+        self.gain = gain
+
+    def forward(self, x):
+        g = self.gain
+        t, n, h, w, c = x.shape
+        x = x.reshape(t, n, h, w, g, g, c // (g * g)).permute(0, 1, 2, 4, 3, 5, 6)
+        return x.reshape(t, n, h * g, w * g, c // (g * g))
+
+
 class GhostConv(nn.Module):
     """Ghost conv (reference GhostConv): ``cv1`` (``Conv_3`` to half of c2,
     k, s, g groups) and its cheap depthwise 5x5 ``cv2`` (``Conv_4``),
@@ -220,6 +341,15 @@ class GhostBottleneck(nn.Module):
         else:
             sc = x if self.sc is None else self.sc(x)
         return y + sc
+
+
+class C3Ghost(C3):
+    """``C3`` with ``GhostBottleneck`` inners (reference C3Ghost); the
+    YAML's repeat count is ``n``."""
+
+    @staticmethod
+    def _inner(c_: int, shortcut: bool, g: int, snn: SNNConfig) -> nn.Module:
+        return GhostBottleneck(c_, c_, snn=snn)
 
 
 # --- slim-neck GSConv family (reference :4228, :1392, :1144) ------------------------
@@ -354,9 +484,12 @@ class ASFF2(nn.Module):
     ``[x0, x1]``, x0 the deeper (smaller, ``c0`` channels), x1 the shallower
     (twice the side, ``c1`` channels); ``level`` 0 fuses at x0's resolution
     and width, 1 at x1's.  Per-pixel weights of the two come from a softmax
-    over a 1x1 conv of two ``GSConv`` summaries."""
+    over a 1x1 conv of two ``GSConv`` summaries (16 channels each, 8 with
+    ``rfb``).  As a YAML row (registry ``ASFF2``) its args are ``[level,
+    rfb]`` and its output has the fused level's width."""
 
-    def __init__(self, level: int, c0: int, c1: int, snn: SNNConfig = DEFAULT_SNN):
+    def __init__(self, level: int, c0: int, c1: int, rfb: bool = False,
+                 snn: SNNConfig = DEFAULT_SNN):
         super().__init__()
         self.level = level
         inter = c0 if level == 0 else c1
@@ -364,7 +497,7 @@ class ASFF2(nn.Module):
             self.stride1 = Conv_3(c1, inter, 3, 2, snn=snn)
         else:
             self.compress0 = Conv_3(c0, inter, 1, 1, snn=snn)
-        cc = 16
+        cc = 8 if rfb else 16
         self.w0 = GSConv(inter, cc, snn=snn)
         self.w1 = GSConv(inter, cc, snn=snn)
         self.wl = SnnConv(2 * cc, 2, 1, bias=True)
@@ -379,6 +512,51 @@ class ASFF2(nn.Module):
         wts = self.wl(torch.cat([self.w0(r0), self.w1(r1)], dim=-1))
         wts = torch.softmax(wts, dim=-1)
         return self.expand(r0 * wts[..., 0:1] + r1 * wts[..., 1:2])
+
+
+class ASFF3(nn.Module):
+    """Adaptive fusion of three pyramid levels (reference ASFF3).  The input
+    is ``[x0, x1, x2]``, deepest first (``c0``, ``c1``, ``c2`` channels,
+    each level twice the side of the one before); ``level`` picks the
+    output's resolution and width ``inter``.  The other two levels are
+    brought there by ``Conv_5`` rows: at level 0 ``s1`` (3x3, stride 2) of
+    x1 and ``s2`` (3x3, stride 2) of x2 max-pooled by 2; at level 1 ``c0``
+    (1x1) of x0 upsampled 2x and ``s2`` of x2; at level 2 ``c0`` upsampled
+    4x and ``c1`` (1x1) of x1 upsampled 2x.  ``w0`` / ``w1`` / ``w2``
+    (``Conv_5`` 1x1 to 16 channels, 8 with ``rfb``) and ``wl`` (a 1x1 conv
+    with bias to 3) give per-pixel softmax weights of the three; the sum
+    goes through ``expand`` (``Conv_6`` 3x3).  As a YAML row its args are
+    ``[level, rfb]``."""
+
+    def __init__(self, level: int, c0: int, c1: int, c2: int, rfb: bool = False,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.level = level
+        inter = (c0, c1, c2)[level]
+        if level == 0:
+            self.s1 = Conv_5(c1, inter, 3, 2, snn=snn)
+        else:
+            self.c0 = Conv_5(c0, inter, 1, 1, snn=snn)
+        if level == 2:
+            self.c1 = Conv_5(c1, inter, 1, 1, snn=snn)
+        else:
+            self.s2 = Conv_5(c2, inter, 3, 2, snn=snn)
+        cc = 8 if rfb else 16
+        self.w0, self.w1, self.w2 = (Conv_5(inter, cc, 1, 1, snn=snn) for _ in range(3))
+        self.wl = SnnConv(3 * cc, 3, 1, bias=True)
+        self.expand = Conv_6(inter, inter, 3, 1, snn=snn)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        x0, x1, x2 = xs
+        if self.level == 0:
+            r = [x0, self.s1(x1), self.s2(max_pool_t(x2, 2))]
+        elif self.level == 1:
+            r = [interpolate_nearest(self.c0(x0), 2), x1, self.s2(x2)]
+        else:
+            r = [interpolate_nearest(self.c0(x0), 4), interpolate_nearest(self.c1(x1), 2), x2]
+        wts = self.wl(torch.cat([self.w0(r[0]), self.w1(r[1]), self.w2(r[2])], dim=-1))
+        wts = torch.softmax(wts, dim=-1)
+        return self.expand(r[0] * wts[..., 0:1] + r[1] * wts[..., 1:2] + r[2] * wts[..., 2:3])
 
 
 # --- YOLOv9 wiring (reference :327-345, :3678) ------------------------------------
@@ -642,3 +820,176 @@ class AIFI(nn.Module):
         y = act(self.fc2(act(self.fc1(src))))
         src = self.norm2(src + y)
         return src.reshape(t, n, h, w, c)
+
+
+# --- squeeze-excitation, BoTNet and DSSA attention (reference :2603-2759, :3329-3406, :3984)
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation (reference SELayer): the mean over H x W,
+    ``fc1`` (to ``C // reduction``, no bias), ReLU, ``fc2`` (to C, no bias),
+    sigmoid, times the input.  The flax ``Dense`` kernels ``[in, out]`` are
+    ``nn.Linear`` weights (``models/convert.py``)."""
+
+    def __init__(self, c1: int, reduction: int = 16, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.fc1 = nn.Linear(c1, c1 // reduction, bias=False)
+        self.fc2 = nn.Linear(c1 // reduction, c1, bias=False)
+
+    def forward(self, x):
+        s = torch.sigmoid(self.fc2(torch.relu(self.fc1(x.mean(dim=(2, 3))))))
+        return x * s[:, :, None, None, :]
+
+
+class MHSA(nn.Module):
+    """Spiking multi-head self-attention (reference MHSA): the input through
+    the neuron ``m``; q, k and v each ``{q,k,v}_conv`` (1x1 to c2) ->
+    ``_bn`` -> ``_act`` (an ECS neuron, so its spikes are K1's in eval);
+    per head of ``c2 / num_heads`` channels the linear attention ``q (kᵀ v)
+    * 0.125`` over the H*W tokens; ``attn_act`` (``TokenLIF``: K6 in eval)
+    on the ``[T, N, H*W, c2]`` output; ``proj_conv`` (1x1 with bias) ->
+    ``proj_bn``."""
+
+    def __init__(self, c1: int, c2: int, num_heads: int = 8, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.nh = num_heads
+        self.m = MemUpdate(c1, snn=snn)
+        for name in "qkv":
+            self.add_module(f"{name}_conv", SnnConv(c1, c2, 1))
+            self.add_module(f"{name}_bn", TBatchNorm(c2, 1.0, snn))
+            self.add_module(f"{name}_act", MemUpdate(c2, snn=snn))
+        self.attn_act = TokenLIF(snn)
+        self.proj_conv = SnnConv(c2, c2, 1, bias=True)
+        self.proj_bn = TBatchNorm(c2, 1.0, snn)
+
+    def forward(self, x):
+        t, b, h, w, _ = x.shape
+        c2 = self.proj_conv.out_channels
+        s = self.m(x)
+
+        def heads(name):        # [T, N, heads, H*W, d]
+            y = getattr(self, f"{name}_act")(getattr(self, f"{name}_bn")(
+                getattr(self, f"{name}_conv")(s)))
+            return y.reshape(t, b, h * w, self.nh, c2 // self.nh).transpose(2, 3)
+
+        q, k, v = heads("q"), heads("k"), heads("v")
+        kv = torch.einsum("tbhnd,tbhne->tbhde", k, v)
+        out = torch.einsum("tbhnd,tbhde->tbhne", q, kv) * 0.125
+        out = self.attn_act(out.transpose(2, 3).reshape(t, b, h * w, c2))
+        return self.proj_bn(self.proj_conv(out.reshape(t, b, h, w, c2)))
+
+
+class BottleneckTransformer(nn.Module):
+    """MHSA bottleneck (reference BottleneckTransformer): ``cv1_act`` ->
+    ``cv1_conv`` (1x1 to ``c2 * expansion``) -> ``cv1_bn`` -> ``mhsa``
+    (``heads`` heads, to c2), average-pooled 2x2 per step at ``s == 2``;
+    plus the input when ``c1 == c2`` and ``s == 1``."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, heads: int = 4,
+                 expansion: float = 1.0, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = int(c2 * expansion)
+        self.s = s
+        self.add = c1 == c2 and s == 1
+        self.cv1_act = MemUpdate(c1, snn=snn)
+        self.cv1_conv = SnnConv(c1, c_, 1, 1)
+        self.cv1_bn = TBatchNorm(c_, 1.0, snn)
+        self.mhsa = MHSA(c_, c2, heads, snn=snn)
+
+    def forward(self, x):
+        y = self.mhsa(self.cv1_bn(self.cv1_conv(self.cv1_act(x))))
+        if self.s == 2:
+            f, t = fold_t(y)
+            y = unfold_t(_nhwc(F.avg_pool2d(_nchw(f), 2, 2)), t)
+        return x + y if self.add else y
+
+
+class BoT3(nn.Module):
+    """CSP block with transformer inners (reference BoT3): ``cv1`` (the
+    ``cv1_act`` -> ``cv1_conv`` 1x1 to ``c2 * e`` -> ``cv1_bn`` branch) ->
+    ``m0 ... m{n-1}`` (``BottleneckTransformer``, 4 heads, expansion
+    ``e2``), beside the same ``cv2`` branch of the input; concatenated, then
+    ``cv3_act`` -> ``cv3_conv`` (1x1 to c2) -> ``cv3_bn``.  ``w`` and ``h``
+    are accepted and unused, as in JAX; the YAML's repeat count is ``n``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5, e2: float = 1.0,
+                 w: int = 20, h: int = 20, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n = n
+        for name, ci, co in (("cv1", c1, c_), ("cv2", c1, c_), ("cv3", 2 * c_, c2)):
+            self.add_module(f"{name}_act", MemUpdate(ci, snn=snn))
+            self.add_module(f"{name}_conv", SnnConv(ci, co, 1, 1))
+            self.add_module(f"{name}_bn", TBatchNorm(co, 1.0, snn))
+        for i in range(n):
+            self.add_module(f"m{i}", BottleneckTransformer(c_, c_, 1, 4, e2, snn=snn))
+
+    def _branch(self, name: str, x):
+        return getattr(self, f"{name}_bn")(getattr(self, f"{name}_conv")(
+            getattr(self, f"{name}_act")(x)))
+
+    def forward(self, x):
+        y1 = self._branch("cv1", x)
+        for i in range(self.n):
+            y1 = getattr(self, f"m{i}")(y1)
+        return self._branch("cv3", torch.cat([y1, self._branch("cv2", x)], dim=-1))
+
+
+class DSSA(nn.Module):
+    """Dual spike-driven self-attention (reference DSSA) over the H*W = n
+    tokens of ``[T, N, H, W, C]``, ``num_heads`` heads of d = C / heads
+    channels.  ``act_in`` spikes the input (s); ``W`` (3x3 to 2C) -> ``norm``
+    gives per head y1 and y2 (d channels each); the attention ``y1 sᵀ`` per
+    head, scaled by ``rsqrt(max(firing_rate_x * d, 1e-6))``, goes through
+    ``act_attn`` (``TokenLIF`` on ``[T, N, n * heads, n]``: K6 in eval);
+    times y2, scaled by ``rsqrt(max(firing_rate_attn, 1e-6))``; then
+    ``act_out`` -> ``Wproj`` (1x1 with bias) -> ``norm_proj``, plus the
+    input.  The attention is n², so only a P5-sized site is realistic.
+
+    ``firing_rate_x`` and ``firing_rate_attn`` (per head, initialised to
+    0.01) are buffers, JAX's ``batch_stats``: in training each moves toward
+    the step's mean spike rate with ``momentum`` before it scales, once a
+    step (not while ``nn/blocks.checkpointed`` recomputes the forward, as
+    ``_BN``'s statistics); in eval they stay.  The scales are cast to the
+    input's dtype, so a bf16 forward stays bf16."""
+
+    def __init__(self, c1: int, num_heads: int = 8, momentum: float = 0.999,
+                 snn: SNNConfig = DEFAULT_SNN):
+        super().__init__()
+        self.nh, self.momentum = num_heads, momentum
+        self.act_in = MemUpdate(c1, snn=snn)
+        self.W = SnnConv(c1, 2 * c1, 3, 1, 1)
+        self.norm = TBatchNorm(2 * c1, 1.0, snn)
+        self.act_attn = TokenLIF(snn)
+        self.act_out = MemUpdate(c1, snn=snn)
+        self.Wproj = SnnConv(c1, c1, 1, bias=True)
+        self.norm_proj = TBatchNorm(c1, 1.0, snn)
+        self.register_buffer("firing_rate_x", torch.full((num_heads,), 0.01))
+        self.register_buffer("firing_rate_attn", torch.full((num_heads,), 0.01))
+
+    def _rate(self, buf: torch.Tensor, spikes: torch.Tensor) -> torch.Tensor:
+        """``buf`` moved toward the per-head mean of ``spikes`` ``[T, N, n,
+        heads, m]`` when it moves (see the class), then returned."""
+        if self.training and not recomputing():
+            with torch.no_grad():
+                cur = spikes.mean(dim=(0, 1, 2, 4)).to(buf.dtype)
+                buf.copy_(buf * self.momentum + cur * (1 - self.momentum))
+        return buf
+
+    def forward(self, x):
+        t, b, h, w, c = x.shape
+        nh, n = self.nh, h * w
+        d = c // nh
+        s = self.act_in(x)
+        y = self.norm(self.W(s)).reshape(t, b, n, nh, 2 * d)
+        y1, y2 = y[..., :d], y[..., d:]
+        st = s.reshape(t, b, n, nh, d)
+        fr_x = self._rate(self.firing_rate_x, st)
+        scale1 = torch.rsqrt((fr_x * d).clamp(min=1e-6)).to(x.dtype)
+        attn = torch.einsum("tbnhd,tbmhd->tbnhm", y1, st) * scale1[:, None]
+        attn = self.act_attn(attn.reshape(t, b, n * nh, n)).reshape(t, b, n, nh, n)
+        fr_attn = self._rate(self.firing_rate_attn, attn)
+        scale2 = torch.rsqrt(fr_attn.clamp(min=1e-6)).to(x.dtype)
+        out = torch.einsum("tbnhm,tbmhd->tbnhd", attn, y2) * scale2[:, None]
+        out = self.act_out(out.reshape(t, b, h, w, c).contiguous())
+        return self.norm_proj(self.Wproj(out)) + x

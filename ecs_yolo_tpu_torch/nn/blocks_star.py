@@ -2,7 +2,7 @@
 ``ecs_yolo_tpu/nn/blocks_star.py``): ``ClippedTPReLU``, ``StarBlock_4``,
 ``StarBlock_5`` and ``StarBlock_2C2f``.  ``StarBlock_2`` and ``DropPath``
 live in ``nn/blocks_ext.py``, as in JAX; the other star blocks of that file
-are not ported yet (ROADMAP Queue 1 item 11g).
+are not ported yet (ROADMAP Queue 1 item 11g-3).
 
 Features are ``[T, N, H, W, C]``.  Children carry the JAX module names
 (``f1_act``, ``f1_conv``, ``dw2_bn``, ``act``, ``cv``, ``m0``, ...), so
@@ -23,8 +23,10 @@ class ClippedTPReLU(nn.Module):
     """Per-channel PReLU clipped at 6 (reference ClippedTPReLU): ``weight``
     ``[C]`` (init 0.25), ``where(x >= 0, x, weight * x)`` then ``minimum(.,
     6)``.  ``torch.minimum`` splits a tie's gradient in halves, as
-    ``lax.min`` does.  The reference loops over T; the op is the same at
-    every step."""
+    ``lax.min`` does; the bound 6 is made on the input's device (a fill,
+    no host-to-device copy, so a training step under
+    ``set_sync_debug_mode("error")`` passes).  The reference loops over T;
+    the op is the same at every step."""
 
     def __init__(self, c: int, init: float = 0.25):
         super().__init__()
@@ -33,7 +35,7 @@ class ClippedTPReLU(nn.Module):
 
     def forward(self, x):
         y = torch.where(x >= 0, x, self.weight.to(x.dtype) * x)
-        return torch.minimum(y, y.new_tensor(6.0))
+        return torch.minimum(y, y.new_full((), 6.0))
 
 
 class _StarBranches(nn.Module):

@@ -2,7 +2,7 @@
 long-tail block library (counterpart of ``ecs_yolo_tpu/nn/blocks_tail.py``:
 ``BasicBlock_ms``, ``ConcatBlock_ms``, ``ELA``, ``ContextGuideFusionModule``,
 ``HGBlock``; and of ``nn/blocks_tail2.py``: ``BasicBlock_ms1``).  The rest
-of those files is not ported yet (ROADMAP Queue 1 item 11g).
+of those files is not ported yet (ROADMAP Queue 1 items 11g-2 and 11g-3).
 
 Features are ``[T, N, H, W, C]``.  The JAX blocks build their stacks with
 ``_Seq`` rows named ``0``, ``1``, ...; here they are an ``nn.Sequential``,

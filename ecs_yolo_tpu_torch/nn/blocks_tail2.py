@@ -1,7 +1,7 @@
 """The ResNet stage of the last tail slice (counterpart of
 ``ecs_yolo_tpu/nn/blocks_tail2.py``): ``ResNetLayerBasic``.
 ``BasicBlock_ms1`` of that file lives in ``nn/blocks_tail.py``; the rest is
-not ported yet (ROADMAP Queue 1 item 11g).  Features are ``[T, N, H, W,
+not ported yet (ROADMAP Queue 1 item 11g-3).  Features are ``[T, N, H, W,
 C]``; children carry the JAX module names (``stem``, ``b0``, ...)."""
 
 from __future__ import annotations

@@ -212,16 +212,21 @@ def test_resnet10_v9_tree_converts_and_folds_as_jax():
 
 
 def zoo_counts(cfg: str):
-    """Per YAML at 640 px, T=4, on the meta device: (neuron sites,
+    """``site_counts`` of the YAML ``cfg`` (its nc: the sites do not depend
+    on it)."""
+    return site_counts(meta_model(cfg))
+
+
+def site_counts(model):
+    """Per model at 640 px, T=4, on the meta device: (neuron sites,
     K1, K2 and K6 launches of one eval forward, K5 and K4 launches of one
     training forward).  A ``MemUpdate`` site takes K1 unless K1 refuses its
-    layout (``layout_refusal``), then K2; an ``AIFI`` token site K6; in
-    training each spiking ECS site of T-1 steps the kernel ``spread_route``
-    names (none for a SiLU site)."""
+    layout (``layout_refusal``), then K2; a ``TokenLIF`` site (``AIFI``,
+    ``MHSA``, ``DSSA``) K6; in training each spiking ECS site of T-1 steps
+    the kernel ``spread_route`` names (none for a SiLU site)."""
     from ecs_yolo_tpu_torch.snn import ecs_lif as K
     from ecs_yolo_tpu_torch.snn import spread as S
 
-    model = meta_model(cfg)     # the YAML's nc: the sites do not depend on it
     t = chip_smoke.T
     c = dict(sites=0, k1=0, k2=0, k6=0, gemm=0, dw3=0)
 

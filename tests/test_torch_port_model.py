@@ -39,8 +39,9 @@ T = 2
 def _random_variables(init_fn, seed):
     """Seeded numpy values in the shape of ``init_fn()``'s variables, found
     with ``jax.eval_shape`` (no init compile): kernels U(+-1/sqrt(fan_in))
-    as torch's default init, biases U(+-0.2), and random BN affine and
-    running statistics so that eval BN is exercised in full."""
+    as torch's default init, biases U(+-0.2), random BN affine and
+    running statistics so that eval BN is exercised in full, and firing
+    rates (``DSSA``'s statistics) in 0.01-0.21, as a trained block's."""
     rng = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -52,6 +53,8 @@ def _random_variables(init_fn, seed):
             v = rng.rand(*s.shape) + 0.5
         elif leaf == "mean":
             v = rng.randn(*s.shape) * 0.2
+        elif leaf.startswith("firing_rate"):
+            v = rng.rand(*s.shape) * 0.2 + 0.01
         else:
             v = (rng.rand(*s.shape) - 0.5) * 0.4
         return v.astype(np.float32)

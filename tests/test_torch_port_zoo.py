@@ -9,12 +9,15 @@ emptied it), and a registry name still unported raises ``KeyError`` naming
 ROADMAP Queue 1 item 11.  Each YAML of Queue 1 items 11a-11f (and three
 that built before them) also serves a CPU forward, narrowed, at 64 px (the
 TAL assigner wants 10 anchors), and one YAML a new block family trains a
-CPU step."""
+CPU step.  The two probe models of ``chip_smoke.PROBES`` (the registry rows
+of item 11g-1, which no YAML names) parse as JAX's, build on the meta
+device, and serve a CPU forward and train a CPU step narrowed."""
 
 import copy
 import functools
 from pathlib import Path
 
+import chip_smoke
 import numpy as np
 import pytest
 import torch
@@ -62,11 +65,12 @@ def test_port_copies_are_the_yamls_it_builds():
     assert set(NEW_YAMLS + STAR_CSP_YAMLS) <= set(own)
 
 
-@pytest.mark.parametrize("block", ["AKConv", "C3Ghost"])
+@pytest.mark.parametrize("block", ["AKConv", "Bottleneck_1"])
 def test_unported_registry_name_raises_keyerror(block):
     """A name of JAX's registry that no YAML uses and the port does not
-    carry yet (item 11g) raises ``KeyError`` naming item 11; JAX parses the
-    same row."""
+    carry yet (items 11g-2 and 11g-3: ``nn/blocks_tail2.py``'s ``AKConv``,
+    ``nn/blocks_tail.py``'s ``Bottleneck_1``) raises ``KeyError`` naming
+    item 11; JAX parses the same row."""
     d = port_yolo.load_cfg("yolov8s.yaml")
     d["head"][2] = [-1, 1, block, [128]]
     jax_yolo.parse_model(copy.deepcopy(d), 3)
@@ -176,3 +180,75 @@ def test_new_block_trains_a_cpu_step(name):
     state, metrics = step(state, x, targets, torch.ones(2, 2, dtype=torch.bool))
     assert np.isfinite(float(metrics["loss"]))
     assert any(not torch.equal(p, before[k]) for k, p in state.params.items())
+
+
+# --- the probe models of the registry rows no YAML names (item 11g-1) ----------------
+
+
+@pytest.mark.parametrize("probe", sorted(chip_smoke.PROBES))
+def test_probe_parses_as_jax_and_builds(probe):
+    """The probe's spec equals JAX's ``parse_model``; it keeps its base
+    YAML's nc, depth, width and anchors; it builds on the meta device with
+    one stride a level of its head."""
+    d = chip_smoke.probe_cfg(probe)
+    base = port_yolo.load_cfg(chip_smoke.PROBES[probe][0])
+    assert {k: v for k, v in d.items() if k not in ("backbone", "head")} == \
+        {k: v for k, v in base.items() if k not in ("backbone", "head")}
+    rows, save, chs, head_info = port_yolo.parse_model(copy.deepcopy(d), 3)
+    assert (rows, save, chs, head_info) == jax_yolo.parse_model(copy.deepcopy(d), 3)
+    model = port_yolo.build_model(d, device="meta")
+    want = (8.0, 16.0, 32.0) if probe == "probe-v5" else (16.0, 32.0)
+    assert model.head_info["strides"] == want
+    assert model.spec == port_yolo._with_head(rows, head_info, want)
+
+
+def _narrow_probe(probe):
+    """The probe at an eighth of its width; ``RepNCSPELAN4``'s inner widths
+    (c3, c4), which the YAML gives unscaled, narrowed by the same factor."""
+    d = chip_smoke.probe_cfg(probe)
+    d["width_multiple"] *= 0.125
+    for row in d["head"]:
+        if row[2] == "RepNCSPELAN4":
+            row[3] = [row[3][0], row[3][1] // 8, row[3][2] // 8, *row[3][3:]]
+    return d
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_model(probe):
+    """The narrowed probe, nc 3, T=4 (at T=2 probe-gelan's narrowed net is
+    silent at init and its gradient overflows float32 through the
+    zero-variance BN chain, as yolov8s's), on the CPU, and a 64 px batch of
+    2."""
+    model = port_yolo.build_model(_narrow_probe(probe), nc=3, snn=SNNConfig(time_window=4),
+                                  device="cpu")
+    x = torch.from_numpy(np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32))
+    return model, x
+
+
+@pytest.mark.parametrize("probe", sorted(chip_smoke.PROBES))
+def test_probe_serves_a_cpu_forward(probe):
+    model, x = _probe_model(probe)
+    with torch.no_grad():
+        pred = port_yolo.head_predictions(model.head_info["name"], model(x), 3)
+    assert torch.isfinite(pred).all()
+    assert pred.shape[-1 if model.head_info["name"] == "Detect" else 1] == \
+        3 + (5 if model.head_info["name"] == "Detect" else 4)
+
+
+@pytest.mark.parametrize("probe", sorted(chip_smoke.PROBES))
+def test_probe_trains_a_cpu_step(probe):
+    """One training step: a finite loss that moves the parameters, and
+    ``DSSA``'s firing rates."""
+    model, x = _probe_model(probe)
+    model = copy.deepcopy(model)
+    targets = torch.tensor([[[0, 0.5, 0.5, 0.4, 0.4], [2, 0.3, 0.3, 0.2, 0.3]]] * 2)
+    tx = build_optimizer(dict(model.named_parameters()))
+    state = create_train_state(model, tx, device="cpu")
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    rates = {k: v.clone() for k, v in state.batch_stats.items() if "firing_rate" in k}
+    step = make_train_step(model, tx, dict(HYP_SCRATCH), device="cpu")
+    state, metrics = step(state, x, targets, torch.ones(2, 2, dtype=torch.bool))
+    assert np.isfinite(float(metrics["loss"]))
+    assert any(not torch.equal(p, before[k]) for k, p in state.params.items())
+    assert len(rates) == (2 if probe == "probe-gelan" else 0)
+    assert all(not torch.equal(state.batch_stats[k], v) for k, v in rates.items())
