@@ -2975,19 +2975,20 @@ def phase_segment(seed: int, root: Path, log) -> dict:
 #: image counts
 ZOO_BATCH = 2
 ZOO_TIMED = ("resnet10-v9.yaml", "resnetaifi.yaml", "res10-ee.yaml", "yolov8s.yaml",
-             "ceshi.yaml", "probe-v5", "probe-gelan")
-ZOO_STEP_CFGS = ("resnet10-v9.yaml", "ceshi.yaml", "probe-gelan")
+             "ceshi.yaml", "probe-v5", "probe-gelan", "probe-tail")
+ZOO_STEP_CFGS = ("resnet10-v9.yaml", "ceshi.yaml", "probe-gelan", "probe-tail")
 ZOO_EPOCH_CFGS = ("resnet10-v9.yaml", "yolov8s.yaml")
-ZOO_SYNC_CFGS = ("resnet_rtdetr.yaml", "HGresnet.yaml", "probe-v5", "probe-gelan")
+ZOO_SYNC_CFGS = ("resnet_rtdetr.yaml", "HGresnet.yaml", "probe-v5", "probe-gelan",
+                 "probe-tail")
 ZOO_DETECT_CFGS = ("resnetaifi.yaml", "starnet4.yaml", "probe-v5")
 #: a float32 step's gate tighter than ``HEAD_PARAM_GRAD_RTOL``, per YAML
 ZOO_F32_RTOL = {"ceshi.yaml": 1e-3}
 ZOO_TRAIN_IMAGES, ZOO_VAL_IMAGES = 16, 8
 
 
-#: the two probe models of the zoo phase: the registry rows no YAML of the
-#: JAX package names (ROADMAP Queue 1 item 11g-1), each set into one of the
-#: port's YAMLs at that YAML's own nc, depth, width and anchors (its
+#: the three probe models of the zoo phase: the registry rows no YAML of
+#: the JAX package names (ROADMAP Queue 1 items 11g-1 and 11g-2), each set
+#: into one of the port's YAMLs at that YAML's own nc, depth, width and anchors (its
 #: backbone and head replaced): name -> (base YAML, backbone, head).
 #: probe-v5 is yolov5s with Ultralytics' v5.0 and ghost rows (a Focus stem,
 #: BottleneckCSP / C3Ghost / GhostConv, BoT3 at P5, SPP for SPPF, C3SPP /
@@ -3000,7 +3001,27 @@ ZOO_TRAIN_IMAGES, ZOO_VAL_IMAGES = 16, 8
 #: are near-constant at init (MHSA's saturated attention behind a BN; the
 #: 0.2-gamma BNs closing ASFF3 and ASFF2), so that no neuron behind them
 #: stays silent and the float32 step's gradient stays finite (a silent
-#: chain of zero-variance BNs overflows it, as in the CPU tests' yolov8s)
+#: chain of zero-variance BNs overflows it, as in the CPU tests' yolov8s).
+#: probe-tail is resnet10 with every row of nn/blocks_tail.py's rest and
+#: AKConv: the residual variants down to P5 (Concat_res5's AKConv at P4),
+#: C3TR / TransformerBlock at 20 x 20 (their position tables sized at 640
+#: px), Bottleneck_1 / BasicBlock_4 / MobileNetV3 / CoT / ScConv /
+#: PartialConv at P5, a Bottleneck_2 whose 512-wide output (128 in the
+#: parser's record) feeds the Concat back to P4, and a P4 neck of
+#: BasicBlock_5 / DualConv / Bottleneck_4 / AKConv fused with P4 by
+#: ContextGuideFusionModulev2.  ScConv's output is its input times a
+#: softmax over 1024 channels (about 1e-3), so behind it alone
+#: Bottleneck_2's four sites stay silent (0.0 on the card), their checks
+#: against the plain versions vacuous and their zero-variance BNs blowing
+#: the planted fault up to 1e32: a Sum row adds TransformerBlock's map.
+#: C3TR closes with a 0.2-gamma BN (Conv_4), so Bottleneck_1's first site
+#: behind it fired 5e-6 at b2 and none in the float32 step's batch (the
+#: planted fault at 1.8e33): a Sum row adds Concat_res6's map.
+#: The pre-norm blocks (BasicBlock_3, Concat_res4) start with training-mode
+#: BNs, so right behind the stem's BN they would leave its scale and shift
+#: no gradient in exact arithmetic (a BN of a BN), only rounding noise
+#: (2.4-2.9 % of a tiny gradient on the card, over the f32 gate):
+#: FasterNetBlock (a residual sum) runs between them
 PROBES = {
     "probe-v5": ("yolov5s.yaml", [
         [-1, 1, "Focus", [64, 3]],                    # 0 P1/2
@@ -3067,15 +3088,47 @@ PROBES = {
         [-1, 1, "RepNCSPELAN4", [512, 512, 256, 1]],  # 29 P5/32
         [[25, 29], 1, "Detect", ["nc", "anchors"]],   # 30
     ]),
+    "probe-tail": ("resnet10.yaml", [
+        [-1, 1, "Conv_1", [64, 7, 2]],                # 0 P1/2
+        [-1, 1, "FasterNetBlock", [2]],               # 1
+        [-1, 1, "BasicBlock_3", [64, 3, 2]],          # 2 P2/4
+        [-1, 1, "Bottleneck_3", [128, 3, 2]],         # 3 P3/8
+        [-1, 1, "Concat_res3", [128, 3, 1]],          # 4
+        [-1, 1, "Concat_res4", [256, 3, 2]],          # 5 P4/16
+        [-1, 1, "Concat_res5", [256, 3, 1]],          # 6 AKConv, 3 points
+        [-1, 1, "Concat_res6", [512, 3, 2]],          # 7 P5/32
+        [-1, 1, "C3TR", [512]],                       # 8
+    ], [
+        [[-1, 7], 1, "Sum", [2]],                     # 9
+        [-1, 1, "Bottleneck_1", [512, 1]],            # 10
+        [-1, 1, "BasicBlock_4", [512, 3, 1]],         # 11
+        [-1, 1, "MobileNetV3", [512, 1024, 3, 1]],    # 12
+        [-1, 1, "CoT", [3]],                          # 13
+        [-1, 1, "TransformerBlock", [512, 4, 1]],     # 14
+        [-1, 1, "ScConv", []],                        # 15
+        [[-1, 14], 1, "Sum", [2]],                    # 16
+        [-1, 1, "PartialConv", [4, 3, 2]],            # 17 P5/32
+        [-1, 1, "Bottleneck_2", [128, 1, 1]],         # 18 512 wide (c2 * e)
+        [-1, 1, "Sample", ["None", 2, "nearest"]],    # 19
+        [[-1, 6], 1, "Concat", [2]],                  # 20
+        [-1, 1, "BasicBlock_5", [256, 3, 1]],         # 21
+        [-1, 1, "DualConv", [192, 1, 4]],             # 22
+        [-1, 1, "Bottleneck_4", [256, 3, 1]],         # 23
+        [-1, 1, "AKConv", [256, 5, 1]],               # 24
+        [[-1, 5], 1, "ContextGuideFusionModulev2", [1]],  # 25 P4/16
+        [[25, 17], 1, "Detect", ["nc", "anchors"]],   # 26
+    ]),
 }
 
 
 #: the probes at 640 px, T=4, nc 13, as ``ZOO_SITES``: (neuron sites, K1,
 #: K2 and K6 launches of one eval forward, K5 and K4 launches of one
 #: training forward); no site on K2 (``RepNCSPELAN4`` hands ``csp0`` a
-#: dense copy); K6 at the ``MHSA`` / ``DSSA`` token sites;
+#: dense copy; ``AKConv``'s samples are a dense plane); K6 at the ``MHSA``
+#: / ``DSSA`` / ``TransformerBlock`` token sites;
 #: tests/test_torch_port_blocks_reg.py holds it against the models' hooks
-PROBE_SITES = {"probe-v5": (77, 75, 0, 2, 57, 159), "probe-gelan": (74, 72, 0, 2, 24, 192)}
+PROBE_SITES = {"probe-v5": (77, 75, 0, 2, 57, 159), "probe-gelan": (74, 72, 0, 2, 24, 192),
+               "probe-tail": (48, 46, 0, 2, 15, 123)}
 
 
 def probe_cfg(name: str) -> dict:
@@ -3217,7 +3270,7 @@ def zoo_sites_sum(recs) -> dict:
 
 
 def phase_zoo(seed: int, root: Path, log) -> dict:
-    """The block library's YAMLs on the card (``ZOO_SITES``) and the two
+    """The block library's YAMLs on the card (``ZOO_SITES``) and the three
     probe models of the registry rows no YAML names (``PROBES``,
     ``PROBE_SITES``), 640 px, nc 13, T=4, bf16 parameters with float32 BN
     statistics, random weights from ``seed``, BN calibrated on the batch.
@@ -3231,8 +3284,8 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
     train step, its K4 / K5 launches equal to the table and its peak
     memory.  ``ZOO_TIMED``: the b8 forward timed and profiled;
     ``res10-ee``'s K2 stem site and the K6 token sites of ``resnetaifi``
-    and of the probes' ``MHSA`` / ``DSSA`` timed beside their plain
-    versions and bounds (``zoo_site_check``; a probe's at the b2 check's
+    and of the probes' ``MHSA`` / ``DSSA`` / ``TransformerBlock`` timed
+    beside their plain versions and bounds (``zoo_site_check``; a probe's at the b2 check's
     inputs).
     ``ZOO_DETECT_CFGS``: ``detect.run`` over 4 synthetic images.
     ``ZOO_STEP_CFGS``: the float32 step teacher-forced against its
@@ -3721,8 +3774,9 @@ def main(argv=None) -> int:
             zoo_token_sites=zoo_sites_sum(zoo["tokens"]),
             zoo_probe_token_sites={c: zoo_sites_sum(r) for c, r in zoo["probe_tokens"].items()},
             zoo_probe_note="zoo_probe_token_sites: per probe model, its MHSA attention "
-                           "outputs ([T, N, H*W, C]) and DSSA attention maps ([T, N, "
-                           f"H*W*heads, H*W]) at b{ZOO_BATCH}, summed as zoo_token_sites",
+                           "outputs and TransformerBlock tokens ([T, N, H*W, C]) and DSSA "
+                           f"attention maps ([T, N, H*W*heads, H*W]) at b{ZOO_BATCH}, "
+                           "summed as zoo_token_sites",
             zoo_note="zoo_*: the AIFI encoder's token sites ([T, N, H*W, C], the one "
                      "TokenLIF applied six times a forward; K6 whatever snn.ecs says), "
                      "launches per forward of each zoo YAML; zoo_token_sites sums the "

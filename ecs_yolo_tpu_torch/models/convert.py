@@ -44,7 +44,13 @@ path as well (``dw/depth/conv/kernel`` -> ``dw.depth.weight``,
 ``b0/sc_dw/conv/bn/bn/scale`` -> ``b0.sc_dw.conv.bn.bn.weight``),
 ``ClippedTPReLU``'s slope ``act/weight`` as it is, and ``ELA``'s flax 1-D
 conv kernel ``se/conv1d/kernel`` ``[k, 1, C]`` -> ``se.conv1d.weight``
-``[C, 1, k]``.  The inner blocks ``m{i}`` of ``BasicBlock_2C3``,
+``[C, 1, k]``.  So do the blocks of ``nn/blocks_tail.py`` and ``AKConv``:
+``res/4/conv/kernel`` -> ``res.4.weight``, ``sc_conv/conv/kernel`` ->
+``sc_conv.weight``, ``conv2/p_conv/conv/bias`` -> ``conv2.p_conv.bias``,
+``scconv/gn_gamma`` as it is, ``se/fc1/kernel`` (``SELayerInner``) ->
+``se.fc1.weight``, and ``TransformerBlock``'s ``pos`` ``[1, 1, H*W, C]`` as
+it is, its ``ma0/query/kernel`` as ``AIFI``'s and its ``fc1_0/kernel`` ->
+``fc1_0.weight``.  The inner blocks ``m{i}`` of ``BasicBlock_2C3``,
 ``BasicBlock_1C3`` and ``Concat_res2C3`` are the port's ``BasicBlock_2``,
 ``BasicBlock_1`` and ``Concat_res2``, whose leaves take those blocks' own
 map: ``m0/conv1/conv/kernel`` -> ``m0.residual_function.1.weight``.
@@ -104,10 +110,16 @@ _LEAVES = {
     "gn_scale": "gn_scale", "gn_bias": "gn_bias",
     "conv1d/kernel": "conv1d.weight", "weight": "weight", "w": "w",
     "firing_rate_x": "firing_rate_x", "firing_rate_attn": "firing_rate_attn",
+    "gn_gamma": "gn_gamma", "gn_beta": "gn_beta", "pos": "pos",
 }
-# flax Dense / DenseGeneral / LayerNorm modules (AIFI) -> nn.Linear / layer norm
-_DENSE = {"query", "key", "value", "out", "fc1", "fc2", "norm1", "norm2"}
+# flax Dense / DenseGeneral / LayerNorm modules (AIFI, TransformerBlock's
+# fc1_{i} / fc2_{i}) -> nn.Linear / layer norm
+_DENSE = re.compile(r"query|key|value|out|fc[12](_\d+)?|norm[12]")
 _DENSE_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+def _dense(module: str) -> bool:
+    return _DENSE.fullmatch(module) is not None
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -125,7 +137,7 @@ def _path_name(block: str, path: str) -> str:
     """Torch name of a leaf of a block named path for path: the module path
     joined by dots, then the leaf's torch name."""
     parts = path.split("/")
-    if len(parts) > 1 and parts[-2] in _DENSE and parts[-1] in _DENSE_LEAVES:
+    if len(parts) > 1 and _dense(parts[-2]) and parts[-1] in _DENSE_LEAVES:
         return ".".join(parts[:-1] + [_DENSE_LEAVES[parts[-1]]])
     for n in (2, 1):
         leaf = "/".join(parts[-n:])
@@ -162,12 +174,14 @@ def _layout(block: str, path: str, w: np.ndarray) -> np.ndarray:
     if (block == "Detect" and re.fullmatch(r"w\d+/w", path)) or (
             block == "Conv_7" and path == "w"):
         return w.reshape(1, w.shape[2], 1, 1, 1)      # Conv_7 [1,1,T,1]
+    parts = path.split("/")
+    if parts[-1] == "pos":
+        return w                                      # [1, 1, H*W, C] as it is
     if w.ndim == 4:
         return np.transpose(w, (3, 2, 0, 1))          # HWIO -> OIHW
-    parts = path.split("/")
-    if w.ndim == 3 and parts[-1] == "kernel" and parts[-2] not in _DENSE:
+    if w.ndim == 3 and parts[-1] == "kernel" and not _dense(parts[-2]):
         return np.transpose(w, (2, 1, 0))             # 1-D conv [k, I, O] -> [O, I, k]
-    if len(parts) > 1 and parts[-2] in _DENSE:
+    if len(parts) > 1 and _dense(parts[-2]):
         if parts[-1] == "bias":
             return w.reshape(-1)                      # [heads, head_dim] -> [C]
         if parts[-1] == "kernel" and parts[-2] == "out" and w.ndim == 3:

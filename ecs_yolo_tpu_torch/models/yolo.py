@@ -2,29 +2,37 @@
 ``ecs_yolo_tpu/models/yolo.py``).
 
 Covers every row of the 33 YAMLs in ``models/yaml/`` (all of the JAX
-package's) and the registry rows of the four JAX modules ``nn/blocks.py``,
-``nn/blocks_ext.py``, ``nn/experimental.py`` and ``nn/blocks_v9.py``: the
+package's) and the registry rows of the five JAX modules ``nn/blocks.py``,
+``nn/blocks_ext.py``, ``nn/experimental.py``, ``nn/blocks_v9.py`` and
+``nn/blocks_tail.py``, with ``nn/blocks_tail2.py``'s ``AKConv``: the
 tables below name each block and its module (``C2_BLOCKS``, width-scaled
 output channels; ``PASS_BLOCKS``, the input's channels; ``EXTRA_BLOCKS``,
 a channel rule of their own), the nine detection heads of
 ``nn/heads.py`` and ``Segment`` / ``Panoptic`` of ``nn/segment.py``;
 repeated rows become ``nn.Sequential``.  Any other block of JAX's registry
-raises ``KeyError`` (ROADMAP Queue 1 item 11g-2 to 11g-4: ``nn/blocks_tail.py``'s
-and ``nn/blocks_tail2.py``'s rest, ``nn/blocks_star.py``'s rest).  Layers
-are ``model.{i}``.  A ``CBLinear`` row's output is a list of tensors (its
-``chs`` entry a tuple), which the forward caches like any other output
-for the ``CBFuse`` rows.
+(the rest of ``nn/blocks_tail2.py`` and ``nn/blocks_star.py``) raises
+``KeyError`` naming ROADMAP Queue 1 item 11g-3; item 11g-4 (the RT-DETR
+loss, the NMS variants) adds no registry row.  Layers are ``model.{i}``.
+A ``CBLinear`` row's output is a list of tensors (its ``chs`` entry a
+tuple), which the forward caches like any other output for the ``CBFuse``
+rows.
 
 A static image ``[N, H, W, C]`` is replicated over the model's T; an event
 batch ``[N, T, H, W, C]`` (``data/events.EventDataset``) is event mode: its
 T steps run through every layer, the stem included, so the model is built
 with ``SNNConfig(time_window=T)`` of the data.
 
-``build_model`` parses the YAML, probes the head strides with an eval
-forward on the ``meta`` device (shapes only, like ``jax.eval_shape``; JAX
-probes the training output, whose maps have the same shapes), builds the
-final module on the ``meta`` device, moves it to the target device and
-draws every parameter from a ``torch.Generator``.  ``remat=True``
+``build_model`` parses the YAML and builds the layers one by one on the
+``meta`` device, each fed the shapes-only output of the layers before it
+(``build_layers``, like flax's shape inference in ``init``): a layer's
+input width is the tensor's, not the parser's record (they differ after a
+``Bottleneck_2`` row), and a block sized by its map (``TransformerBlock``'s
+position table, also inside ``C3TR``) takes the map it is fed.  It does so
+once at 256 px with placeholder strides to probe the head strides from the
+eval output (JAX probes the training output, whose maps have the same
+shapes), then at the image size (``imgsz``, 640 as JAX's ``init``) with
+those strides; it moves the model to the target device and draws every
+parameter from a ``torch.Generator``.  ``remat=True``
 recomputes every non-head layer in the backward pass (the JAX ``nn.remat``
 of each layer).
 """
@@ -51,7 +59,7 @@ from ..nn import blocks_v9 as BV
 from ..nn import experimental as BE
 from ..nn import heads as H
 from ..nn import segment as SEG
-from ..nn.initializers import lecun_normal_init_, torch_conv_init_
+from ..nn.initializers import lecun_normal_init_, normal_init_, torch_conv_init_
 
 YAML_DIR = Path(__file__).parent / "yaml"
 
@@ -94,9 +102,24 @@ C2_BLOCKS = {
     "MHSA": BX.MHSA,
     "BottleneckTransformer": BX.BottleneckTransformer,
     "BoT3": BX.BoT3,
+    "Bottleneck_1": BT.Bottleneck_1,
+    "Bottleneck_2": BT.Bottleneck_2,
+    "Bottleneck_3": BT.Bottleneck_3,
+    "Bottleneck_4": BT.Bottleneck_4,
+    "BasicBlock_3": BT.BasicBlock_3,
+    "BasicBlock_4": BT.BasicBlock_4,
+    "BasicBlock_5": BT.BasicBlock_5,
     "BasicBlock_ms": BT.BasicBlock_ms,
     "ConcatBlock_ms": BT.ConcatBlock_ms,
     "BasicBlock_ms1": BT.BasicBlock_ms1,
+    "Concat_res3": BT.Concat_res3,
+    "Concat_res4": BT.Concat_res4,
+    "Concat_res5": BT.Concat_res5,
+    "Concat_res6": BT.Concat_res6,
+    "DualConv": BT.DualConv,
+    "MobileNetV3": BT.MobileNetV3,
+    "C3TR": BT.C3TR,
+    "TransformerBlock": BT.TransformerBlock,
     "CrossConv": BE.CrossConv,
     "MixConv2d": BE.MixConv2d,
     "RepConvN": BV.RepConvN,
@@ -110,12 +133,13 @@ C2_BLOCKS = {
     "BasicBlock_1C3": BV.BasicBlock_1C3,
     "Concat_res2C3": BV.Concat_res2C3,
     "ResNetLayerBasic": BT2.ResNetLayerBasic,
+    "AKConv": BT2.AKConv,
 }
 # blocks that repeat n times by inserting the count as the arg after c2
 # (``StarBlock_2C2f`` is not one: its YAML passes n itself, as in JAX;
 # nor ``C3SPP``, whose YAML args are ``(c2, k)``)
-CSP_N_BLOCKS = {"BottleneckCSP", "C3", "C3Ghost", "C2f", "RepC3", "BoT3", "RepNCSP",
-                "BasicBlock_2C3", "BasicBlock_1C3", "Concat_res2C3"}
+CSP_N_BLOCKS = {"BottleneckCSP", "C3", "C3Ghost", "C2f", "RepC3", "BoT3", "C3TR",
+                "RepNCSP", "BasicBlock_2C3", "BasicBlock_1C3", "Concat_res2C3"}
 # blocks that keep the input channel count; args passed through verbatim
 PASS_BLOCKS = {
     "Sample": B.Sample,
@@ -128,7 +152,11 @@ PASS_BLOCKS = {
     "DSSA": BX.DSSA,
     "SELayer": BX.SELayer,
     "Silence": BX.Silence,
+    "FasterNetBlock": BT.FasterNetBlock,
     "ELA": BT.ELA,
+    "CoT": BT.CoT,
+    "ScConv": BT.ScConv,
+    "PartialConv": BT.PartialConv,
     "ClippedTPReLU": BS.ClippedTPReLU,
 }
 # blocks with a channel rule of their own (``parse_model``)
@@ -140,17 +168,23 @@ EXTRA_BLOCKS = {
     "ASFF2": BX.ASFF2,
     "ASFF3": BX.ASFF3,
     "ContextGuideFusionModule": BT.ContextGuideFusionModule,
+    "ContextGuideFusionModulev2": BT.ContextGuideFusionModulev2,
     "HGBlock": BT.HGBlock,
     "Sum": BE.Sum,
 }
 # the blocks built with the input channel count first (a list for a
 # multi-input row; the ASFF rows spread it after ``level``): every block
-# with parameters sized by it; and those built with ``snn``
+# with parameters sized by it; those built with ``snn`` (not ``PartialConv``,
+# as in JAX); and those built with the (H, W) of the map they are fed
 C1_FIRST = set(C2_BLOCKS) | {"mem_update", "AIFI", "EMA", "DSSA", "SELayer", "ELA",
                              "ClippedTPReLU", "CBLinear", "ASFF2", "ASFF3",
-                             "ContextGuideFusionModule", "HGBlock"}
+                             "ContextGuideFusionModule", "ContextGuideFusionModulev2",
+                             "HGBlock", "FasterNetBlock", "CoT", "ScConv", "PartialConv"}
 SNN_AWARE = set(C2_BLOCKS) | {"mem_update", "AIFI", "EMA", "DSSA", "SELayer", "CBLinear",
-                              "ASFF2", "ASFF3", "ContextGuideFusionModule", "HGBlock"}
+                              "ASFF2", "ASFF3", "ContextGuideFusionModule",
+                              "ContextGuideFusionModulev2", "HGBlock", "FasterNetBlock",
+                              "CoT", "ScConv"}
+SIZE_BOUND = {"TransformerBlock", "C3TR"}
 HEADS = {
     "Detect": H.Detect,
     "DDetect": H.DDetect,
@@ -246,7 +280,7 @@ def parse_model(d: Dict[str, Any], ch: int):
             args = [tuple(args[0]) if args else ()]
         elif name in ("ASFF2", "ASFF3"):
             c2 = chs[f[args[0]]] if isinstance(f, (list, tuple)) else chs[f]
-        elif name == "ContextGuideFusionModule":
+        elif name in ("ContextGuideFusionModule", "ContextGuideFusionModulev2"):
             c2 = 2 * chs[f[1]]
         elif name == "Sum":
             c2 = chs[f[0]]
@@ -272,7 +306,7 @@ def parse_model(d: Dict[str, Any], ch: int):
             c2 = chs[f if isinstance(f, int) else f[0]]
         else:
             raise KeyError(f"block {name!r} at layer {i} is not ported yet "
-                           "(ROADMAP Queue 1 item 11)")
+                           "(ROADMAP Queue 1 item 11g-3)")
         rows.append((_freeze(f), n, name, _freeze(args)))
         save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
         if i == 0:
@@ -308,15 +342,19 @@ def check_anchor_order(anchors: List[List[float]], strides: Sequence[float]):
 
 
 def _c_in(f, i: int, ch: int, chs: Sequence[int]):
-    """Input channels of layer i fed from ``f``, as the JAX parser sees
-    them (negative froms index the layers before i)."""
+    """Input channels of layer i fed from ``f``, out of the widths ``chs``
+    of the layers before it (negative froms index back from i)."""
     if i == 0:
         return ch
     pick = lambda x: chs[i + x] if x < 0 else chs[x]
     return pick(f) if isinstance(f, int) else [pick(x) for x in f]
 
 
-def _construct(name: str, c1, args: Tuple, snn: SNNConfig) -> nn.Module:
+def _construct(name: str, c1, args: Tuple, snn: SNNConfig,
+               hw: Optional[Tuple[int, int]] = None) -> nn.Module:
+    """Block ``name`` for input width(s) ``c1`` with the row's ``args``;
+    ``hw`` is the input map's (H, W), which the ``SIZE_BOUND`` blocks
+    take."""
     if name == "Concat":
         return B.Concat(*args)
     if name in HEADS:
@@ -328,7 +366,46 @@ def _construct(name: str, c1, args: Tuple, snn: SNNConfig) -> nn.Module:
         args = (args[0], *c1, *args[1:])
     elif name in C1_FIRST:
         args = (c1, *args)
-    return cls(*args, snn=snn) if name in SNN_AWARE else cls(*args)
+    kw = {"snn": snn} if name in SNN_AWARE else {}
+    if name in SIZE_BOUND:
+        kw["hw"] = hw
+    return cls(*args, **kw)
+
+
+def _width(x):
+    """The channel count of a layer output (a tuple for a list of tensors)."""
+    return tuple(_width(v) for v in x) if isinstance(x, (list, tuple)) else x.shape[-1]
+
+
+@torch.no_grad()
+def build_layers(spec, save, ch: int, snn: SNNConfig, imgsz: int):
+    """The layers of ``spec`` on the meta device, each built for the
+    tensors it is fed: a shape pass over a ``[T, 1, imgsz, imgsz, ch]``
+    input in which layer i is constructed with its inputs' widths (and the
+    map's (H, W), for the ``SIZE_BOUND`` blocks) and then run in eval mode
+    on them, as flax's ``init`` infers each width from the tensor.  A
+    repeated row's copies are built the same way, one after another.
+    Returns the layers and the last layer's output (the head's, for the
+    stride probe)."""
+    with torch.device("meta"):
+        x = torch.zeros(snn.time_window, 1, imgsz, imgsz, ch)
+        layers, widths, cache = [], [], {}
+        for i, (f, n, name, args) in enumerate(spec):
+            if f != -1:
+                x = (cache[f % i] if isinstance(f, int)
+                     else [x if j == -1 else cache[j % i] for j in f])
+            c1 = _c_in(f, i, ch, widths)
+            copies = []
+            for _ in range(n):
+                hw = tuple(x.shape[2:4]) if isinstance(x, torch.Tensor) else None
+                copies.append(_construct(name, c1, args, snn, hw).eval())
+                x = copies[-1](x)
+                c1 = _width(x) if name not in HEADS else None
+            layers.append(copies[0] if n == 1 else nn.Sequential(*copies))
+            widths.append(c1)
+            if i in save:
+                cache[i] = x
+    return layers, x
 
 
 def _remat_call(layer: nn.Module, x):
@@ -341,26 +418,16 @@ def _remat_call(layer: nn.Module, x):
 
 
 class DetectionModel(nn.Module):
-    """Graph-walking detection model (reference ``Model._forward_once``).
-    With ``remat`` a layer other than the head runs under
-    ``nn/blocks.checkpointed`` while autograd is on."""
+    """Graph-walking detection model (reference ``Model._forward_once``)
+    over ``layers`` (``build_layers``).  With ``remat`` a layer other than
+    the head runs under ``nn/blocks.checkpointed`` while autograd is on."""
 
-    def __init__(self, spec, save, chs, ch: int, snn: SNNConfig,
+    def __init__(self, spec, save, layers: Sequence[nn.Module], snn: SNNConfig,
                  tinv_prefix: int = 0, remat: bool = False):
         super().__init__()
         self.spec, self.save, self.snn = spec, save, snn
         self.tinv_prefix = tinv_prefix
         self.remat = remat
-        layers = []
-        for i, (f, n, name, args) in enumerate(spec):
-            c1 = _c_in(f, i, ch, chs)
-            if n > 1:
-                c2 = chs[i]
-                layers.append(nn.Sequential(*(
-                    _construct(name, c1 if j == 0 else c2, args, snn)
-                    for j in range(n))))
-            else:
-                layers.append(_construct(name, c1, args, snn))
         self.model = nn.ModuleList(layers)
 
     def prepare_input(self, x: torch.Tensor) -> torch.Tensor:
@@ -470,14 +537,24 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     and the ``EMA`` / ``ELA`` group-norm scales 1 and shifts 0);
     ``ClippedTPReLU`` slopes at their init (0.25); ``Sum``'s weight at
     ``-arange(1, n) / 2`` and ``DSSA``'s firing-rate buffers at 0.01, as
-    JAX's.  Raises on a parameter no rule covers (the model is built on the
-    ``meta`` device, so one would hold garbage)."""
+    JAX's; ``AKConv``'s offset conv with a zero weight, ``ScConv``'s
+    ``gn_gamma`` normal (std 1) and ``gn_beta`` 0, ``TransformerBlock``'s
+    ``pos`` normal (std 0.02), as JAX's.  Raises on a parameter no rule
+    covers (the model is built on the ``meta`` device, so one would hold
+    garbage)."""
     done = set()
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d)):
             lecun_normal_init_(m, generator)
         elif isinstance(m, nn.modules.conv._ConvNd):
             torch_conv_init_(m, generator)
+            if isinstance(m, BT2.OffsetConv):
+                m.weight.zero_()
+        elif isinstance(m, BT.ScConv):
+            normal_init_(m.gn_gamma, 1.0, generator)
+            m.gn_beta.zero_()
+        elif isinstance(m, BT.TransformerBlock):
+            normal_init_(m.pos, 0.02, generator)
         elif isinstance(m, B._BN):
             m.weight.fill_(m.gamma0)
             m.bias.zero_()
@@ -550,35 +627,35 @@ def build_model(
     generator: Optional[torch.Generator] = None,
     ch: int = 3,
     remat: bool = False,
+    imgsz: int = 640,
 ) -> DetectionModel:
     """Parse -> stride probe on ``meta`` -> final model on ``device`` (the
     CUDA card unless ``device="cpu"``), weights drawn from ``generator``
     (seed 0 when None).  The model is returned in eval mode, float32.
-    ``remat`` recomputes every non-head layer in the backward pass."""
+    ``remat`` recomputes every non-head layer in the backward pass.
+    ``imgsz`` is the image side the layers are built for: only a
+    ``TransformerBlock`` (also inside ``C3TR``) depends on it, and serves
+    no other size."""
     dev = resolve_device(device)
     d = load_cfg(cfg)
     if nc is not None:
         d["nc"] = nc
     snn = snn or DEFAULT_SNN
-    spec, save, chs, head_info = parse_model(d, ch)
+    spec, save, _, head_info = parse_model(d, ch)
     if not head_info:
         raise ValueError("model YAML has no detection head")
     tinv = _t_invariant_prefix(spec, save) if snn.stem_dedup else 0
 
     f = head_info["f"]
     nl = len(f) if isinstance(f, (list, tuple)) else 1
-    with torch.device("meta"):
-        placeholder = [float(2 ** (3 + i)) for i in range(nl)]
-        probe_model = DetectionModel(
-            _with_head(spec, head_info, placeholder, probe=True), save, chs,
-            ch, snn, tinv).eval()
-        with torch.no_grad():
-            out = probe_model(torch.zeros(1, _PROBE, _PROBE, ch))
-        strides = tuple(float(_PROBE // f.shape[2])
-                        for f in head_feats(head_info["name"], out))
-        head_info["strides"] = strides
-        model = DetectionModel(_with_head(spec, head_info, strides), save, chs,
-                               ch, snn, tinv, remat)
+    placeholder = [float(2 ** (3 + i)) for i in range(nl)]
+    _, out = build_layers(_with_head(spec, head_info, placeholder, probe=True), save, ch,
+                          snn, _PROBE)
+    strides = tuple(float(_PROBE // f.shape[2]) for f in head_feats(head_info["name"], out))
+    head_info["strides"] = strides
+    spec = _with_head(spec, head_info, strides)
+    layers, _ = build_layers(spec, save, ch, snn, imgsz)
+    model = DetectionModel(spec, save, layers, snn, tinv, remat)
     model.head_info = head_info
     model.to_empty(device=dev)
     init_weights(model, generator or torch.Generator().manual_seed(0))

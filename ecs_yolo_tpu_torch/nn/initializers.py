@@ -6,7 +6,8 @@ A conv weight and its bias both draw from ``U(-1/sqrt(fan_in),
 weight.  A linear layer and a 1-D conv take flax's ``Dense`` / ``Conv``
 defaults, the JAX package's initializer for its transformer layers and
 ``ELA``: ``lecun_normal`` (a normal of variance ``1 / fan_in`` truncated at
-two standard deviations) for the weight, zeros for the bias.  Values are
+two standard deviations) for the weight, zeros for the bias.  ``normal_init_``
+is flax's ``normal(std)``.  Values are
 drawn on the CPU and copied, so one seed gives the same weights on every
 device.
 """
@@ -37,6 +38,16 @@ def torch_conv_init_(conv: nn.modules.conv._ConvNd,
     _uniform_(w, bound, generator)
     if conv.bias is not None:
         _uniform_(conv.bias, bound, generator)
+
+
+@torch.no_grad()
+def normal_init_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """``p`` from a normal of mean 0 and ``std`` (flax ``normal(std)``)."""
+    if p.is_meta:           # holds no values: nothing to draw
+        return
+    v = torch.empty(p.shape, dtype=torch.float32)
+    v.normal_(0.0, std, generator=generator)
+    p.copy_(v)
 
 
 @torch.no_grad()

@@ -393,7 +393,7 @@ def test_yaml_matches_jax(cfg, tmp_path):
 
 def test_unported_blocks_still_raise_keyerror():
     d = _narrow("res10-seg.yaml")
-    d["head"][5] = [-1, 1, "AKConv", [64]]
+    d["head"][5] = [-1, 1, "HetConv", [64]]
     with pytest.raises(KeyError, match="item 11"):
         port_yolo.build_model(d, nc=NC, device="cpu")
 

@@ -9,9 +9,10 @@ emptied it), and a registry name still unported raises ``KeyError`` naming
 ROADMAP Queue 1 item 11.  Each YAML of Queue 1 items 11a-11f (and three
 that built before them) also serves a CPU forward, narrowed, at 64 px (the
 TAL assigner wants 10 anchors), and one YAML a new block family trains a
-CPU step.  The two probe models of ``chip_smoke.PROBES`` (the registry rows
-of item 11g-1, which no YAML names) parse as JAX's, build on the meta
-device, and serve a CPU forward and train a CPU step narrowed."""
+CPU step.  The three probe models of ``chip_smoke.PROBES`` (the registry
+rows of items 11g-1 and 11g-2, which no YAML names) parse as JAX's, build
+on the meta device, and serve a CPU forward and train a CPU step
+narrowed."""
 
 import copy
 import functools
@@ -65,16 +66,16 @@ def test_port_copies_are_the_yamls_it_builds():
     assert set(NEW_YAMLS + STAR_CSP_YAMLS) <= set(own)
 
 
-@pytest.mark.parametrize("block", ["AKConv", "Bottleneck_1"])
+@pytest.mark.parametrize("block", ["HetConv", "StarBlock"])
 def test_unported_registry_name_raises_keyerror(block):
     """A name of JAX's registry that no YAML uses and the port does not
-    carry yet (items 11g-2 and 11g-3: ``nn/blocks_tail2.py``'s ``AKConv``,
-    ``nn/blocks_tail.py``'s ``Bottleneck_1``) raises ``KeyError`` naming
-    item 11; JAX parses the same row."""
+    carry yet (item 11g-3: ``nn/blocks_tail2.py``'s ``HetConv``,
+    ``nn/blocks_star.py``'s ``StarBlock``) raises ``KeyError`` naming
+    item 11g-3; JAX parses the same row."""
     d = port_yolo.load_cfg("yolov8s.yaml")
     d["head"][2] = [-1, 1, block, [128]]
     jax_yolo.parse_model(copy.deepcopy(d), 3)
-    with pytest.raises(KeyError, match="item 11"):
+    with pytest.raises(KeyError, match="item 11g-3"):
         port_yolo.parse_model(d, 3)
 
 
@@ -182,7 +183,7 @@ def test_new_block_trains_a_cpu_step(name):
     assert any(not torch.equal(p, before[k]) for k, p in state.params.items())
 
 
-# --- the probe models of the registry rows no YAML names (item 11g-1) ----------------
+# --- the probe models of the registry rows no YAML names (items 11g-1, 11g-2) --------
 
 
 @pytest.mark.parametrize("probe", sorted(chip_smoke.PROBES))
@@ -217,10 +218,10 @@ def _narrow_probe(probe):
 def _probe_model(probe):
     """The narrowed probe, nc 3, T=4 (at T=2 probe-gelan's narrowed net is
     silent at init and its gradient overflows float32 through the
-    zero-variance BN chain, as yolov8s's), on the CPU, and a 64 px batch of
-    2."""
+    zero-variance BN chain, as yolov8s's), on the CPU, built for and fed a
+    64 px batch of 2 (probe-tail's ``TransformerBlock``s serve one size)."""
     model = port_yolo.build_model(_narrow_probe(probe), nc=3, snn=SNNConfig(time_window=4),
-                                  device="cpu")
+                                  device="cpu", imgsz=64)
     x = torch.from_numpy(np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32))
     return model, x
 
