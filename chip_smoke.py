@@ -104,7 +104,17 @@ the port's paths at full width with random weights from a seed:
   ``resnet10-v9`` and one of ``yolov8s``, whose val pass must give
   ``plain_kernels()``'s NMS output; the bf16 step of ``resnet_rtdetr`` and
   of ``HGresnet`` under sync-debug "error"; ``detect.run`` of
-  ``resnetaifi`` and of ``starnet4``;
+  ``resnetaifi`` and of ``starnet4``; then the five probe models of
+  ``PROBES`` (the registry rows no YAML names, each set into one of the
+  port's YAMLs) the same way, each also timed at b8, stepped under
+  sync-debug "error" and (but probe-v5) in float32 with the planted fault;
+* the RT-DETR loss and the NMS variants (phase ``rtdetr_nms``, after
+  ``zoo``): ``train/rtdetr.rtdetr_loss`` forward and backward at b8, 300
+  queries, 13 classes, up to 50 padded ground truths, against the port's
+  CPU run (assignment, items, gradients), its ms and its host solver's
+  share; the five ``ops/nms_variants`` functions on a 1000-box pool against
+  their CPU runs, ``cluster_nms``'s keep set against ``ops/nms.py``'s
+  greedy walk, each one's ms an image;
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
@@ -2975,19 +2985,21 @@ def phase_segment(seed: int, root: Path, log) -> dict:
 #: image counts
 ZOO_BATCH = 2
 ZOO_TIMED = ("resnet10-v9.yaml", "resnetaifi.yaml", "res10-ee.yaml", "yolov8s.yaml",
-             "ceshi.yaml", "probe-v5", "probe-gelan", "probe-tail")
-ZOO_STEP_CFGS = ("resnet10-v9.yaml", "ceshi.yaml", "probe-gelan", "probe-tail")
+             "ceshi.yaml", "probe-v5", "probe-gelan", "probe-tail", "probe-star",
+             "probe-mixer")
+ZOO_STEP_CFGS = ("resnet10-v9.yaml", "ceshi.yaml", "probe-gelan", "probe-tail",
+                 "probe-star", "probe-mixer")
 ZOO_EPOCH_CFGS = ("resnet10-v9.yaml", "yolov8s.yaml")
 ZOO_SYNC_CFGS = ("resnet_rtdetr.yaml", "HGresnet.yaml", "probe-v5", "probe-gelan",
-                 "probe-tail")
+                 "probe-tail", "probe-star", "probe-mixer")
 ZOO_DETECT_CFGS = ("resnetaifi.yaml", "starnet4.yaml", "probe-v5")
 #: a float32 step's gate tighter than ``HEAD_PARAM_GRAD_RTOL``, per YAML
 ZOO_F32_RTOL = {"ceshi.yaml": 1e-3}
 ZOO_TRAIN_IMAGES, ZOO_VAL_IMAGES = 16, 8
 
 
-#: the three probe models of the zoo phase: the registry rows no YAML of
-#: the JAX package names (ROADMAP Queue 1 items 11g-1 and 11g-2), each set
+#: the five probe models of the zoo phase: the registry rows no YAML of
+#: the JAX package names (ROADMAP Queue 1 items 11g-1 to 11g-3), each set
 #: into one of the port's YAMLs at that YAML's own nc, depth, width and anchors (its
 #: backbone and head replaced): name -> (base YAML, backbone, head).
 #: probe-v5 is yolov5s with Ultralytics' v5.0 and ghost rows (a Focus stem,
@@ -3021,7 +3033,24 @@ ZOO_TRAIN_IMAGES, ZOO_VAL_IMAGES = 16, 8
 #: BNs, so right behind the stem's BN they would leave its scale and shift
 #: no gradient in exact arithmetic (a BN of a BN), only rounding noise
 #: (2.4-2.9 % of a tiny gradient on the card, over the f32 gate):
-#: FasterNetBlock (a residual sum) runs between them
+#: FasterNetBlock (a residual sum) runs between them.
+#: probe-star is starnet with the star rows no YAML names (StarBlock,
+#: StarBlock_1s / _1 / _3, StarSConv, MStarBlock / _2) down to P5, a
+#: TPReLU at P5 and GN at P4, and the C2f hybrids of nn/blocks_tail2.py in
+#: the neck (BasicBlock_1C2f's 1024 hidden at P3).  probe-mixer is resnet10
+#: with the rest of nn/blocks_tail2.py: the ResNetLayerBo stem, a
+#: ResNetBlock whose 256-wide output (64 in the parser's record) feeds
+#: HetConv at stride 2 on an even map, BasicBlock_1n / the C3 form of
+#: ResNetLayerBo / BasicBlock_1m down to P5, and the attention tail at P5:
+#: DynamicConv2d (its gating sites on 3 x 3 and 1 x 1 maps),
+#: TransxnetHybridTokenMixer and OSRAAttention (keys on 10 x 10) side by
+#: side on Attention's map, summed with it.  In a chain the card showed
+#: them silent: a sr 2 OSRAAttention's attention map does not fire at init
+#: (its keys come through a 0.2-gamma BN), so the chain behind it saw
+#: zeros, and DynamicConv2d's gating neurons fire only on a map whose
+#: channels are mostly spiking (Attention's, without a softmax, is one);
+#: a silent gate left its BNs zero-variance and the float32 step's biases
+#: no gradient
 PROBES = {
     "probe-v5": ("yolov5s.yaml", [
         [-1, 1, "Focus", [64, 3]],                    # 0 P1/2
@@ -3118,17 +3147,59 @@ PROBES = {
         [[-1, 5], 1, "ContextGuideFusionModulev2", [1]],  # 25 P4/16
         [[25, 17], 1, "Detect", ["nc", "anchors"]],   # 26
     ]),
+    "probe-star": ("starnet.yaml", [
+        [-1, 1, "Conv_1", [64, 7, 2]],                # 0 P1/2
+        [-1, 1, "StarSConv", [64, 3, 2]],             # 1 P2/4, pooled shortcut
+        [-1, 1, "StarBlock_1s", [128, 3, 2]],         # 2 P3/8, pooled shortcut
+        [-1, 1, "StarBlock_3", [256, 3, 2]],          # 3 P4/16, concat shortcut
+        [-1, 1, "StarBlock", [256, 3, 1]],            # 4 Conv_3 entry
+        [-1, 1, "StarBlock_1", [512, 3, 2]],          # 5 P5/32, 1024 hidden, g=2
+    ], [
+        [-1, 1, "MStarBlock", [512, 3, 1]],           # 6 identity residual
+        [-1, 1, "MStarBlock_2", [256, 3, 1]],         # 7 Shortcut residual
+        [-1, 1, "TPReLU", []],                        # 8 P5
+        [-1, 1, "Sample", ["None", 2, "nearest"]],    # 9
+        [[-1, 4], 1, "Concat", [2]],                  # 10
+        [-1, 1, "BasicBlock_2C2f", [256]],            # 11
+        [-1, 1, "GN", [16]],                          # 12 P4
+        [-1, 1, "Sample", ["None", 2, "nearest"]],    # 13
+        [[-1, 2], 1, "Concat", [2]],                  # 14
+        [-1, 1, "BasicBlock_1C2f", [128]],            # 15
+        [-1, 1, "Concat_res2C2f", [128]],             # 16 P3
+        [[16, 12, 8], 1, "Detect", ["nc", "anchors"]],  # 17
+    ]),
+    "probe-mixer": ("resnet10.yaml", [
+        [-1, 1, "ResNetLayerBo", [64, 1, 1, True]],   # 0 7x7/2 stem + 2x2 pool: P2/4
+        [-1, 1, "ResNetBlock", [64, 2]],              # 1 P3/8, 256 wide (e=4)
+        [-1, 1, "HetConv", [256, 2, 4]],              # 2 P4/16, SAME at stride 2
+        [-1, 1, "BasicBlock_1n", [256, 1]],           # 3 1024 hidden, no final BN
+        [-1, 1, "ResNetLayerBo", [512, 1, 1, False, 1]],  # 4 the C3 form
+        [-1, 1, "BasicBlock_1m", [512, 2]],           # 5 P5/32, RepConv entry
+    ], [
+        [-1, 1, "Attention", [8]],                    # 6
+        [6, 1, "DynamicConv2d", [3, 4, 2]],           # 7
+        [6, 1, "TransxnetHybridTokenMixer", [3, 2, 2, 1]],  # 8
+        [6, 1, "OSRAAttention", [2, 2]],              # 9 sr 2: kv on 10x10
+        [[7, 8, 9, 6], 1, "Sum", [4]],                # 10 P5
+        [-1, 1, "Sample", ["None", 2, "nearest"]],    # 11
+        [[-1, 4], 1, "Concat", [2]],                  # 12
+        [-1, 1, "BasicBlock_2", [256, 3, 1]],         # 13 P4
+        [[13, 10], 1, "Detect", ["nc", "anchors"]],   # 14
+    ]),
 }
 
 
 #: the probes at 640 px, T=4, nc 13, as ``ZOO_SITES``: (neuron sites, K1,
 #: K2 and K6 launches of one eval forward, K5 and K4 launches of one
 #: training forward); no site on K2 (``RepNCSPELAN4`` hands ``csp0`` a
-#: dense copy; ``AKConv``'s samples are a dense plane); K6 at the ``MHSA``
-#: / ``DSSA`` / ``TransformerBlock`` token sites;
+#: dense copy, the C2f hybrids and ``TransxnetHybridTokenMixer`` their
+#: channel halves; ``AKConv``'s samples are a dense plane); K6 at the
+#: ``MHSA`` / ``DSSA`` / ``TransformerBlock`` token sites and
+#: ``OSRAAttention``'s / ``DynamicConv2d``'s (also inside the mixer);
 #: tests/test_torch_port_blocks_reg.py holds it against the models' hooks
 PROBE_SITES = {"probe-v5": (77, 75, 0, 2, 57, 159), "probe-gelan": (74, 72, 0, 2, 24, 192),
-               "probe-tail": (48, 46, 0, 2, 15, 123)}
+               "probe-tail": (48, 46, 0, 2, 15, 123), "probe-star": (46, 46, 0, 0, 21, 117),
+               "probe-mixer": (53, 45, 0, 8, 3, 126)}
 
 
 def probe_cfg(name: str) -> dict:
@@ -3270,7 +3341,7 @@ def zoo_sites_sum(recs) -> dict:
 
 
 def phase_zoo(seed: int, root: Path, log) -> dict:
-    """The block library's YAMLs on the card (``ZOO_SITES``) and the three
+    """The block library's YAMLs on the card (``ZOO_SITES``) and the five
     probe models of the registry rows no YAML names (``PROBES``,
     ``PROBE_SITES``), 640 px, nc 13, T=4, bf16 parameters with float32 BN
     statistics, random weights from ``seed``, BN calibrated on the batch.
@@ -3479,6 +3550,134 @@ def phase_zoo(seed: int, root: Path, log) -> dict:
     return out
 
 
+#: the RT-DETR loss and NMS variants phase: batch, queries, classes, the most
+#: ground truths an image (padded to it); the NMS candidate pool
+RTDETR_B, RTDETR_Q, RTDETR_M, NMS_POOL = 8, 300, 50, 1000
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean wall time of ``fn`` (which may wait on the host) over ``reps``
+    calls after one warm-up, the card synchronised around them."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_rtdetr_nms(seed: int, log) -> dict:
+    """ROADMAP item 11g-4 on the card: ``train/rtdetr.rtdetr_loss`` on
+    random logits ``[8, 300, 13]`` and boxes with 5 to 50 ground truths an
+    image (padded to 50), forward and backward, against the port's own CPU
+    run of the same inputs (the assignment equal, each loss item within
+    1e-5 relative, each gradient within 1e-4 of its norm), its wall ms a
+    call and the share of it the host's assignment solver takes; the five
+    ``ops/nms_variants`` functions on one 1000-box pool with tied scores,
+    each against its CPU run (order and keep mask equal, soft-NMS's picks
+    equal and scores within 1e-5 relative), ``cluster_nms``'s keep set
+    against ``ops/nms.py``'s greedy walk over the same sorted pool at the
+    same threshold, and each variant's wall ms an image."""
+    from ecs_yolo_tpu_torch.ops import nms as NMS
+    from ecs_yolo_tpu_torch.ops import nms_variants as NV
+    from ecs_yolo_tpu_torch.train import rtdetr as RT
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(seed + 700)
+    b, q, m, nc = RTDETR_B, RTDETR_Q, RTDETR_M, NC
+    logits = torch.randn(b, q, nc, generator=g)
+    xy = torch.rand(b, q, 2, generator=g) * 0.6 + 0.2
+    boxes = torch.cat([xy, torch.rand(b, q, 2, generator=g) * 0.25 + 0.05], -1)
+    counts = torch.randint(5, m + 1, (b,), generator=g)
+    mask = torch.arange(m)[None] < counts[:, None]
+    labels = torch.where(mask, torch.randint(0, nc, (b, m), generator=g), -1).float()
+    gxy = torch.rand(b, m, 2, generator=g) * 0.6 + 0.2
+    gt = torch.cat([gxy, torch.rand(b, m, 2, generator=g) * 0.25 + 0.05], -1) * mask[..., None]
+
+    def run(dev):
+        s = logits.to(dev, copy=True).requires_grad_(True)
+        bx = boxes.to(dev, copy=True).requires_grad_(True)
+        total, items = RT.rtdetr_loss(s, bx, labels.to(dev), gt.to(dev), mask.to(dev), nc)
+        total.backward()
+        return total, items, s.grad, bx.grad
+
+    want = run("cpu")
+    got = run("cuda")
+    with torch.no_grad():
+        rows_c, match_c = RT.hungarian_match(torch.sigmoid(logits), boxes, labels, gt, mask)
+        rows_g, match_g = RT.hungarian_match(torch.sigmoid(logits).cuda(), boxes.cuda(),
+                                             labels.cuda(), gt.cuda(), mask.cuda())
+    solver_s = [0.0]
+    real = RT._lsa_host
+
+    def timed_lsa(cost):
+        t0 = time.perf_counter()
+        out = real(cost)
+        solver_s[0] += time.perf_counter() - t0
+        return out
+
+    RT._lsa_host = timed_lsa
+    try:
+        reps = 5
+        ms = wall_ms(lambda: run("cuda"), reps)
+    finally:
+        RT._lsa_host = real
+    solver_ms = solver_s[0] * 1e3 / (reps + 1)
+    item_err = ((got[1].cpu() - want[1]).abs() / want[1].abs()).tolist()
+    grad_err = [float((a.cpu() - w).norm() / w.norm()) for a, w in zip(got[2:], want[2:])]
+    rec = {"phase": "rtdetr_loss", "batch": b, "queries": q, "classes": nc,
+           "ground_truths": counts.tolist(), "dtype": "float32",
+           "assignment_equal": bool(torch.equal(rows_g.cpu(), rows_c)
+                                    and torch.equal(match_g.cpu(), match_c)),
+           "matches": int(match_c.sum()), "items": got[1].tolist(),
+           "items_cpu": want[1].tolist(), "item_rel_err": item_err,
+           "grad_rel_err": grad_err, "ms_per_call": ms, "solver_ms_per_call": solver_ms,
+           "host_solver_share": solver_ms / ms,
+           "note": "ms: wall of rtdetr_loss forward and backward at b8, the costs' one copy "
+                   "to the host and the assignment's back included; host_solver_share: "
+                   "scipy's linear_sum_assignment over the 8 cost matrices"}
+    emit(rec, log)
+    if (not rec["assignment_equal"] or max(item_err) > 1e-5 or max(grad_err) > 1e-4
+            or not math.isfinite(got[0].item())):
+        raise AssertionError(f"rtdetr_loss on the card disagrees with the CPU: {rec}")
+
+    # --- the NMS variants on one candidate pool ----------------------------------------
+    n = NMS_POOL
+    centres = torch.rand(40, 2, generator=g) * 560
+    cxy = centres[torch.randint(0, 40, (n,), generator=g)] + torch.randn(n, 2, generator=g) * 15
+    pool = torch.cat([cxy, cxy + torch.rand(n, 2, generator=g) * 100 + 20], -1)
+    scores = torch.round(torch.rand(n, generator=g) * 100) / 100        # ties
+    pool_g, scores_g = pool.cuda(), scores.cuda()
+    out = {"rtdetr_loss": rec, "nms": {}}
+    for name in ("cluster_nms", "cluster_diou_nms", "cluster_spm_nms", "cluster_spm_dist_nms",
+                 "soft_nms"):
+        fn = getattr(NV, name)
+        first, second = fn(pool_g, scores_g)
+        first_c, second_c = fn(pool, scores)
+        if name == "soft_nms":
+            ok = (torch.equal(first.cpu(), first_c)
+                  and torch.allclose(second.cpu(), second_c, rtol=1e-5, atol=1e-7))
+        else:
+            ok = torch.equal(first.cpu(), first_c) and torch.equal(second.cpu(), second_c)
+        r = {"phase": "nms_variant", "name": name, "boxes": n, "cpu_equal": bool(ok),
+             "kept": int((second > 0).sum()),
+             "ms_per_image": wall_ms(lambda: fn(pool_g, scores_g), 3)}
+        if name == "cluster_nms":
+            pos = first[scores_g[first] > 0]
+            supp = (NMS._pair_iou(pool_g[pos], pool_g[pos]) > 0.5).cpu().numpy()
+            greedy = pos[NMS._greedy(supp, len(pos))]
+            r["greedy_equal"] = bool(torch.equal(first[second], greedy))
+            ok &= r["greedy_equal"]
+        emit(r, log)
+        out["nms"][name] = r
+        if not ok:
+            raise AssertionError(f"{name} on the card disagrees: {r}")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "rtdetr_nms_seconds", "seconds": out["seconds"]}, log)
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3657,9 +3856,12 @@ def main(argv=None) -> int:
         seg = phase_segment(opt.seed, Path(sets) / "segment", log)
         t5 = time.perf_counter()
         zoo = phase_zoo(opt.seed, Path(sets) / "zoo", log)
+        t6 = time.perf_counter()
+        phase_rtdetr_nms(opt.seed, log)
         emit({"phase": "train_seconds", "train_run": t1 - t0,
               "train_opts": t2 - t1, "heads": t3 - t2, "events": t4 - t3,
-              "segment": t5 - t4, "zoo": time.perf_counter() - t5}, log)
+              "segment": t5 - t4, "zoo": t6 - t5,
+              "rtdetr_nms": time.perf_counter() - t6}, log)
 
     # --- the validation main path ----------------------------------------------
     val_launches = phase_val(opt.seed, log)
@@ -3772,11 +3974,14 @@ def main(argv=None) -> int:
             events_bound_ms=events["k6"].bound_ms,
             zoo_launches_per_forward=zoo_launches(zoo, "lif_fused"),
             zoo_token_sites=zoo_sites_sum(zoo["tokens"]),
-            zoo_probe_token_sites={c: zoo_sites_sum(r) for c, r in zoo["probe_tokens"].items()},
-            zoo_probe_note="zoo_probe_token_sites: per probe model, its MHSA attention "
-                           "outputs and TransformerBlock tokens ([T, N, H*W, C]) and DSSA "
-                           f"attention maps ([T, N, H*W*heads, H*W]) at b{ZOO_BATCH}, "
-                           "summed as zoo_token_sites",
+            zoo_probe_token_sites={c: zoo_sites_sum(r) for c, r in zoo["probe_tokens"].items()
+                                   if r},
+            zoo_probe_note="zoo_probe_token_sites: per probe model with token sites, its MHSA "
+                           "attention outputs and TransformerBlock tokens ([T, N, H*W, C]), "
+                           "DSSA attention maps ([T, N, H*W*heads, H*W]), OSRAAttention's "
+                           "queries and attention maps ([T, N, heads, H*W, ...]) and "
+                           "DynamicConv2d's kernel and bias mixing weights ([T, N, 3, 3, "
+                           f"2C], [T, N, 1, 1, 2C]) at b{ZOO_BATCH}, summed as zoo_token_sites",
             zoo_note="zoo_*: the AIFI encoder's token sites ([T, N, H*W, C], the one "
                      "TokenLIF applied six times a forward; K6 whatever snn.ecs says), "
                      "launches per forward of each zoo YAML; zoo_token_sites sums the "

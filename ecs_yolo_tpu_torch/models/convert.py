@@ -51,9 +51,22 @@ conv kernel ``se/conv1d/kernel`` ``[k, 1, C]`` -> ``se.conv1d.weight``
 ``se.fc1.weight``, and ``TransformerBlock``'s ``pos`` ``[1, 1, H*W, C]`` as
 it is, its ``ma0/query/kernel`` as ``AIFI``'s and its ``fc1_0/kernel`` ->
 ``fc1_0.weight``.  The inner blocks ``m{i}`` of ``BasicBlock_2C3``,
-``BasicBlock_1C3`` and ``Concat_res2C3`` are the port's ``BasicBlock_2``,
-``BasicBlock_1`` and ``Concat_res2``, whose leaves take those blocks' own
-map: ``m0/conv1/conv/kernel`` -> ``m0.residual_function.1.weight``.
+``BasicBlock_1C3`` and ``Concat_res2C3`` (and of the C2f hybrids
+``BasicBlock_2C2f``, ``BasicBlock_1C2f`` and ``Concat_res2C2f``) are the
+port's ``BasicBlock_2``, ``BasicBlock_1`` and ``Concat_res2``, whose leaves
+take those blocks' own map: ``m0/conv1/conv/kernel`` ->
+``m0.residual_function.1.weight``.
+
+The star blocks and the rest of ``nn/blocks_tail2.py`` map path for path
+too (``f1_conv/conv/kernel`` -> ``f1_conv.weight``,
+``global/sr_c1/conv/kernel`` -> ``global.sr_c1.weight``,
+``c3/m0/cv1/act/spread_dw_kernel`` -> ``c3.m0.cv1.act.spread.0.weight``):
+``GN``'s flax group norm ``gn/scale`` / ``gn/bias`` -> ``gn.weight`` /
+``gn.bias``, ``HetConv``'s ``w3`` HWIO -> ``weight`` OIHW and its ``bias``
+as it is,
+``DynamicConv2d``'s banks ``weight`` ``[g, k, k, C]`` and ``bias`` ``[g, C]``
+as they are (a leaf named ``weight`` keeps its layout: those banks and the
+``TPReLU`` slopes).
 
 The registry rows of the rest of ``nn/blocks.py``, ``nn/blocks_ext.py``,
 ``nn/experimental.py`` and ``nn/blocks_v9.py`` map path for path too:
@@ -99,7 +112,8 @@ _MODULES = {
 }
 # blocks whose inner blocks m{i} take another block's map
 _NESTED = {"BasicBlock_2C3": "BasicBlock_2", "BasicBlock_1C3": "BasicBlock_1",
-           "Concat_res2C3": "Concat_res2"}
+           "Concat_res2C3": "Concat_res2", "BasicBlock_2C2f": "BasicBlock_2",
+           "BasicBlock_1C2f": "BasicBlock_1", "Concat_res2C2f": "Concat_res2"}
 # leaf path inside a MemUpdate / SnnConv / TBatchNorm -> torch leaf name
 _LEAVES = {
     "spread_dw_kernel": "spread.0.weight", "spread_dw_bias": "spread.0.bias",
@@ -111,6 +125,7 @@ _LEAVES = {
     "conv1d/kernel": "conv1d.weight", "weight": "weight", "w": "w",
     "firing_rate_x": "firing_rate_x", "firing_rate_attn": "firing_rate_attn",
     "gn_gamma": "gn_gamma", "gn_beta": "gn_beta", "pos": "pos",
+    "gn/scale": "gn.weight", "gn/bias": "gn.bias", "w3": "weight", "bias": "bias",
 }
 # flax Dense / DenseGeneral / LayerNorm modules (AIFI, TransformerBlock's
 # fc1_{i} / fc2_{i}) -> nn.Linear / layer norm
@@ -175,8 +190,8 @@ def _layout(block: str, path: str, w: np.ndarray) -> np.ndarray:
             block == "Conv_7" and path == "w"):
         return w.reshape(1, w.shape[2], 1, 1, 1)      # Conv_7 [1,1,T,1]
     parts = path.split("/")
-    if parts[-1] == "pos":
-        return w                                      # [1, 1, H*W, C] as it is
+    if parts[-1] in ("pos", "weight"):
+        return w                                      # [1, 1, H*W, C]; banks, slopes
     if w.ndim == 4:
         return np.transpose(w, (3, 2, 0, 1))          # HWIO -> OIHW
     if w.ndim == 3 and parts[-1] == "kernel" and not _dense(parts[-2]):

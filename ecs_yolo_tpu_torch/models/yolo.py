@@ -2,17 +2,16 @@
 ``ecs_yolo_tpu/models/yolo.py``).
 
 Covers every row of the 33 YAMLs in ``models/yaml/`` (all of the JAX
-package's) and the registry rows of the five JAX modules ``nn/blocks.py``,
-``nn/blocks_ext.py``, ``nn/experimental.py``, ``nn/blocks_v9.py`` and
-``nn/blocks_tail.py``, with ``nn/blocks_tail2.py``'s ``AKConv``: the
-tables below name each block and its module (``C2_BLOCKS``, width-scaled
-output channels; ``PASS_BLOCKS``, the input's channels; ``EXTRA_BLOCKS``,
-a channel rule of their own), the nine detection heads of
-``nn/heads.py`` and ``Segment`` / ``Panoptic`` of ``nn/segment.py``;
-repeated rows become ``nn.Sequential``.  Any other block of JAX's registry
-(the rest of ``nn/blocks_tail2.py`` and ``nn/blocks_star.py``) raises
-``KeyError`` naming ROADMAP Queue 1 item 11g-3; item 11g-4 (the RT-DETR
-loss, the NMS variants) adds no registry row.  Layers are ``model.{i}``.
+package's) and every name of JAX's registry: the rows of ``nn/blocks.py``,
+``nn/blocks_ext.py``, ``nn/experimental.py``, ``nn/blocks_v9.py``,
+``nn/blocks_tail.py``, ``nn/blocks_tail2.py`` and ``nn/blocks_star.py``.
+The tables below name each block and its module (``C2_BLOCKS``,
+width-scaled output channels; ``PASS_BLOCKS``, the input's channels;
+``EXTRA_BLOCKS``, a channel rule of their own), the nine detection heads
+of ``nn/heads.py`` and ``Segment`` / ``Panoptic`` of ``nn/segment.py``;
+they hold exactly JAX's names, and a name outside them raises
+``KeyError``, as in JAX; repeated rows become ``nn.Sequential``.  Layers
+are ``model.{i}``.
 A ``CBLinear`` row's output is a list of tensors (its ``chs`` entry a
 tuple), which the forward caches like any other output for the ``CBFuse``
 rows.
@@ -26,8 +25,9 @@ with ``SNNConfig(time_window=T)`` of the data.
 ``meta`` device, each fed the shapes-only output of the layers before it
 (``build_layers``, like flax's shape inference in ``init``): a layer's
 input width is the tensor's, not the parser's record (they differ after a
-``Bottleneck_2`` row), and a block sized by its map (``TransformerBlock``'s
-position table, also inside ``C3TR``) takes the map it is fed.  It does so
+``Bottleneck_2`` or ``ResNetBlock`` row), and a block sized by its map
+(``TransformerBlock``'s position table, also inside ``C3TR``) takes the map
+it is fed.  It does so
 once at 256 px with placeholder strides to probe the head strides from the
 eval output (JAX probes the training output, whose maps have the same
 shapes), then at the image size (``imgsz``, 640 as JAX's ``init``) with
@@ -59,7 +59,8 @@ from ..nn import blocks_v9 as BV
 from ..nn import experimental as BE
 from ..nn import heads as H
 from ..nn import segment as SEG
-from ..nn.initializers import lecun_normal_init_, normal_init_, torch_conv_init_
+from ..nn.initializers import (lecun_normal_init_, normal_init_, torch_conv_init_,
+                               trunc_normal_init_, uniform_init_)
 
 YAML_DIR = Path(__file__).parent / "yaml"
 
@@ -126,20 +127,36 @@ C2_BLOCKS = {
     "RepNBottleneck": BV.RepNBottleneck,
     "RepNCSP": BV.RepNCSP,
     "RepNCSPELAN4": BV.RepNCSPELAN4,
+    "StarBlock": BS.StarBlock,
+    "StarBlock_1": BS.StarBlock_1,
+    "StarBlock_1s": BS.StarBlock_1s,
+    "StarBlock_3": BS.StarBlock_3,
     "StarBlock_4": BS.StarBlock_4,
     "StarBlock_5": BS.StarBlock_5,
+    "StarSConv": BS.StarSConv,
+    "MStarBlock": BS.MStarBlock,
+    "MStarBlock_2": BS.MStarBlock_2,
     "StarBlock_2C2f": BS.StarBlock_2C2f,
     "BasicBlock_2C3": BV.BasicBlock_2C3,
     "BasicBlock_1C3": BV.BasicBlock_1C3,
     "Concat_res2C3": BV.Concat_res2C3,
-    "ResNetLayerBasic": BT2.ResNetLayerBasic,
+    "BasicBlock_2C2f": BT2.BasicBlock_2C2f,
+    "BasicBlock_1C2f": BT2.BasicBlock_1C2f,
+    "Concat_res2C2f": BT2.Concat_res2C2f,
+    "HetConv": BT2.HetConv,
     "AKConv": BT2.AKConv,
+    "ResNetBlock": BT2.ResNetBlock,
+    "ResNetLayerBasic": BT2.ResNetLayerBasic,
+    "ResNetLayerBo": BT2.ResNetLayerBo,
+    "BasicBlock_1n": BT2.BasicBlock_1n,
+    "BasicBlock_1m": BT2.BasicBlock_1m,
 }
 # blocks that repeat n times by inserting the count as the arg after c2
 # (``StarBlock_2C2f`` is not one: its YAML passes n itself, as in JAX;
 # nor ``C3SPP``, whose YAML args are ``(c2, k)``)
 CSP_N_BLOCKS = {"BottleneckCSP", "C3", "C3Ghost", "C2f", "RepC3", "BoT3", "C3TR",
-                "RepNCSP", "BasicBlock_2C3", "BasicBlock_1C3", "Concat_res2C3"}
+                "RepNCSP", "BasicBlock_2C3", "BasicBlock_1C3", "Concat_res2C3",
+                "BasicBlock_2C2f", "BasicBlock_1C2f", "Concat_res2C2f"}
 # blocks that keep the input channel count; args passed through verbatim
 PASS_BLOCKS = {
     "Sample": B.Sample,
@@ -157,7 +174,13 @@ PASS_BLOCKS = {
     "CoT": BT.CoT,
     "ScConv": BT.ScConv,
     "PartialConv": BT.PartialConv,
+    "GN": BT2.GN,
+    "TPReLU": BT2.TPReLU,
     "ClippedTPReLU": BS.ClippedTPReLU,
+    "Attention": BT2.Attention,
+    "OSRAAttention": BT2.OSRAAttention,
+    "DynamicConv2d": BT2.DynamicConv2d,
+    "TransxnetHybridTokenMixer": BT2.TransxnetHybridTokenMixer,
 }
 # blocks with a channel rule of their own (``parse_model``)
 EXTRA_BLOCKS = {
@@ -175,15 +198,17 @@ EXTRA_BLOCKS = {
 # the blocks built with the input channel count first (a list for a
 # multi-input row; the ASFF rows spread it after ``level``): every block
 # with parameters sized by it; those built with ``snn`` (not ``PartialConv``,
-# as in JAX); and those built with the (H, W) of the map they are fed
-C1_FIRST = set(C2_BLOCKS) | {"mem_update", "AIFI", "EMA", "DSSA", "SELayer", "ELA",
-                             "ClippedTPReLU", "CBLinear", "ASFF2", "ASFF3",
-                             "ContextGuideFusionModule", "ContextGuideFusionModulev2",
-                             "HGBlock", "FasterNetBlock", "CoT", "ScConv", "PartialConv"}
-SNN_AWARE = set(C2_BLOCKS) | {"mem_update", "AIFI", "EMA", "DSSA", "SELayer", "CBLinear",
-                              "ASFF2", "ASFF3", "ContextGuideFusionModule",
-                              "ContextGuideFusionModulev2", "HGBlock", "FasterNetBlock",
-                              "CoT", "ScConv"}
+# ``GN``, ``TPReLU``, ``ClippedTPReLU``, as in JAX); and those built with the
+# (H, W) of the map they are fed
+_ATTENTION = {"Attention", "OSRAAttention", "DynamicConv2d", "TransxnetHybridTokenMixer"}
+C1_FIRST = set(C2_BLOCKS) | _ATTENTION | {
+    "mem_update", "AIFI", "EMA", "DSSA", "SELayer", "ELA", "ClippedTPReLU", "GN", "TPReLU",
+    "CBLinear", "ASFF2", "ASFF3", "ContextGuideFusionModule", "ContextGuideFusionModulev2",
+    "HGBlock", "FasterNetBlock", "CoT", "ScConv", "PartialConv"}
+SNN_AWARE = set(C2_BLOCKS) | _ATTENTION | {
+    "mem_update", "AIFI", "EMA", "DSSA", "SELayer", "CBLinear", "ASFF2", "ASFF3",
+    "ContextGuideFusionModule", "ContextGuideFusionModulev2", "HGBlock", "FasterNetBlock",
+    "CoT", "ScConv"}
 SIZE_BOUND = {"TransformerBlock", "C3TR"}
 HEADS = {
     "Detect": H.Detect,
@@ -305,8 +330,7 @@ def parse_model(d: Dict[str, Any], ch: int):
         elif name in PASS_BLOCKS:
             c2 = chs[f if isinstance(f, int) else f[0]]
         else:
-            raise KeyError(f"block {name!r} at layer {i} is not ported yet "
-                           "(ROADMAP Queue 1 item 11g-3)")
+            raise KeyError(f"unknown block {name!r} at layer {i}: not in the registry")
         rows.append((_freeze(f), n, name, _freeze(args)))
         save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
         if i == 0:
@@ -534,14 +558,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     inits, BN gamma = gamma0, beta 0, running mean 0 and variance 1; flax's
     defaults for the transformer and attention layers (``lecun_normal``
     linear weights and ``ELA``'s 1-D conv kernel, zero biases, layer-norm
-    and the ``EMA`` / ``ELA`` group-norm scales 1 and shifts 0);
-    ``ClippedTPReLU`` slopes at their init (0.25); ``Sum``'s weight at
-    ``-arange(1, n) / 2`` and ``DSSA``'s firing-rate buffers at 0.01, as
-    JAX's; ``AKConv``'s offset conv with a zero weight, ``ScConv``'s
-    ``gn_gamma`` normal (std 1) and ``gn_beta`` 0, ``TransformerBlock``'s
-    ``pos`` normal (std 0.02), as JAX's.  Raises on a parameter no rule
-    covers (the model is built on the ``meta`` device, so one would hold
-    garbage)."""
+    and the ``EMA`` / ``ELA`` / ``GN`` group-norm scales 1 and shifts 0);
+    the ``TPReLU`` and ``ClippedTPReLU`` slopes at their init (0.25);
+    ``Sum``'s weight at ``-arange(1, n) / 2`` and ``DSSA``'s firing-rate
+    buffers at 0.01, as JAX's; ``AKConv``'s offset conv with a zero weight,
+    ``ScConv``'s ``gn_gamma`` normal (std 1) and ``gn_beta`` 0,
+    ``TransformerBlock``'s ``pos`` normal (std 0.02), ``HetConv``'s weight
+    uniform over ``+-1 / sqrt(9 c1)`` (JAX's ``variance_scaling(1/3,
+    "fan_in", "uniform")``) with a zero bias and its tap mask made again,
+    ``DynamicConv2d``'s kernel and bias banks truncated normal (std 0.02),
+    as JAX's.  Raises on a parameter no rule covers (the model is built on
+    the ``meta`` device, so one would hold garbage)."""
     done = set()
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d)):
@@ -566,8 +593,20 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, (BX.EMAAttention, BT.ELA)):
             m.gn_scale.fill_(1.0)
             m.gn_bias.zero_()
-        elif isinstance(m, BS.ClippedTPReLU):
+        elif isinstance(m, BT2.TPReLU):
             m.weight.fill_(m.init)
+        elif isinstance(m, BT2.HetConv):
+            uniform_init_(m.weight, 1.0 / math.sqrt(9 * m.c1), generator)
+            m.bias.zero_()
+            if not m.taps.is_meta:
+                m.taps.copy_(m.make_taps())
+        elif isinstance(m, BT2.DynamicConv2d):
+            trunc_normal_init_(m.weight, 0.02, generator)
+            if m.bias is not None:
+                trunc_normal_init_(m.bias, 0.02, generator)
+        elif isinstance(m, BT2._GroupNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, BE.Sum):
             if m.w is not None:
                 m.w.copy_(-torch.arange(1.0, m.n) / 2)

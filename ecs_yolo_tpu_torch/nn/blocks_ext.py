@@ -150,40 +150,48 @@ class BottleneckCSP(nn.Module):
         return self.cv4(F.silu(self.bn(y)))
 
 
-def _split_inner(block: nn.Module, y: torch.Tensor, c: int) -> torch.Tensor:
-    """The C2f walk: ``y``'s two halves of ``c`` channels, then each of
-    ``block.m0 ... m{n-1}`` on the output before it, all concatenated.  The
-    first inner block takes a dense copy of the second half: the slice is a
-    strided view, whose neuron site the tensor-core kernel would refuse
-    (``nn/blocks.MemUpdate``); the concat reads ``y`` whole in place of its
-    two halves."""
-    ys = [y]
-    h = y[..., c:].contiguous()
-    for i in range(block.n):
-        h = getattr(block, f"m{i}")(h)
-        ys.append(h)
-    return torch.cat(ys, dim=-1)
+class _C2fFrame(nn.Module):
+    """The C2f walk (reference C2f, and the frame of ``StarBlock_2C2f`` and
+    the C2f hybrids of ``nn/blocks_tail2.py``): at ``pre_stride`` a ``cv``
+    (``Conv_3`` 3x3, stride 2, keeping the width) first; ``cv1`` (1x1
+    ``Conv_3`` to ``2c``, ``c = int(c2 * e)``) split in halves, ``m0 ...
+    m{n-1}`` (``inner(c)``) chained on the second half, every piece
+    concatenated, then ``cv2`` (1x1 ``merge``).  The first inner block takes
+    a dense copy of the second half: the slice is a strided view, whose
+    neuron site the tensor-core kernel would refuse (``nn/blocks.MemUpdate``);
+    the concat reads ``cv1``'s output whole in place of its two halves."""
 
-
-class C2f(nn.Module):
-    """Fast CSP with two convs (reference C2f): ``cv1`` (1x1 to ``2c``,
-    ``c = c2 * e``) split in halves, ``m0 ... m{n-1}`` (``Bottleneck`` at
-    3x3, ``e=1``) chained on the second half, every piece concatenated,
-    then ``cv2`` (1x1, ``Conv_4``).  The YAML's repeat count is ``n``."""
-
-    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
-                 e: float = 0.5, snn: SNNConfig = DEFAULT_SNN):
+    def __init__(self, c1: int, c2: int, n: int, inner, snn: SNNConfig, e: float = 0.5,
+                 pre_stride: bool = False, merge=Conv_4):
         super().__init__()
         self.c = c = int(c2 * e)
         self.n = n
+        self.cv = Conv_3(c1, c1, 3, 2, snn=snn) if pre_stride else None
         self.cv1 = Conv_3(c1, 2 * c, 1, 1, snn=snn)
         for i in range(n):
-            self.add_module(f"m{i}", Bottleneck(c, c, shortcut, g, k=(3, 3), e=1.0,
-                                                snn=snn))
-        self.cv2 = Conv_4((2 + n) * c, c2, 1, snn=snn)
+            self.add_module(f"m{i}", inner(c))
+        self.cv2 = merge((2 + n) * c, c2, 1, snn=snn)
 
     def forward(self, x):
-        return self.cv2(_split_inner(self, self.cv1(x), self.c))
+        if self.cv is not None:
+            x = self.cv(x)
+        y = self.cv1(x)
+        ys, h = [y], y[..., self.c:].contiguous()
+        for i in range(self.n):
+            h = getattr(self, f"m{i}")(h)
+            ys.append(h)
+        return self.cv2(torch.cat(ys, dim=-1))
+
+
+class C2f(_C2fFrame):
+    """Fast CSP with two convs (reference C2f): the C2f frame
+    (``_C2fFrame``) over ``Bottleneck`` stages at 3x3, ``e=1``, a ``Conv_4``
+    merge.  The YAML's repeat count is ``n``."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1,
+                 e: float = 0.5, snn: SNNConfig = DEFAULT_SNN):
+        super().__init__(c1, c2, n, lambda c: Bottleneck(c, c, shortcut, g, k=(3, 3), e=1.0,
+                                                         snn=snn), snn, e)
 
 
 class SPPF(nn.Module):

@@ -7,7 +7,10 @@ weight.  A linear layer and a 1-D conv take flax's ``Dense`` / ``Conv``
 defaults, the JAX package's initializer for its transformer layers and
 ``ELA``: ``lecun_normal`` (a normal of variance ``1 / fan_in`` truncated at
 two standard deviations) for the weight, zeros for the bias.  ``normal_init_``
-is flax's ``normal(std)``.  Values are
+is flax's ``normal(std)``, ``trunc_normal_init_`` its ``truncated_normal(std)``
+(a normal of ``std`` cut at two of them, not rescaled) and
+``uniform_init_`` a ``U(-bound, bound)`` (flax's ``variance_scaling(s,
+"fan_in", "uniform")`` has the bound ``sqrt(3 s / fan_in)``).  Values are
 drawn on the CPU and copied, so one seed gives the same weights on every
 device.
 """
@@ -20,7 +23,9 @@ import torch
 from torch import nn
 
 
-def _uniform_(p: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+@torch.no_grad()
+def uniform_init_(p: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    """``p`` from ``U(-bound, bound)``."""
     if p.is_meta:           # holds no values: nothing to draw
         return
     v = torch.empty(p.shape, dtype=torch.float32)
@@ -35,9 +40,9 @@ def torch_conv_init_(conv: nn.modules.conv._ConvNd,
     w = conv.weight
     fan_in = w.shape[1] * math.prod(w.shape[2:])
     bound = 1.0 / math.sqrt(fan_in)
-    _uniform_(w, bound, generator)
+    uniform_init_(w, bound, generator)
     if conv.bias is not None:
-        _uniform_(conv.bias, bound, generator)
+        uniform_init_(conv.bias, bound, generator)
 
 
 @torch.no_grad()
@@ -51,6 +56,17 @@ def normal_init_(p: torch.Tensor, std: float, generator: torch.Generator) -> Non
 
 
 @torch.no_grad()
+def trunc_normal_init_(p: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """``p`` from a normal of mean 0 and ``std`` cut at ``+-2 std`` (flax
+    ``truncated_normal(std)``)."""
+    if p.is_meta:           # holds no values: nothing to draw
+        return
+    v = torch.empty(p.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std, generator=generator)
+    p.copy_(v)
+
+
+@torch.no_grad()
 def lecun_normal_init_(layer: nn.Module, generator: torch.Generator) -> None:
     """Weight and bias of an ``nn.Linear`` or ``nn.Conv1d`` as flax ``Dense``
     / ``Conv`` initialise them by default: a truncated-normal
@@ -60,9 +76,7 @@ def lecun_normal_init_(layer: nn.Module, generator: torch.Generator) -> None:
     if w.is_meta:           # holds no values: nothing to draw
         return
     fan_in = math.prod(w.shape[1:])
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978   # flax's truncation factor
-    v = torch.empty(w.shape, dtype=torch.float32)
-    nn.init.trunc_normal_(v, 0.0, std, -2 * std, 2 * std, generator=generator)
-    w.copy_(v)
+    trunc_normal_init_(w, math.sqrt(1.0 / fan_in) / 0.87962566103423978,  # flax's factor
+                       generator)
     if layer.bias is not None:
         layer.bias.zero_()

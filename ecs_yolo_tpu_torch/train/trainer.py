@@ -135,7 +135,7 @@ def make_loss_fn(model: DetectionModel, hyp: Mapping[str, float]) -> Callable:
                                         mask_gain=mask_gain)
 
     else:
-        raise KeyError(f"{head}: its loss is not ported yet (ROADMAP Queue 1 item 11)")
+        raise KeyError(f"{head}: no loss for this head")
     return loss
 
 

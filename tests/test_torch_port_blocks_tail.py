@@ -16,8 +16,9 @@ tensors) into a ``Concat`` and a ``BasicBlock_5``, whole, against JAX.
 
 The registry: every name this slice registers parses as in JAX's
 ``parse_model`` and is a row of ``chip_smoke.PROBES["probe-tail"]``, where
-the port builds it; every neuron site of that probe takes the tensor-core
-kernel's layout; ``TransformerBlock`` serves only the map it was built for.
+the port builds it; the port's registries hold JAX's names; every neuron
+site of that probe takes the tensor-core kernel's layout;
+``TransformerBlock`` serves only the map it was built for.
 
 Tolerances: float64 on both sides, 1e-9 (eval, where the port's neuron
 sites take their kernels' plain versions, training, and the gradients).
@@ -345,17 +346,19 @@ def test_registry_name_parses_as_jax(name):
 
 
 def test_unported_names_are_item_11g_3():
-    """Every name of JAX's registry the port lacks (21, after this slice)
-    raises ``KeyError`` naming item 11g-3."""
+    """Item 11g-3 took the last 21 names of JAX's registry: the port's four
+    registries hold exactly JAX's names, the ones this slice registers
+    among them; a name in neither registry raises ``KeyError`` in both
+    parsers."""
     regs = ("C2_BLOCKS", "PASS_BLOCKS", "EXTRA_BLOCKS", "HEADS")
     jax_names = set().union(*(getattr(jax_yolo, r) for r in regs))
-    left = jax_names - set().union(*(getattr(port_yolo, r) for r in regs))
-    assert len(left) == 21 and not left & set(NEW_NAMES)
-    for name in sorted(left):
-        d = port_yolo.load_cfg("resnet10.yaml")
-        d["head"] = [[-1, 1, name, [64]]] + d["head"]
-        with pytest.raises(KeyError, match="item 11g-3"):
-            port_yolo.parse_model(d, 3)
+    assert set().union(*(getattr(port_yolo, r) for r in regs)) == jax_names
+    assert set(NEW_NAMES) <= jax_names
+    d = port_yolo.load_cfg("resnet10.yaml")
+    d["head"] = [[-1, 1, "Bottleneck_9", [64]]] + d["head"]
+    for parse in (port_yolo.parse_model, jax_yolo.parse_model):
+        with pytest.raises(KeyError, match="Bottleneck_9"):
+            parse(copy.deepcopy(d), 3)
 
 
 def test_probe_tail_sites_take_the_tensor_core_layout():

@@ -42,6 +42,9 @@ RES10_SITES = [(320, 320, 64), (160, 160, 64), (80, 80, 128), (40, 40, 384),
 HEAD_SITES = [(40, 40, 512), (40, 40, 64), (40, 40, 8), (20, 20, 64), (20, 20, 8)]
 RAGGED = [(1, 20, 20, 1024), (2, 7, 9, 24), (8, 20, 20, 1024), (1, 16, 24, 8),
           (3, 9, 10, 136)]
+#: ``DynamicConv2d``'s gating sites (its kk x kk pooled map and its 1 x 1
+#: mean) in probe-mixer at b2 and b8: maps smaller than a tile's row run
+TINY = [(2, 3, 3, 512), (2, 1, 1, 1024), (8, 3, 3, 128), (8, 1, 1, 64)]
 
 
 def _dyadic(shape, seed):
@@ -56,7 +59,7 @@ def _dyadic(shape, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shape", [(8,) + s for s in RES10_SITES + HEAD_SITES] + RAGGED)
+@pytest.mark.parametrize("shape", [(8,) + s for s in RES10_SITES + HEAD_SITES] + RAGGED + TINY)
 def test_plan_grid_covers_every_pixel_and_channel_once(shape, dtype):
     n, h, w, c = shape
     plan = K.plan_grid(n, h, w, c, 132, dtype)
@@ -114,7 +117,7 @@ def test_plan_grid_follows_the_occupancy_and_the_slice_rule():
 
 @pytest.mark.parametrize("act", [False, True])
 @pytest.mark.parametrize("shape", [(3, 2, 7, 9, 24), (4, 2, 9, 10, 136), (1, 1, 5, 6, 8),
-                                   (5, 1, 6, 5, 16)])
+                                   (5, 1, 6, 5, 16), (4, 2, 3, 3, 64), (4, 2, 1, 1, 16)])
 def test_walk_is_the_plain_version_on_dyadic_data(shape, act):
     args = _dyadic(shape, seed=shape[-1])
     cfg = SNNConfig(time_window=shape[0])

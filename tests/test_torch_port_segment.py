@@ -392,10 +392,17 @@ def test_yaml_matches_jax(cfg, tmp_path):
 
 
 def test_unported_blocks_still_raise_keyerror():
+    """No block of JAX's registry is unported since item 11g-3: a
+    ``HetConv`` row in the segment model builds; a name in neither registry
+    raises ``KeyError`` in both parsers."""
     d = _narrow("res10-seg.yaml")
     d["head"][5] = [-1, 1, "HetConv", [64]]
-    with pytest.raises(KeyError, match="item 11"):
-        port_yolo.build_model(d, nc=NC, device="cpu")
+    model = port_yolo.build_model(d, nc=NC, device="meta")
+    assert type(model.model[len(d["backbone"]) + 5]) is port_yolo.C2_BLOCKS["HetConv"]
+    d["head"][5] = [-1, 1, "NoSuchBlock", [64]]
+    for parse in (port_yolo.parse_model, jax_yolo.parse_model):
+        with pytest.raises(KeyError, match="NoSuchBlock"):
+            parse(dict(d), 3)
 
 
 # --- served through val.run and detect.run -----------------------------------------

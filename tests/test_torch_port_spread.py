@@ -277,7 +277,10 @@ def test_tile_walk_reference_is_the_plain_version_bit_for_bit(nhw, sms, c, dtype
 DW3_PLAN_CASES = [((1, 7, 9, 8), 132), ((3, 13, 21, 24), 132), ((1, 80, 80, 128), 132),
                   ((3, 20, 20, 1024), 132), ((3, 13, 21, 24), 1), ((1, 9, 7, 128), 1),
                   # the anchor-free heads' training sites on K4: GSConv's C = 8
-                  ((8, 40, 40, 8), 132), ((8, 20, 20, 8), 132), ((8, 40, 40, 512), 132)]
+                  ((8, 40, 40, 8), 132), ((8, 20, 20, 8), 132), ((8, 40, 40, 512), 132),
+                  # DynamicConv2d's gating sites: 3 x 3 and 1 x 1 maps (odd W: K4)
+                  ((2, 3, 3, 512), 132), ((2, 1, 1, 1024), 132), ((2, 3, 3, 64), 132),
+                  ((2, 1, 1, 64), 1)]
 
 
 @pytest.mark.parametrize("shape,sms", DW3_PLAN_CASES,
@@ -319,8 +322,10 @@ def _dyadic_dw3(shape, seed):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape,sms", [((2, 13, 21, 24), 132), ((1, 9, 7, 128), 1),
-                                       ((1, 5, 20, 1024), 132)],
-                         ids=["2x13x21x24", "1x9x7x128-sms1", "1x5x20x1024"])
+                                       ((1, 5, 20, 1024), 132), ((2, 3, 3, 128), 132),
+                                       ((2, 1, 1, 64), 132)],
+                         ids=["2x13x21x24", "1x9x7x128-sms1", "1x5x20x1024", "2x3x3x128",
+                              "2x1x1x64"])
 def test_dw3_tile_walk_reference_is_the_plain_version_bit_for_bit(shape, sms, dtype):
     """The float-in mode (K4): the walk on the kernel's plan, from a binary
     plane in its own dtype, gives the plain version's bits and the int8

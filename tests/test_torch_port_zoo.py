@@ -5,12 +5,13 @@ equals JAX's ``parse_model`` (pure Python; ``HGresnet``'s repeat count
 inserted at ``HGBlock``'s ``n``), the port builds it on the ``meta`` device
 from its own copy of the YAML with its probed strides; the port carries all
 33 (``STILL_REFUSED`` is empty: the change that ported the last of them
-emptied it), and a registry name still unported raises ``KeyError`` naming
-ROADMAP Queue 1 item 11.  Each YAML of Queue 1 items 11a-11f (and three
+emptied it), and a registry name that no YAML uses parses and builds as
+JAX's, while a name in neither registry raises ``KeyError`` in both
+parsers.  Each YAML of Queue 1 items 11a-11f (and three
 that built before them) also serves a CPU forward, narrowed, at 64 px (the
 TAL assigner wants 10 anchors), and one YAML a new block family trains a
-CPU step.  The three probe models of ``chip_smoke.PROBES`` (the registry
-rows of items 11g-1 and 11g-2, which no YAML names) parse as JAX's, build
+CPU step.  The five probe models of ``chip_smoke.PROBES`` (the registry
+rows of items 11g-1 to 11g-3, which no YAML names) parse as JAX's, build
 on the meta device, and serve a CPU forward and train a CPU step
 narrowed."""
 
@@ -68,15 +69,20 @@ def test_port_copies_are_the_yamls_it_builds():
 
 @pytest.mark.parametrize("block", ["HetConv", "StarBlock"])
 def test_unported_registry_name_raises_keyerror(block):
-    """A name of JAX's registry that no YAML uses and the port does not
-    carry yet (item 11g-3: ``nn/blocks_tail2.py``'s ``HetConv``,
-    ``nn/blocks_star.py``'s ``StarBlock``) raises ``KeyError`` naming
-    item 11g-3; JAX parses the same row."""
+    """Since item 11g-3 a name of JAX's registry that no YAML uses
+    (``nn/blocks_tail2.py``'s ``HetConv``, ``nn/blocks_star.py``'s
+    ``StarBlock``) parses as JAX's and builds; a name in neither registry
+    raises ``KeyError`` in both parsers."""
     d = port_yolo.load_cfg("yolov8s.yaml")
     d["head"][2] = [-1, 1, block, [128]]
-    jax_yolo.parse_model(copy.deepcopy(d), 3)
-    with pytest.raises(KeyError, match="item 11g-3"):
-        port_yolo.parse_model(d, 3)
+    assert port_yolo.parse_model(copy.deepcopy(d), 3) == jax_yolo.parse_model(
+        copy.deepcopy(d), 3)
+    model = port_yolo.build_model(d, device="meta")
+    assert type(model.model[len(d["backbone"]) + 2]) is port_yolo.C2_BLOCKS[block]
+    d["head"][2] = [-1, 1, block + "_unknown", [128]]
+    for parse in (port_yolo.parse_model, jax_yolo.parse_model):
+        with pytest.raises(KeyError, match=block + "_unknown"):
+            parse(copy.deepcopy(d), 3)
 
 
 def test_hgblock_takes_the_repeat_count_as_its_n():
@@ -183,7 +189,7 @@ def test_new_block_trains_a_cpu_step(name):
     assert any(not torch.equal(p, before[k]) for k, p in state.params.items())
 
 
-# --- the probe models of the registry rows no YAML names (items 11g-1, 11g-2) --------
+# --- the probe models of the registry rows no YAML names (items 11g-1 to 11g-3) -------
 
 
 @pytest.mark.parametrize("probe", sorted(chip_smoke.PROBES))
@@ -198,7 +204,7 @@ def test_probe_parses_as_jax_and_builds(probe):
     rows, save, chs, head_info = port_yolo.parse_model(copy.deepcopy(d), 3)
     assert (rows, save, chs, head_info) == jax_yolo.parse_model(copy.deepcopy(d), 3)
     model = port_yolo.build_model(d, device="meta")
-    want = (8.0, 16.0, 32.0) if probe == "probe-v5" else (16.0, 32.0)
+    want = (8.0, 16.0, 32.0) if probe in ("probe-v5", "probe-star") else (16.0, 32.0)
     assert model.head_info["strides"] == want
     assert model.spec == port_yolo._with_head(rows, head_info, want)
 
