@@ -115,6 +115,18 @@ the port's paths at full width with random weights from a seed:
   share; the five ``ops/nms_variants`` functions on a 1000-box pool against
   their CPU runs, ``cluster_nms``'s keep set against ``ops/nms.py``'s
   greedy walk, each one's ms an image;
+* the process-group paths (phase ``parallel``, after ``rtdetr_nms``): an
+  NCCL group of world 1 in this process (``file://`` store); the res10 b8
+  bf16 step under it (``make_train_step(layout=)``, the gradients in one
+  all-reduce) bit-equal to the plain step (loss, items, parameters,
+  momentum, EMA, BN statistics; cuDNN deterministic), also through
+  ``shard_state`` / ``gather_state`` at ``model_parallel = 1``, both
+  timed with their launches (57 K4 + 15 K5), peak memory, a step under
+  sync-debug "error" and the all-reduce's device ms; one
+  ``train.driver.train`` epoch under the group (16 images) whose sharded
+  val pass equals ``val.run`` of its checkpoint without the group; and
+  ``val.run`` under the group equal to the pass without it (NMS outputs,
+  metrics, K1 at all 24 sites);
 * validation: ``ecs_yolo_tpu_torch.val.run`` over a synthetic val split of 32
   images written from ``--seed`` (bf16, batch 8), three times: the ECS-LIF
   model on its default route, the same model with ``fused_inference=True``,
@@ -152,7 +164,9 @@ timing helpers are ``ecs_yolo_tpu_torch.scripts.bench_spread``'s.
 
 The launch counters are set to 0 just before each main path and read just
 after.  Each phase prints one JSON line (``--out PATH`` also writes them all
-to one JSON file).  The last lines are the card's ``nvidia-smi`` name and
+to one JSON file).  ``--phases serve,parallel,...`` runs a subset (the
+kernel build always; ``PHASES`` names them) and prints no kernels line; with
+no arguments every phase runs.  The last lines are the card's ``nvidia-smi`` name and
 power limit, the ``{"kernels": ...}`` summary and ``{"ok": true, "device":
 ...}``.  Any failure exits non-zero.
 """
@@ -2500,12 +2514,14 @@ def phase_heads(seed: int, train_src: Path, val_root: Path, log) -> dict:
     return out
 
 
-def epoch_with_val(driver, val_mod, plain_kernels, reset, read, **train_kw) -> tuple:
+def epoch_with_val(driver, val_mod, plain_kernels, reset, read, record=None,
+                   **train_kw) -> tuple:
     """One ``train.driver.train`` epoch (``train_kw``) with the launch counts
     of its loop read around it, its val pass on the EMA copy recorded and run
     again under ``plain_kernels()``.  Returns (the epoch's history row, the
     loop's launches, the val result, the fields that compare the two passes'
-    NMS outputs and metrics, the val pass's forwards)."""
+    NMS outputs and metrics, the val pass's forwards); ``record``, a list,
+    also gets the val pass's ``(model, args, kwargs, result, NMS outputs)``."""
     from ecs_yolo_tpu_torch.utils.general import Callbacks
 
     passes, real_run = [], val_mod.run
@@ -2527,6 +2543,8 @@ def epoch_with_val(driver, val_mod, plain_kernels, reset, read, **train_kw) -> t
     finally:
         driver.val_mod.run = real_run
     (vmodel, va, vk, res, outs), = passes
+    if record is not None:
+        record.extend(passes)
     with plain_kernels():
         res_p, outs_p = recorded_nms(val_mod, lambda: real_run(vmodel, *va, **vk))
     rows = sum(o.shape[0] * o.shape[1] for o, _ in outs)
@@ -3678,6 +3696,190 @@ def phase_rtdetr_nms(seed: int, log) -> dict:
     return out
 
 
+#: the parallel phase: images of the grouped train() epoch's set and of its
+#: val split, timed steps a route
+PAR_IMAGES, PAR_STEPS = 16, 3
+
+
+def phase_parallel(seed: int, root: Path, log) -> dict:
+    """The process-group paths (``ecs_yolo_tpu_torch/parallel``) on the one
+    card: an NCCL group of world 1 joined in this process through a
+    ``file://`` store (``parallel/multihost.initialize``), destroyed at the
+    end whatever happens.
+
+    * the res10 b8 bf16 SGD step under the group (``make_train_step(
+      layout=)``: the gradients in one flat all-reduce over the data group,
+      the loss and items in another) from the same state and batch as the
+      plain step (cuDNN deterministic, a first plain step kept apart, a last
+      one for the run-to-run floor): loss, items, every parameter, the
+      momentum (the step's gradient plus the weight decay, at the first
+      step), EMA and BN statistics bit-equal; the same under
+      ``model_parallel = 1`` through ``shard_state`` / ``gather_state``;
+      both steps timed in turns, plain, grouped, grouped, plain
+      (``timed_steps``: ms, 57 K4 + 15 K5 launches a step as the plain
+      step, peak memory, one step under ``set_sync_debug_mode("error")``,
+      profiled: the NCCL kernels' device ms, none where a one-rank
+      all-reduce in place launches none); the gradient bytes a step;
+    * one ``train.driver.train`` epoch under the group (``epoch_with_val``,
+      ``PAR_IMAGES`` images, b8, bf16): one run directory with its
+      checkpoint; its sharded val pass on the EMA copy held to ``val.run``
+      of the checkpoint's EMA parameters without the group;
+    * ``val.run`` of that model under the group on the ``PAR_IMAGES``-image
+      split against the same pass without it: NMS outputs and metrics
+      equal, K1 at all 24 sites of every forward."""
+    import torch.distributed as dist
+
+    from ecs_yolo_tpu_torch import val as val_mod
+    from ecs_yolo_tpu_torch.data.hyps import HYP_SCRATCH
+    from ecs_yolo_tpu_torch.models.yolo import build_model
+    from ecs_yolo_tpu_torch.parallel import mesh, multihost
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.train import driver
+    from ecs_yolo_tpu_torch.train.optim import build_optimizer
+    from ecs_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+    from ecs_yolo_tpu_torch.utils.checkpoint import eval_state_dict, load_checkpoint
+
+    t_phase = time.perf_counter()
+    reset, read = launch_counters()
+    hyp, bf16 = dict(HYP_SCRATCH), torch.bfloat16
+    root.mkdir(parents=True, exist_ok=True)
+    out = {}
+    multihost.initialize(init_method=f"file://{root}/store", world_size=1, rank=0,
+                         device="cuda")
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        layout = mesh.make_layout(1)
+        model = build_model("resnet10.yaml", nc=NC,
+                            generator=torch.Generator().manual_seed(seed + 41))
+        sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        tx = build_optimizer(
+            dict(model.named_parameters()), name="SGD", lr0=hyp["lr0"], lrf=hyp["lrf"],
+            momentum=hyp["momentum"], weight_decay=hyp["weight_decay"], epochs=300,
+            steps_per_epoch=1000, warmup_epochs=hyp["warmup_epochs"],
+            warmup_momentum=hyp["warmup_momentum"], warmup_bias_lr=hyp["warmup_bias_lr"])
+        batch = train_batch(seed=seed + 42)
+        routes = {"plain": {}, "grouped": dict(layout=layout),
+                  "model_parallel_1": dict(layout=layout, plan=mesh.shard_plan(model, 1))}
+
+        def fresh(kw):
+            model.load_state_dict(sd0)
+            state = mesh.shard_state(create_train_state(model, tx), kw.get("plan", {}),
+                                     kw.get("layout"))
+            return state, make_train_step(model, tx, hyp, compute_dtype=bf16, **kw)
+
+        def one(kw) -> dict:
+            state, step = fresh(kw)
+            state, m = step(state, *batch)
+            state = mesh.gather_state(state, kw.get("plan", {}), kw.get("layout"))
+            torch.cuda.synchronize()
+            snap = {"loss": m["loss"].clone(), "items": m["items"].clone()}
+            for tag, tree in (("sd", model.state_dict()), ("ema", state.ema_params),
+                              ("mu", state.opt_state.mu)):
+                snap.update({f"{tag}.{k}": v.detach().clone() for k, v in tree.items()})
+            return snap
+
+        snaps = {"warmup": one({})}
+        for name, kw in routes.items():
+            snaps[name] = one(kw)
+        snaps["plain_again"] = one({})
+        rec = {"phase": "parallel_step", "backend": dist.get_backend(),
+               "world": dist.get_world_size(), "cfg": "resnet10.yaml", "batch": N,
+               "imgsz": IMGSZ, "T": T, "dtype": "bfloat16", "cudnn_deterministic": True,
+               "grad_bytes_per_step": sum(p.numel() * 4 for p in model.parameters()),
+               "grad_all_reduces_per_step": 1,
+               "plain_repeats_bit_for_bit": max_diff(snaps["plain_again"], snaps["plain"]) == 0,
+               "compared": len(snaps["plain"])}
+        for name in ("grouped", "model_parallel_1"):
+            rec[f"{name}_bit_equal_to_plain"] = all(
+                torch.equal(v, snaps[name][k]) for k, v in snaps["plain"].items())
+            rec[f"{name}_max_abs_diff_to_plain"] = max_diff(snaps[name], snaps["plain"])
+        del snaps
+        turns = []      # in turns, the host's pace drifts between calls
+        for name in ("plain", "grouped", "grouped", "plain"):
+            state, step = fresh(routes[name])
+            _, rec[name] = timed_steps(step, state, batch, PAR_STEPS, read, reset)
+            turns.append([name, rec[name]["ms_per_step"], rec[name]["device_ms"]])
+            del state, step
+        rec["turns_ms_per_step_and_device_ms"] = turns
+        emit(rec, log)
+        want = {"ecs_lif_fused": 0, "ecs_lif_fused_rows": 0, "lif_fused": 0,
+                "binary_dw3_conv": 57, "packed_spread": 15}
+        if (not rec["grouped_bit_equal_to_plain"]
+                or not rec["model_parallel_1_bit_equal_to_plain"]
+                or rec["plain"]["launches_per_step"] != want
+                or rec["grouped"]["launches_per_step"] != want
+                or rec["world"] != 1 or rec["backend"] != "nccl"):
+            raise AssertionError(f"parallel: the grouped step is not the plain step: {rec}")
+        out["step"] = rec
+        del model
+
+        # --- one train() epoch under the group ---------------------------------
+        train_src = write_val_set(root / "train", seed + 200, PAR_IMAGES)
+        val_src = write_val_set(root / "val", seed + 300, PAR_IMAGES)
+        passes = []
+        h, launches, res, cmp, forwards = epoch_with_val(
+            driver, val_mod, plain_kernels, reset, read, record=passes, cfg="resnet10.yaml",
+            train_path=str(train_src), val_path=str(val_src), nc=NC, batch_size=N,
+            imgsz=IMGSZ, nbs=N, bf16=True, seed=seed, workers=4,
+            save_dir=str(root / "run" / "exp"))
+        runs = sorted(p.name for p in (root / "run").iterdir())
+        weights = sorted(p.name for p in (root / "run" / "exp" / "weights").iterdir())
+        tree, meta = load_checkpoint(root / "run" / "exp" / "weights" / "last.pt")
+        served = build_model("resnet10.yaml", nc=NC)
+        served.load_state_dict(eval_state_dict(tree), strict=True)
+
+        def val_run():
+            return val_mod.run(served, str(val_src), imgsz=IMGSZ, batch_size=N, dtype=bf16)
+
+        reset()
+        res_g, outs_g = recorded_nms(val_mod, val_run)
+        torch.cuda.synchronize()
+        k1_g = read()["ecs_lif_fused"]
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+        dist.destroy_process_group()
+    res_u, outs_u = recorded_nms(val_mod, val_run)
+    metrics = ("mp", "mr", "map50", "map", "fitness", "seen")
+
+    def same(r, outs, ref, ref_outs) -> bool:
+        return (all(r[k] == ref[k] for k in metrics) and len(outs) == len(ref_outs)
+                and all(torch.equal(a, c) and torch.equal(b, d)
+                        for (a, b), (c, d) in zip(outs, ref_outs)))
+
+    epoch_res, epoch_outs = passes[0][3], passes[0][4]
+    rec = {"phase": "parallel_train_run", "images": PAR_IMAGES, "batch": N,
+           "loop_s": h["train_s"], "val_s": h["val_s"], "ckpt_s": h["ckpt_s"],
+           "micro_steps": h["micro_steps"], "applies": h["applies"],
+           "loop_launches": launches, "run_dirs": runs, "weights": weights,
+           "ckpt_meta_imgsz": meta.get("imgsz"),
+           "val": {k: res[k] for k in metrics}, "val_forwards": forwards, **cmp,
+           "epoch_val_equal_to_val_without_group": same(epoch_res, epoch_outs, res_u, outs_u)}
+    emit(rec, log)
+    if (runs != ["exp"] or "last.pt" not in weights or not rec["val_equal"]
+            or not rec["epoch_val_equal_to_val_without_group"]
+            or launches["binary_dw3_conv"] != 57 * h["micro_steps"]):
+        raise AssertionError(f"parallel: the grouped train() epoch failed its checks: {rec}")
+    out["train_run"] = rec
+    rec = {"phase": "parallel_val", "images": PAR_IMAGES, "batch": N, "dtype": "bfloat16",
+           "grouped": {k: res_g[k] for k in metrics},
+           "without_group": {k: res_u[k] for k in metrics},
+           "forwards": len(outs_g), "k1_launches": k1_g,
+           "equal": same(res_g, outs_g, res_u, outs_u),
+           "seconds": time.perf_counter() - t_phase}
+    emit(rec, log)
+    if not rec["equal"] or k1_g != 24 * len(outs_g) or not outs_g:
+        raise AssertionError(f"parallel: grouped val.run differs from the plain pass: {rec}")
+    out["val"] = rec
+    return out
+
+
+#: the phases in their order; those of SET_PHASES share the synthetic sets
+SET_PHASES = ("train_run", "train_opts", "heads", "events", "segment", "zoo", "rtdetr_nms",
+              "parallel")
+PHASES = ("serve", "train", *SET_PHASES, "val", "k3_path", "bench")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3686,8 +3888,17 @@ def main(argv=None) -> int:
                     help="also write every phase's record to this JSON file")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the synthetic val split and the val models")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated subset of " + ",".join(PHASES) + " (every "
+                         "phase when omitted; the kernels line only then; "
+                         "k3_path needs serve, train_opts needs train_run)")
     opt = ap.parse_args(argv)
     out_path = opt.out
+    sel = set(PHASES) if opt.phases is None else set(opt.phases.split(","))
+    if sel - set(PHASES):
+        ap.error(f"unknown phases {sorted(sel - set(PHASES))}")
+    sel |= {"serve"} if "k3_path" in sel else set()
+    sel |= {"train_run"} if "train_opts" in sel else set()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3744,134 +3955,156 @@ def main(argv=None) -> int:
                                   "spill loads") for ln in spill)):
             raise AssertionError(f"{name}: spills, or no -Xptxas -v report: {ptxas}")
 
-    # --- the model, and its neuron sites ---------------------------------------
-    gen = torch.Generator().manual_seed(0)
-    model = build_model("resnet10.yaml", nc=NC, generator=gen)
-    sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
-    with tempfile.TemporaryDirectory() as tmp:
-        write_images(Path(tmp))
-        ims = [im for _, im, _ in LoadImages(tmp, IMGSZ)]
-        x1 = torch.from_numpy(ims[0]).cuda()
-        broadcast: set = set()
-        shapes = site_shapes(model, MemUpdate, x1, broadcast)
-        emit({"phase": "sites", "count": len(sites), "shapes":
-              [[list(k), v] for k, v in sorted(shapes.items(), reverse=True)],
-              "input_broadcast_over_t": sorted(map(list, broadcast))}, log)
-        if len(sites) != 24:
-            raise AssertionError(f"res10 has {len(sites)} neuron sites, want 24")
+    if "serve" in sel:      # the kernel checks at the model's site shapes, serving
+        # --- the model, and its neuron sites ---------------------------------------
+        gen = torch.Generator().manual_seed(0)
+        model = build_model("resnet10.yaml", nc=NC, generator=gen)
+        sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+        with tempfile.TemporaryDirectory() as tmp:
+            write_images(Path(tmp))
+            ims = [im for _, im, _ in LoadImages(tmp, IMGSZ)]
+            x1 = torch.from_numpy(ims[0]).cuda()
+            broadcast: set = set()
+            shapes = site_shapes(model, MemUpdate, x1, broadcast)
+            emit({"phase": "sites", "count": len(sites), "shapes":
+                  [[list(k), v] for k, v in sorted(shapes.items(), reverse=True)],
+                  "input_broadcast_over_t": sorted(map(list, broadcast))}, log)
+            if len(sites) != 24:
+                raise AssertionError(f"res10 has {len(sites)} neuron sites, want 24")
 
-        agg1 = phase_k1(K, SNNConfig, shapes, broadcast, log)
-        phase_k1_shapes(K, SNNConfig, log)
-        aggs = phase_spread(S, BS, plain_kernels, shapes, log)
-        phase_spread_grads(S, log)
-        agg6 = phase_k6(FZ, BS, SNNConfig, shapes, broadcast, log)
-        agg2, agg3 = phase_k2(FZ, K, SNNConfig, shapes, broadcast, log)
-        phase_k3_tilings(FZ, SNNConfig, log)
+            agg1 = phase_k1(K, SNNConfig, shapes, broadcast, log)
+            phase_k1_shapes(K, SNNConfig, log)
+            aggs = phase_spread(S, BS, plain_kernels, shapes, log)
+            phase_spread_grads(S, log)
+            agg6 = phase_k6(FZ, BS, SNNConfig, shapes, broadcast, log)
+            agg2, agg3 = phase_k2(FZ, K, SNNConfig, shapes, broadcast, log)
+            phase_k3_tilings(FZ, SNNConfig, log)
 
-        # --- the detect path at full width -------------------------------------
-        calibrate_bn(model, torch.from_numpy(np.concatenate(ims)).cuda(), _BN)
-        state32 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            # --- the detect path at full width -------------------------------------
+            calibrate_bn(model, torch.from_numpy(np.concatenate(ims)).cuda(), _BN)
+            state32 = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
-        # end to end in float32: kernel route against the plain route
-        with torch.no_grad():
-            z_k = model(x1)[0].float()
-            with plain_kernels():
-                z_p = model(x1)[0].float()
-        d = (z_k - z_p).abs()
-        rel = float((d > 1e-3 * (1 + z_p.abs())).float().mean())
-        emit({"phase": "model_fp32", "shape": list(z_k.shape),
-              "finite": bool(torch.isfinite(z_k).all()), "max_abs_err":
-              float(d.max()), "share_off_by_1e-3_rel": rel}, log)
-        if not torch.isfinite(z_k).all() or rel > 1e-3:
-            raise AssertionError("float32 model: kernel route disagrees")
+            # end to end in float32: kernel route against the plain route
+            with torch.no_grad():
+                z_k = model(x1)[0].float()
+                with plain_kernels():
+                    z_p = model(x1)[0].float()
+            d = (z_k - z_p).abs()
+            rel = float((d > 1e-3 * (1 + z_p.abs())).float().mean())
+            emit({"phase": "model_fp32", "shape": list(z_k.shape),
+                  "finite": bool(torch.isfinite(z_k).all()), "max_abs_err":
+                  float(d.max()), "share_off_by_1e-3_rel": rel}, log)
+            if not torch.isfinite(z_k).all() or rel > 1e-3:
+                raise AssertionError("float32 model: kernel route disagrees")
 
-        cast_params(model, torch.bfloat16)
-        # one hooked forward: every site's real input and the kernel output
-        seen = []
-        hooks = [m.register_forward_hook(
-            lambda m, i, o: seen.append((m, i[0], o))) for m in sites]
-        with torch.no_grad():
-            model(x1)
-        for h in hooks:
-            h.remove()
-        worst = 0.0
-        for j, (m, xin, spikes) in enumerate(seen):
-            ref = K.ecs_lif_reference(xin, *m.spread_params(), m.snn, m.act)
-            share = float((ref != spikes).float().mean())
-            worst = max(worst, share)
-            emit({"phase": "site", "site": j, "shape": list(xin.shape),
-                  "firing_rate": float(spikes.float().mean()),
-                  "mismatch_share": share}, log)
-        del seen
-        if worst > SPIKE_BOUND[torch.bfloat16]:
-            raise AssertionError(f"a site disagrees: share {worst}")
+            cast_params(model, torch.bfloat16)
+            # one hooked forward: every site's real input and the kernel output
+            seen = []
+            hooks = [m.register_forward_hook(
+                lambda m, i, o: seen.append((m, i[0], o))) for m in sites]
+            with torch.no_grad():
+                model(x1)
+            for h in hooks:
+                h.remove()
+            worst = 0.0
+            for j, (m, xin, spikes) in enumerate(seen):
+                ref = K.ecs_lif_reference(xin, *m.spread_params(), m.snn, m.act)
+                share = float((ref != spikes).float().mean())
+                worst = max(worst, share)
+                emit({"phase": "site", "site": j, "shape": list(xin.shape),
+                      "firing_rate": float(spikes.float().mean()),
+                      "mismatch_share": share}, log)
+            del seen
+            if worst > SPIKE_BOUND[torch.bfloat16]:
+                raise AssertionError(f"a site disagrees: share {worst}")
 
-        # the serving main path: detect.run over the images, counts read around it
-        K.ecs_lif_fused.launches = 0
-        t0 = time.perf_counter()
-        results = detect_mod.run(model, tmp, imgsz=IMGSZ)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        k1_launches = K.ecs_lif_fused.launches
-        for path, dets in results:
-            emit({"phase": "detect", "image": Path(path).name,
-                  "detections": int(len(dets)),
-                  "finite": bool(np.isfinite(dets).all())}, log)
-        emit({"phase": "detect_run", "images": len(results), "seconds": wall,
-              "ecs_lif_launches": k1_launches}, log)
-        if k1_launches != len(sites) * len(results) or len(results) != 4:
-            raise AssertionError(f"{k1_launches} K1 launches for {len(results)} "
-                                 f"forwards, want {len(sites)} each")
+            # the serving main path: detect.run over the images, counts read around it
+            K.ecs_lif_fused.launches = 0
+            t0 = time.perf_counter()
+            results = detect_mod.run(model, tmp, imgsz=IMGSZ)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1_launches = K.ecs_lif_fused.launches
+            for path, dets in results:
+                emit({"phase": "detect", "image": Path(path).name,
+                      "detections": int(len(dets)),
+                      "finite": bool(np.isfinite(dets).all())}, log)
+            emit({"phase": "detect_run", "images": len(results), "seconds": wall,
+                  "ecs_lif_launches": k1_launches}, log)
+            if k1_launches != len(sites) * len(results) or len(results) != 4:
+                raise AssertionError(f"{k1_launches} K1 launches for {len(results)} "
+                                     f"forwards, want {len(sites)} each")
 
-        # --- throughput: batched bf16 forward, N=8 -----------------------------
-        xb = torch.from_numpy(np.concatenate(ims * 2)).cuda()
-        with torch.no_grad():
-            ms = cuda_ms(lambda: model(xb), reps=10)
-            prof = profile_step(lambda: model(xb))
-        emit({"phase": "throughput", "batch": int(xb.shape[0]), "imgsz": IMGSZ,
-              "T": T, "dtype": "bfloat16", "ms_per_forward": ms,
-              "images_per_s": xb.shape[0] / ms * 1e3, **prof}, log)
-        del model, x1
+            # --- throughput: batched bf16 forward, N=8 -----------------------------
+            xb = torch.from_numpy(np.concatenate(ims * 2)).cuda()
+            with torch.no_grad():
+                ms = cuda_ms(lambda: model(xb), reps=10)
+                prof = profile_step(lambda: model(xb))
+            emit({"phase": "throughput", "batch": int(xb.shape[0]), "imgsz": IMGSZ,
+                  "T": T, "dtype": "bfloat16", "ms_per_forward": ms,
+                  "images_per_s": xb.shape[0] / ms * 1e3, **prof}, log)
+            del model, x1
 
-        # --- serving with the conv/bn pairs folded, same weights ---------------
-        phase_fuse(state32, xb, log)
-    del xb, state32
+            # --- serving with the conv/bn pairs folded, same weights ---------------
+            phase_fuse(state32, xb, log)
+        del xb, state32
 
     # --- the training main paths: train steps, then train() with resume -------
-    spread_launches = phase_train(log)
-    with tempfile.TemporaryDirectory() as sets:
-        t0 = time.perf_counter()
-        train_src = write_val_set(Path(sets) / "train", opt.seed + 100, TRAIN_IMAGES)
-        emit({"phase": "train_set", "images": TRAIN_IMAGES,
-              "seconds": time.perf_counter() - t0}, log)
-        t0 = time.perf_counter()
-        run_launches, run_rec = phase_train_run(opt.seed, train_src, log)
-        t1 = time.perf_counter()
-        opts_launches = phase_train_opts(opt.seed, train_src, run_rec, log)
-        t2 = time.perf_counter()
-        heads = phase_heads(opt.seed, train_src, Path(sets) / "heads_val", log)
-        t3 = time.perf_counter()
-        events = phase_events(opt.seed, Path(sets) / "events", log)
-        t4 = time.perf_counter()
-        seg = phase_segment(opt.seed, Path(sets) / "segment", log)
-        t5 = time.perf_counter()
-        zoo = phase_zoo(opt.seed, Path(sets) / "zoo", log)
-        t6 = time.perf_counter()
-        phase_rtdetr_nms(opt.seed, log)
-        emit({"phase": "train_seconds", "train_run": t1 - t0,
-              "train_opts": t2 - t1, "heads": t3 - t2, "events": t4 - t3,
-              "segment": t5 - t4, "zoo": t6 - t5,
-              "rtdetr_nms": time.perf_counter() - t6}, log)
+    if "train" in sel:
+        spread_launches = phase_train(log)
+    if sel & set(SET_PHASES):
+        with tempfile.TemporaryDirectory() as sets:
+            seconds = {}
+            if sel & {"train_run", "train_opts", "heads"}:
+                t0 = time.perf_counter()
+                train_src = write_val_set(Path(sets) / "train", opt.seed + 100,
+                                          TRAIN_IMAGES)
+                emit({"phase": "train_set", "images": TRAIN_IMAGES,
+                      "seconds": time.perf_counter() - t0}, log)
+            runs = {
+                "train_run": lambda: phase_train_run(opt.seed, train_src, log),
+                "train_opts": lambda: phase_train_opts(opt.seed, train_src,
+                                                       done["train_run"][1], log),
+                "heads": lambda: phase_heads(opt.seed, train_src,
+                                             Path(sets) / "heads_val", log),
+                "events": lambda: phase_events(opt.seed, Path(sets) / "events", log),
+                "segment": lambda: phase_segment(opt.seed, Path(sets) / "segment", log),
+                "zoo": lambda: phase_zoo(opt.seed, Path(sets) / "zoo", log),
+                "rtdetr_nms": lambda: phase_rtdetr_nms(opt.seed, log),
+                "parallel": lambda: phase_parallel(opt.seed, Path(sets) / "parallel", log)}
+            done = {}
+            for name in SET_PHASES:
+                if name in sel:
+                    t0 = time.perf_counter()
+                    done[name] = runs[name]()
+                    seconds[name] = time.perf_counter() - t0
+            emit({"phase": "train_seconds", **seconds}, log)
 
     # --- the validation main path ----------------------------------------------
-    val_launches = phase_val(opt.seed, log)
+    if "val" in sel:
+        val_launches = phase_val(opt.seed, log)
 
     # --- K3's entry point, and the kernel benches ------------------------------
-    k3_launches = phase_k3_path(FZ, SNNConfig, shapes, broadcast, every_kernel, log)
-    aggs78 = phase_k7_k8(BD, BS, log)
-    phase_k8_shapes(BD, log)
-    phase_k4_shapes(S, BD, log)
-    bench_launches = phase_bench_path(BD, BV3, every_kernel, log)
+    if "k3_path" in sel:
+        k3_launches = phase_k3_path(FZ, SNNConfig, shapes, broadcast, every_kernel, log)
+    if "bench" in sel:
+        aggs78 = phase_k7_k8(BD, BS, log)
+        phase_k8_shapes(BD, log)
+        phase_k4_shapes(S, BD, log)
+        bench_launches = phase_bench_path(BD, BV3, every_kernel, log)
+
+    if sel != set(PHASES):      # a subset: no kernels line
+        if out_path is not None:
+            out_path.parent.mkdir(parents=True, exist_ok=True)
+            out_path.write_text(json.dumps({"log": log}, indent=1))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    run_launches, _ = done["train_run"]
+    opts_launches, heads, events = done["train_opts"], done["heads"], done["events"]
+    seg, zoo = done["segment"], done["zoo"]
 
     csrc = "ecs_yolo_tpu_torch/csrc/"
     fwd = f"one res10@640 training forward, N={N}, T={T}, bf16"
@@ -3897,6 +4130,7 @@ def main(argv=None) -> int:
             zoo_launches_per_forward=zoo_launches(zoo, "ecs_lif_fused"),
             zoo_detect_launches={c: zoo["models"][c]["detect_launches"]["ecs_lif_fused"]
                                  for c in ZOO_DETECT_CFGS},
+            parallel_val_launches=done["parallel"]["val"]["k1_launches"],
             zoo_note=f"zoo_*: the {len(ZOO_SITES)} YAMLs and the {len(PROBES)} probe models "
                      f"({', '.join(PROBES)}) of the zoo phase at 640 px, one forward each "
                      f"(b{N} for the YAMLs of {', '.join(ZOO_TIMED)}, else b{ZOO_BATCH}), "
@@ -3919,6 +4153,8 @@ def main(argv=None) -> int:
                                        for c, m in seg["models"].items()},
             zoo_launches_per_step={c: m["step"]["launches_per_step"]["binary_dw3_conv"]
                                    for c, m in zoo["models"].items()},
+            parallel_launches_per_step=done["parallel"]["step"]["grouped"][
+                "launches_per_step"]["binary_dw3_conv"],
             zoo_narrow_site=zoo["k4_narrow"],
             zoo_narrow_note="zoo_narrow_site: the training spread of the 3-channel site on "
                             "the raw image at the head of res10-ee / res18-ee / res18-eebk "
@@ -3951,6 +4187,8 @@ def main(argv=None) -> int:
                                        for c, m in seg["models"].items()},
             zoo_launches_per_step={c: m["step"]["launches_per_step"]["packed_spread"]
                                    for c, m in zoo["models"].items()},
+            parallel_launches_per_step=done["parallel"]["step"]["grouped"][
+                "launches_per_step"]["packed_spread"],
             recompute_note="train_opts_launches_per_step: one step each, plain / remat / "
                            "remat_neuron; the remat counts include the launches of the "
                            "backward pass's recompute; launches and train_run_launches "
@@ -4102,7 +4340,7 @@ def profile_step(run) -> dict:
         ("ecs_lif_rows_device_ms", "ecs_lif_rows_kernel"),
         ("lif_fused_device_ms", "lif_fused_"),
         ("spread_dw3_device_ms", "spread_dw3_kernel"),
-        ("spread_gemm_device_ms", "spread_gemm_"))}
+        ("spread_gemm_device_ms", "spread_gemm_"), ("nccl_device_ms", "nccl"))}
     return {"profiled_wall_ms": wall_ms, "device_ms": total,
             "kernel_calls": sum(r[2] for r in rows), **own,
             "elementwise_device_ms": sum(r[0] for r in rows if "elementwise" in r[1]),

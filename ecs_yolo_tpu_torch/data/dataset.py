@@ -20,9 +20,10 @@ augmentation can be reproduced.  The JAX package seeds it from the process id
 and the global ``random`` state, which cannot be.
 
 ``SegmentDataset`` adds the instance masks (and, for ``Panoptic``, a
-semantic class-id map) rasterised from YOLO-seg polygon labels.  Not ported
-yet: ``host_shard`` (ROADMAP Queue 1 item 7, with item 12's multi-host
-training), which raises ``NotImplementedError``.
+semantic class-id map) rasterised from YOLO-seg polygon labels.
+``batches(host_shard=(rank, world))`` is one rank's contiguous rows of each
+full global batch (the DistributedSampler equivalent of multi-GPU
+training).
 """
 
 from __future__ import annotations
@@ -40,12 +41,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
+from ..parallel.multihost import local_batch_slice
 from ..utils.general import LOGGER
 from .augment import (Albumentations, augment_hsv, flip_lr, flip_ud, letterbox,
                       mixup, random_perspective)
 
 IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
-_TRAIN_HALF = "is part of the train data path, not ported yet (ROADMAP Queue 1 item 7)"
 
 
 def img2label_path(p: str) -> str:
@@ -559,7 +560,13 @@ class Dataset:
         does not wait for the host's image decode.
 
         ``quad`` yields the quad collate of full batches (``batch_size % 4 ==
-        0``; train-time only, so no ``yield_count``/``yield_idx``)."""
+        0``; train-time only, so no ``yield_count``/``yield_idx``).
+
+        ``host_shard=(rank, world)``: every rank walks the same seeded plan
+        over the global ``batch_size`` and takes rows ``[rank * per, (rank +
+        1) * per)`` of each full batch (``per = batch_size / world``; a
+        partial batch is dropped), as JAX's ``batches`` does; with ``quad``
+        each rank tiles its own rows."""
         if quad:
             if yield_count or yield_idx:
                 raise ValueError("quad collate carries no eval metadata")
@@ -570,9 +577,11 @@ class Dataset:
                     workers=workers, prefetch=prefetch, host_shard=host_shard):
                 yield self._quadify(ims, lbs, ms)
             return
-        if host_shard is not None:
-            raise NotImplementedError(f"host_shard {_TRAIN_HALF}")
         plan = self._batch_plan(batch_size, shuffle, seed, drop_last)
+        if host_shard is not None:
+            rows = local_batch_slice(batch_size, *host_shard)
+            plan = [idxs[rows] for idxs in plan if len(idxs) == batch_size]  # full only
+            batch_size = rows.stop - rows.start
         if workers <= 0:
             for idxs in plan:
                 yield self._collate(

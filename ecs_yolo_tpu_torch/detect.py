@@ -145,8 +145,9 @@ def parse_opt(argv=None):
 def main(opt):
     import yaml
 
+    from .device import resolve_device
     from .models.utils import fuse_conv_bn
-    from .models.yolo import build_model, cast_params
+    from .models.yolo import build_model, cast_params, checkpoint_imgsz
     from .utils.checkpoint import eval_state_dict, load_checkpoint
 
     names, nc = None, opt.nc
@@ -154,11 +155,16 @@ def main(opt):
         with open(opt.data) as fh:
             d = yaml.safe_load(fh)
         names, nc = d.get("names"), d["nc"]
-    model = build_model(opt.cfg, nc=nc, device=opt.device,
+    device = resolve_device(opt.device)     # no card and no --device cpu: refused first
+    sd, imgsz = None, opt.imgsz
+    if opt.weights:     # built at the side the checkpoint was (models/yolo.checkpoint_imgsz)
+        tree, meta = load_checkpoint(opt.weights)
+        sd = eval_state_dict(tree, opt.use_ema)
+        imgsz = checkpoint_imgsz(opt.cfg, sd, meta, opt.imgsz, nc)
+    model = build_model(opt.cfg, nc=nc, device=device, imgsz=imgsz,
                         generator=torch.Generator().manual_seed(opt.seed))
-    if opt.weights:
-        tree, _ = load_checkpoint(opt.weights)
-        model.load_state_dict(eval_state_dict(tree, opt.use_ema), strict=True)
+    if sd is not None:
+        model.load_state_dict(sd, strict=True)
     if opt.fuse:
         fuse_conv_bn(model)
     cast_params(model, DTYPES[opt.dtype])

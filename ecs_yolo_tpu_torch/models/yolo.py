@@ -706,6 +706,26 @@ def build_model(
     return model.eval()
 
 
+def checkpoint_imgsz(cfg: Union[str, Path, Dict], state_dict: Dict[str, torch.Tensor],
+                     meta: Optional[Dict] = None, imgsz: int = 640,
+                     nc: Optional[int] = None, snn: Optional[SNNConfig] = None) -> int:
+    """The image side to build a checkpoint's model at: the ``imgsz`` the
+    train driver records in ``meta``, else the side a ``TransformerBlock``'s
+    position table implies (``pos`` ``[1, 1, h*w, C]``: ``sqrt(h*w)`` times
+    the block's stride, read from a meta build at ``imgsz``; an imported
+    JAX checkpoint's table is 256 px's), else ``imgsz``."""
+    if meta and meta.get("imgsz"):
+        return int(meta["imgsz"])
+    if not any(k.endswith(".pos") for k in state_dict):
+        return imgsz
+    probe = build_model(cfg, nc=nc, snn=snn, device="meta", imgsz=imgsz)
+    for name, m in probe.named_modules():
+        if isinstance(m, BT.TransformerBlock) and f"{name}.pos" in state_dict:
+            side = math.isqrt(state_dict[f"{name}.pos"].shape[2])
+            return int(round(side * imgsz / m.hw[0]))
+    return imgsz
+
+
 def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Serving precision: parameters in ``dtype``, buffers (BN running
     statistics) kept in float32, as the JAX bench casts its params."""

@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import DEFAULT_SNN, SNNConfig, autopad
+from ..parallel import mesh
 from ..snn.ecs_lif import ecs_lif_fused, layout_refusal
 from ..snn.fused import ecs_lif_fused_rows, lif_fused
 from ..snn.neuron import ecs_lif_scan, firing_rate, lif_scan, make_spread
@@ -107,7 +108,14 @@ class _BN(nn.Module):
     """Per-channel batch norm with the reference's state names
     (``weight``, ``bias``, ``running_mean``, ``running_var``).  In training
     mode the running statistics move once a forward, and not while
-    ``checkpointed`` recomputes it."""
+    ``checkpointed`` recomputes it.
+
+    Inside ``parallel/mesh.data_parallel`` over more than one data rank the
+    training moments are the global batch's, as JAX's mesh-global
+    ``_DetBN`` takes them: the local sum and sum of squares go through an
+    all-reduce that carries the gradient (its backward sums the upstream
+    gradient over the ranks), divided by the global count.  A recompute
+    runs the same all-reduce again on every rank."""
 
     def __init__(self, c: int, gamma0: float, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -125,8 +133,14 @@ class _BN(nn.Module):
         if self.training:
             xf = x.to(dt)
             dims = tuple(range(x.dim() - 1))
-            m = xf.mean(dims)
-            v = (xf * xf).mean(dims) - m * m          # biased, as the JAX BN
+            if mesh.data_size() > 1:
+                cnt = xf.numel() // xf.shape[-1] * mesh.data_size()
+                s = mesh.data_sum_grad(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
+                m = s[0] / cnt
+                v = s[1] / cnt - m * m
+            else:
+                m = xf.mean(dims)
+                v = (xf * xf).mean(dims) - m * m      # biased, as the JAX BN
             if not recomputing():
                 with torch.no_grad():
                     self.running_mean.mul_(1 - self.momentum).add_(

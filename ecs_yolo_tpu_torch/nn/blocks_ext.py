@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import DEFAULT_SNN, SNNConfig
+from ..parallel import mesh
 from ..snn.fused import lif_fused
 from ..snn.neuron import lif_scan
 from .blocks import (Conv, Conv_2, Conv_3, Conv_4, Conv_5, Conv_6, DepthWiseConv, MemUpdate,
@@ -980,7 +981,10 @@ class DSSA(nn.Module):
         heads, m]`` when it moves (see the class), then returned."""
         if self.training and not recomputing():
             with torch.no_grad():
-                cur = spikes.mean(dim=(0, 1, 2, 4)).to(buf.dtype)
+                dims = (0, 1, 2, 4)     # the global batch's mean (mesh.data_parallel)
+                cnt = spikes.numel() // spikes.shape[3] * mesh.data_size()
+                cur = (spikes.mean(dim=dims) if mesh.data_size() == 1 else
+                       mesh.data_sum(spikes.sum(dim=dims)) / cnt).to(buf.dtype)
                 buf.copy_(buf * self.momentum + cur * (1 - self.momentum))
         return buf
 

@@ -28,7 +28,10 @@ fixed gains (7.5, 0.5, 1.5), whatever the hyp says, plus the mask term),
 ``compute_loss_panoptic``.  A mask or id map at another size than the
 prototypes / logits is resized with JAX's ``jax.image.resize(...,
 "nearest")`` indexing (``resize_nearest``: half-pixel centres, not
-``F.interpolate``'s ``nearest``).
+``F.interpolate``'s ``nearest``).  Inside ``parallel/mesh.data_parallel``
+each loss is this rank's part of the global batch's (the foreground count
+summed over the data ranks, the focal mean over the global batch, the dice
+of the global sums), as in ``train/loss_tal.py``.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from torch import nn
 
 from ..config import DEFAULT_SNN, SNNConfig
+from ..parallel import mesh
 from .blocks import DFL, Conv, Sample, SnnConv
 from .heads import _add_branch, _DFLHead, _mean_t, _run_branch
 
@@ -175,7 +179,8 @@ def segment_mask_loss(mc: torch.Tensor, protos: torch.Tensor, fg_mask: torch.Ten
     area = ((boxes_m[..., 2] - boxes_m[..., 0])
             * (boxes_m[..., 3] - boxes_m[..., 1])).clamp(min=1.0)
     per_anchor = crop.sum((2, 3)) / area
-    return torch.where(fg_mask, per_anchor, 0.0).sum() / fg_mask.sum().clamp(min=1)
+    return (torch.where(fg_mask, per_anchor, 0.0).sum()
+            / mesh.data_sum(fg_mask.sum()).clamp(min=1))
 
 
 def compute_loss_segment(out, targets, t_mask, gt_masks, strides: Sequence[float],
@@ -189,7 +194,7 @@ def compute_loss_segment(out, targets, t_mask, gt_masks, strides: Sequence[float
     from ..train.loss_tal import compute_loss_tal
 
     feats, mc, protos = out[0], out[1], out[2]
-    b = feats[0].shape[0]
+    b = mesh.global_batch(feats[0].shape[0])
     det_total, det_items, assign = compute_loss_tal(feats, targets, t_mask, strides, nc,
                                                     return_assign=True)
     ph, pw = protos.shape[1:3]
@@ -227,10 +232,16 @@ def semantic_loss(sem_logits: torch.Tensor, sem_gt: torch.Tensor):
     c = sem_logits.shape[-1]
     sem_gt = resize_nearest(sem_gt, tuple(sem_logits.shape[1:3]))
     gt = (sem_gt[..., None] == torch.arange(c, device=sem_gt.device)).to(sem_logits.dtype)
-    focal = sigmoid_focal_loss(sem_logits, gt).mean() / 2.0
+    focal = mesh.global_mean(sigmoid_focal_loss(sem_logits, gt)) / 2.0
     p = torch.softmax(sem_logits, dim=-1)
-    dice = (2.0 * (p * gt).sum() + 1.0) / ((p + gt).sum() + 1.0)
-    return focal * 20.0 * 2.5, (1.0 - dice) / 2.0 * 2.5
+    inter, total = (p * gt).sum(), (p + gt).sum()
+    if mesh.data_size() > 1:
+        # the global dice on every rank; its gradient reaches each rank's sums
+        # through the all-reduce's backward, which sums it over the ranks, so
+        # each rank's part is the term over the data ranks
+        inter, total = mesh.data_sum_grad(torch.stack([inter, total]))
+    dice = (2.0 * inter + 1.0) / (total + 1.0)
+    return focal * 20.0 * 2.5, (1.0 - dice) / 2.0 * 2.5 / mesh.data_size()
 
 
 def compute_loss_panoptic(out, targets, t_mask, gt_masks, sem_gt, strides: Sequence[float],
@@ -241,7 +252,7 @@ def compute_loss_panoptic(out, targets, t_mask, gt_masks, sem_gt, strides: Seque
     cls, dfl, sem_focal, sem_dice))``."""
     det_total, det_items = compute_loss_segment(out, targets, t_mask, gt_masks, strides,
                                                 nc, mask_gain=mask_gain)
-    b = out[0][0].shape[0]
+    b = mesh.global_batch(out[0][0].shape[0])
     lf, ld = semantic_loss(out[3].to(torch.float32), sem_gt)
     items = torch.cat([det_items, torch.stack([lf.detach(), ld.detach()]).to(det_items.dtype)])
     return det_total + (lf + ld) * b, items

@@ -19,14 +19,24 @@ split lists ``data/events.build_dataset`` writes), T taken from the data::
 The flags are ``train.py``'s; the data and hyp YAMLs are read the same way
 (``path``/``train``/``val``/``nc``; ``close_mosaic`` popped from the hyp).
 ``--device`` names a torch device and defaults to the CUDA card.
-``--single-cls`` also reaches the datasets (see ``train/driver.py``).  Flags
-of features not ported yet (``--evolve``, ``--model-parallel``) raise
-``NotImplementedError`` naming their ROADMAP item.
+``--single-cls`` also reaches the datasets (see ``train/driver.py``).
+``--evolve`` is not ported yet and raises ``NotImplementedError`` naming
+its ROADMAP item.
+
+On several GPUs, one process each, launched by torchrun (its ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` join the
+NCCL group; ``--batch-size`` is the global batch)::
+
+    python -m torch.distributed.run --nproc_per_node=8 -m ecs_yolo_tpu_torch.train \
+        --cfg resnet10.yaml --data data.yaml --batch-size 64 --bf16 [--model-parallel 2]
+
+``--device cpu`` under torchrun makes a gloo group of CPU processes.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from pathlib import Path
 
 import yaml
@@ -70,7 +80,11 @@ def parse_opt(argv=None):
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="move K batches to the card in one copy and issue their "
                         "K steps back to back")
-    p.add_argument("--model-parallel", type=int, default=1, help="not ported yet (> 1)")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="ranks on the model axis: the weights, optimizer state and "
+                        "EMA sharded over them")
+    p.add_argument("--local-rank", "--local_rank", type=int, default=None,
+                   help="this process's GPU (torchrun sets LOCAL_RANK)")
     p.add_argument("--multi-scale", action="store_true",
                    help="vary the train image size 0.5-1.5x per epoch")
     p.add_argument("--image-weights", action="store_true",
@@ -93,12 +107,18 @@ def parse_opt(argv=None):
 
 
 def main(opt):
+    from ..parallel import multihost
     from ..utils.general import LOGGER
     from .driver import train
 
     if opt.evolve:
         raise NotImplementedError("--evolve (train/evolve.py) is not ported yet "
                                   "(ROADMAP Queue 1 item 13)")
+    if opt.local_rank is not None:
+        os.environ.setdefault("LOCAL_RANK", str(opt.local_rank))
+    device = opt.device
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        device = multihost.initialize(device=device)
     with open(opt.data) as fh:
         data = yaml.safe_load(fh)
     root = Path(data.get("path", "."))
@@ -144,7 +164,7 @@ def main(opt):
         device_augment=opt.device_augment,
         steps_per_call=opt.steps_per_call,
         single_cls=opt.single_cls,
-        device=opt.device,
+        device=device,
     )
 
 

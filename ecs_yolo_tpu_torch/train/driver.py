@@ -11,6 +11,11 @@ the EMA parameters loaded, the reference's 13 log keys with ``fitness``, and
 the best/last/periodic checkpoints; ``EarlyStopping``; ``resume``; the best
 checkpoint stripped of its optimizer at the end.
 
+The model is built for ``min(imgsz, 256)`` px, the size JAX's driver
+inits at, and the checkpoints' ``meta`` records it (``imgsz``): a model
+with a ``TransformerBlock`` (or ``C3TR``) serves only that size, in JAX
+too, and the val and detect CLIs build at it.
+
 Host and device: a batch goes to the device as uint8 from pinned memory and
 is divided there; the step's metrics stay on the device, and the loop reads
 them once an epoch, so the host never waits for the device inside an epoch.
@@ -92,8 +97,26 @@ Deviations from the JAX driver:
   ``(seed, epoch, batches dispatched)`` by a ``torch.Generator``, where JAX
   folds ``epoch * steps_per_epoch + batches dispatched`` into its key.
 
-Not ported (raises ``NotImplementedError`` naming its ROADMAP Queue 1
-item): ``model_parallel > 1`` and multi-host (12).
+Under an initialised process group (``parallel/multihost.initialize``;
+``python -m torch.distributed.run --nproc_per_node=N -m
+ecs_yolo_tpu_torch.train ...``) the JAX driver's layout holds:
+``batch_size`` is the global batch (the quad collate's step batch a
+quarter of it), the ranks form a ``(data, model)`` layout with
+``model_parallel`` ranks on the model axis (``parallel/mesh``), and a world
+that does not divide the step batch or ``model_parallel`` is refused with
+JAX's messages.  Each rank loads its rows of every global batch
+(``host_shard``; the model ranks of one data rank the same rows) and runs
+the step on them (``make_train_step(layout=)``: global BN moments and loss
+denominators, the gradients summed over the data group; under
+``model_parallel > 1`` the parameters, optimizer state and EMA sliced over
+the model ranks).  ``weight_decay`` and ``accumulate`` follow the global
+batch.  Rank 0 chooses the run directory and the autoanchor anchors and
+reads a resumed checkpoint, and every rank takes them from it; rank 0
+alone writes checkpoints and logs.  The per-epoch val pass is sharded over
+the data ranks (``val.run(host_shard=)``), and its fitness is broadcast
+from rank 0 so every rank stops early together.  Each rank's device
+augmentation draws from its own seed (the data index folded in); JAX draws
+the global batch's from one key.
 """
 
 from __future__ import annotations
@@ -115,6 +138,7 @@ from ..data.device_augment import augment_batch, check_hyp
 from ..data.hyps import HYP_SCRATCH
 from ..device import resolve_device
 from ..models.yolo import SEGMENT_HEADS, build_model, load_cfg, parse_model
+from ..parallel import mesh, multihost
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, strip_optimizer
 from ..utils.general import LOGGER, Callbacks, EarlyStopping, increment_path
 from ..utils.loggers import Loggers
@@ -122,14 +146,27 @@ from .optim import build_optimizer
 from .trainer import create_train_state, make_train_step
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 {item})")
+#: the side the model is built for, as JAX's ``model.init(imgsz=min(imgsz,
+#: 256))``: a ``TransformerBlock`` / ``C3TR`` model serves only that size
+BUILD_IMGSZ = 256
 
 
-def _check_ported(model_parallel) -> None:
-    if model_parallel > 1 or (torch.distributed.is_available()
-                              and torch.distributed.is_initialized()):
-        _unported("model_parallel > 1 and multi-host training", "item 12")
+def _layout(model_parallel: int, batch_size: int, quad: bool):
+    """The ``(data, model)`` layout of the process group (None without one),
+    refused with the JAX driver's messages where the world does not divide
+    the step batch or ``model_parallel``."""
+    _, world = multihost.rank_world()
+    mp = max(model_parallel, 1)
+    step_batch = batch_size // 4 if quad else batch_size
+    if world < mp:
+        raise ValueError(
+            f"model_parallel={mp} needs at least {mp} devices whose "
+            f"data-axis extent divides the step batch {step_batch}; "
+            f"have {world} device(s)")
+    if world % mp or step_batch % (world // mp):
+        raise ValueError(f"multi-host training needs batch {batch_size} divisible by "
+                         f"all {world} devices")
+    return mesh.make_layout(mp)
 
 
 def _autoanchor(d: Dict, train_ds: Dataset, imgsz: int, thr: float):
@@ -202,9 +239,11 @@ def dispatch(state, step_fn, batches, dev: torch.device, augment=None, first: in
     return state, out
 
 
-def _augment_seed(seed: int, epoch: int, n: int) -> int:
-    """Seed of the device augmentation of batch ``n`` of ``epoch``."""
-    return int(np.random.SeedSequence([seed, epoch, n]).generate_state(1)[0])
+def _augment_seed(seed: int, epoch: int, n: int, host_shard=None) -> int:
+    """Seed of the device augmentation of batch ``n`` of ``epoch`` (of this
+    rank's rows of it, under a ``host_shard`` of more than one rank)."""
+    key = [seed, epoch, n] + ([host_shard[0]] if host_shard and host_shard[1] > 1 else [])
+    return int(np.random.SeedSequence(key).generate_state(1)[0])
 
 
 def train(
@@ -267,7 +306,6 @@ def train(
     if nc is not None:
         d["nc"] = nc
     head = d["head"][-1][2] if d.get("head") else ""
-    _check_ported(model_parallel)
     # masks ride in the step unless event batches (no masks) feed the head
     seg_mode = head in SEGMENT_HEADS and not events
     if steps_per_call < 1:
@@ -278,6 +316,9 @@ def train(
         quad = False
     if quad and batch_size % 4:
         raise ValueError(f"quad needs batch % 4 == 0, got {batch_size}")
+    layout = _layout(model_parallel, batch_size, quad)
+    main = multihost.is_main()
+    host_shard = layout.host_shard if layout is not None else None
     if device_augment and (quad or events or seg_mode):
         LOGGER.warning("device_augment supports the plain detection pipeline only "
                        "- falling back to host augmentation")
@@ -290,13 +331,17 @@ def train(
         check_hyp(hyp)
     tree = meta = None
     if resume:
-        tree, meta = load_checkpoint(resume)
+        # rank 0 reads the file, every rank takes its tensors
+        tree, meta = multihost.broadcast_object(load_checkpoint(resume) if main
+                                                else None)
         if tree["opt_state"] is None or tree["step"] is None:
             raise ValueError(f"{resume}: no optimizer state to resume from")
     callbacks = callbacks or Callbacks()
-    save_dir = increment_path(save_dir, mkdir=True)
+    save_dir = multihost.broadcast_object(increment_path(save_dir, mkdir=True)
+                                          if main else None)
     w = Path(save_dir) / "weights"
-    w.mkdir(parents=True, exist_ok=True)
+    if main:
+        w.mkdir(parents=True, exist_ok=True)
 
     if events:
         train_ds = EventDataset(train_path, img_size=imgsz, max_labels=max_labels)
@@ -333,7 +378,8 @@ def train(
     if resume:
         anchors = meta.get("anchors")
     elif autoanchor and head == "Detect" and not events:
-        anchors = _autoanchor(d, train_ds, imgsz, hyp.get("anchor_t", 4.0))
+        anchors = multihost.broadcast_object(
+            _autoanchor(d, train_ds, imgsz, hyp.get("anchor_t", 4.0)) if main else None)
         if anchors is not None:
             LOGGER.info(f"autoanchor: new anchors {anchors}")
     if anchors is not None:
@@ -341,7 +387,8 @@ def train(
 
     if remat_neuron:
         snn = (snn or SNNConfig()).replace(remat_neuron=True)
-    model = build_model(d, snn=snn, device=dev, remat=remat,
+    build_imgsz = min(imgsz, BUILD_IMGSZ)
+    model = build_model(d, snn=snn, device=dev, remat=remat, imgsz=build_imgsz,
                         generator=torch.Generator().manual_seed(seed))
     model_nc = model.head_info["nc"]
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
@@ -359,11 +406,13 @@ def train(
         # and of the TAL/v10/dual generation (train2.py:238)
         warmup_floor=1000.0 if head == "Detect" else 100.0)
     state = create_train_state(model, tx, device=dev)
+    plan = mesh.shard_plan(model, layout.mp) if layout is not None else {}
     step_fn = make_train_step(model, tx, hyp, ema_decay=ema_decay,
                               compute_dtype=torch.bfloat16 if bf16 else torch.float32,
                               sr=sr, sr_total_steps=epochs * steps_per_epoch,
                               accumulate=accumulate, with_masks=seg_mode,
-                              with_semantic=seg_mode and head == "Panoptic", device=dev)
+                              with_semantic=seg_mode and head == "Panoptic", device=dev,
+                              layout=layout, plan=plan)
     aug_gen = torch.Generator(device=dev) if device_augment else None
     # the val pass's model: a copy in eval mode that takes the EMA parameters
     # and the BN statistics each epoch; the training module is never cast
@@ -379,7 +428,7 @@ def train(
     stopper = EarlyStopping(patience)
     best_fitness, start_epoch = 0.0, 0
     history = []
-    loggers = Loggers(save_dir, include=loggers_include)
+    loggers = Loggers(save_dir, include=loggers_include) if main else None
     if resume:
         # reference --resume (train.py:876-886): parameters, buffers,
         # optimizer, EMA and counters
@@ -394,12 +443,15 @@ def train(
         stopper.best_fitness = best_fitness
         stopper.best_epoch = start_epoch - 1
         LOGGER.info(f"resumed from {resume} at epoch {start_epoch}")
+    # the model ranks' slices of the sharded leaves (resumed whole, then cut)
+    state = mesh.shard_state(state, plan, layout)
     LOGGER.info(f"training {cfg if isinstance(cfg, (str, Path)) else 'a model dict'} "
                 f"(head {head}) for {epochs} epochs, bs={batch_size}, "
                 f"accumulate={accumulate}, imgsz={imgsz}, {len(train_ds)} images "
                 f"on {dev}")
     ckpt_meta = dict(cfg=str(cfg) if isinstance(cfg, (str, Path)) else "dict",
-                     nc=model_nc, anchors=anchors, accumulate=accumulate)
+                     nc=model_nc, anchors=anchors, accumulate=accumulate,
+                     imgsz=build_imgsz)
     callbacks.run("on_train_start", state)
 
     for epoch in range(start_epoch, epochs):
@@ -423,7 +475,7 @@ def train(
             aug_hyp = dict(hyp, mosaic=train_ds.hyp.get("mosaic", 1.0))
 
         def augment(n, im, tg, mk):
-            aug_gen.manual_seed(_augment_seed(seed, epoch, n))
+            aug_gen.manual_seed(_augment_seed(seed, epoch, n, host_shard))
             return augment_batch(im.to(torch.float32) / 255.0, tg, mk, aug_gen, aug_hyp)
 
         def issue(chunk):
@@ -440,7 +492,7 @@ def train(
             step_s += time.perf_counter() - t_step
 
         batches = train_ds.batches(batch_size, shuffle=True, seed=seed + epoch,
-                                   workers=workers, quad=quad)
+                                   workers=workers, quad=quad, host_shard=host_shard)
         chunk = []
         while True:
             t_wait = time.perf_counter()
@@ -462,25 +514,27 @@ def train(
         callbacks.run("on_train_epoch_end", epoch)
 
         t_val = time.perf_counter()
+        whole = mesh.gather_state(state, plan, layout)   # every model rank gathers
         results = dict(mp=0.0, mr=0.0, map50=0.0, map=0.0, fitness=0.0)
         if val_ds is not None and (epoch + 1) % val_every == 0:
             callbacks.run("on_val_start")
             eval_model.load_state_dict({**dict(model.named_buffers()),
-                                        **state.ema_params}, strict=True)
+                                        **whole.ema_params}, strict=True)
             results = val_mod.run(eval_model, None, imgsz=imgsz,
                                   batch_size=batch_size, dataset=val_ds,
                                   workers=workers,
-                                  dtype=torch.bfloat16 if bf16 else None)
+                                  dtype=torch.bfloat16 if bf16 else None,
+                                  host_shard=host_shard)
             callbacks.run("on_val_end", results)
         val_s = time.perf_counter() - t_val
-        fit = float(results["fitness"])
+        fit = multihost.broadcast_scalar(float(results["fitness"]))
         callbacks.run("on_fit_epoch_end")
 
         # the reference's 13 log keys (utils/loggers/__init__.py:47-50); the
         # val pass computes no losses, logged as 0 as the JAX driver does
         n_applies = int(state.step) // accumulate
         lr = {g: float(tx.lr_fns[g](n_applies)) for g in ("g0", "g1", "g2")}
-        loggers.log_metrics({
+        log_row = {
             "train/box_loss": float(mloss[0]),
             "train/obj_loss": float(mloss[1]),
             "train/cls_loss": float(mloss[2]),
@@ -491,21 +545,25 @@ def train(
             "val/box_loss": 0.0, "val/obj_loss": 0.0, "val/cls_loss": 0.0,
             "x/lr0": lr["g0"], "x/lr1": lr["g1"], "x/lr2": lr["g2"],
             "fitness": fit,
-        }, step=epoch)
+        }
+        if main:
+            loggers.log_metrics(log_row, step=epoch)
 
         t_ckpt = time.perf_counter()
         is_best = fit >= best_fitness
         if is_best:
             best_fitness = fit
-        ck = dict(model=model.state_dict(), ema=state.ema_params,
-                  opt_state=state.opt_state.tensors(), step=int(state.step),
+        ck = dict(model={**model.state_dict(), **whole.params}, ema=whole.ema_params,
+                  opt_state=whole.opt_state.tensors(), step=int(state.step),
                   meta=dict(ckpt_meta, epoch=epoch, best_fitness=best_fitness,
                             date=datetime.now(timezone.utc).isoformat()))
-        if is_best:
-            save_checkpoint(w / "best.pt", **ck)
-        save_checkpoint(w / "last.pt", **ck)
-        if save_period > 0 and epoch % save_period == 0:
-            save_checkpoint(w / f"epoch{epoch}.pt", **ck)
+        del whole
+        if main:
+            if is_best:
+                save_checkpoint(w / "best.pt", **ck)
+            save_checkpoint(w / "last.pt", **ck)
+            if save_period > 0 and epoch % save_period == 0:
+                save_checkpoint(w / f"epoch{epoch}.pt", **ck)
         ckpt_s = time.perf_counter() - t_ckpt
         callbacks.run("on_model_save", w / "last.pt")
         history.append(dict(
@@ -520,8 +578,9 @@ def train(
         if stopper(epoch, fit):
             break
 
-    if (w / "best.pt").exists():
+    if main and (w / "best.pt").exists():
         strip_optimizer(w / "best.pt", w / "best_stripped.pt")
     callbacks.run("on_train_end")
-    loggers.close()
+    if main:
+        loggers.close()
     return state, best_fitness, history

@@ -9,6 +9,10 @@ reference's ``if fg_mask.sum()`` branch is a masked sum, where JAX masks it.
 ``compute_loss_triple`` (deep supervision, the auxiliary branches' class
 gain scaled by 0.25).  Each returns ``(total * B, items)``, ``items`` the
 detached (box, cls, dfl) terms of every branch in order: 3, 6 or 9 values.
+
+Inside ``parallel/mesh.data_parallel`` each loss is this rank's part of the
+global batch's: ``target_scores_sum`` is summed over the data ranks
+(detached, as the assigner's scores are) and ``B`` is the global batch.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 
 from ..ops.anchors import bbox2dist, dist2bbox, make_anchors
 from ..ops.boxes import bbox_iou, xywh2xyxy
+from ..parallel import mesh
 from .loss_v1 import bce_logits
 from .tal import task_aligned_assigner
 
@@ -93,7 +98,7 @@ def compute_loss_tal(feats: Sequence[torch.Tensor], targets: torch.Tensor,
     target_bboxes = assign.target_bboxes / stride_tensor
     target_scores = assign.target_scores
     fg = assign.fg_mask
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    target_scores_sum = mesh.data_sum(target_scores.sum()).clamp(min=1.0)
 
     loss_cls = bce_logits(pred_scores, target_scores.to(pred_scores.dtype),
                           cls_pw).sum() / target_scores_sum
@@ -110,6 +115,7 @@ def compute_loss_tal(feats: Sequence[torch.Tensor], targets: torch.Tensor,
 
     box_g, cls_g, dfl_g = gains
     loss = torch.stack([loss_iou * box_g, loss_cls * cls_g, loss_dfl * dfl_g])
+    b = mesh.global_batch(b)
     if return_assign:
         return loss.sum() * b, loss.detach(), dict(
             fg_mask=fg, target_gt_idx=assign.target_gt_idx,

@@ -6,6 +6,12 @@ anchor-ratio assignment is a boolean mask over the dense candidate grid
 ``[5 offsets, B, M, na]``.  Nothing depends on how many candidates are valid,
 so the step never waits for the device.  Every reduction is a masked mean.
 
+Inside ``parallel/mesh.data_parallel`` the loss is this rank's part of the
+global batch's: each mean's numerator is local and its denominator the
+global count (``mesh.data_sum``, detached), ``bs`` is the global batch,
+and the slide loss's mean IoU is the global one (``mesh.data_sum_grad``);
+summed over the data ranks, the losses and their gradients are JAX's.
+
 The objectness target is a scatter-max of the detached IoU (the highest IoU
 wins a cell), deterministic where the reference's last write wins.
 """
@@ -19,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import bbox_iou
+from ..parallel import mesh
 
 # center, j, k, l, m  (reference utils/loss.py:257-261)
 OFFSETS = ((0.0, 0.0), (1.0, 0.0), (0.0, 1.0), (-1.0, 0.0), (0.0, -1.0))
@@ -64,7 +71,7 @@ def slide_weight(target, auto_iou):
 
 def _masked_mean(x, mask):
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+    return (x * m).sum() / mesh.data_sum(m.sum()).clamp(min=1.0)
 
 
 @functools.lru_cache(maxsize=64)
@@ -151,7 +158,7 @@ def compute_loss_v1(
     lbox = preds[0].new_zeros(())
     lobj = preds[0].new_zeros(())
     lcls = preds[0].new_zeros(())
-    bs = preds[0].shape[0]
+    bs = mesh.global_batch(preds[0].shape[0])
 
     for i, pi in enumerate(preds):
         _, na, ny, nx, _ = pi.shape
@@ -165,6 +172,8 @@ def compute_loss_v1(
         iou = bbox_iou(pbox, tbox, xywh=True, SIoU=True)
         lbox = lbox + _masked_mean(1.0 - iou, valid)
         auto_iou = _masked_mean(iou, valid)
+        if slide_ratio > 0:
+            auto_iou = mesh.data_sum_grad(auto_iou)
 
         # objectness target: scatter-max of the detached IoU over the cells
         score_iou = iou.detach().clamp(min=0.0)
@@ -180,7 +189,7 @@ def compute_loss_v1(
             obj_l = obj_l * focal_weight(pi[..., 4], tobj, fl_gamma)
         elif slide_ratio > 0:
             obj_l = obj_l * slide_weight(tobj, auto_iou)
-        lobj = lobj + obj_l.mean() * balance[i]
+        lobj = lobj + mesh.global_mean(obj_l) * balance[i]
 
         if nc > 1:
             # a class id outside [0, nc) would fault the device; such a row

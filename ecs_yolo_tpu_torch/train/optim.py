@@ -177,14 +177,16 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
-               grads: Mapping[str, torch.Tensor], state: OptState):
+               grads: Mapping[str, torch.Tensor], state: OptState,
+               reduce_flag=None):
         """One micro-step: ``(applied, boundary)``.  Without accumulation
         every call applies (``apply``); with it the micro-gradient joins the
         window's running mean, and the k-th call of a window applies the
         mean.  ``boundary`` (a bool) says whether this call closed a window;
-        ``applied`` is ``apply``'s 0-d flag there, else None."""
+        ``applied`` is ``apply``'s 0-d flag there, else None.
+        ``reduce_flag`` goes to ``apply``."""
         if self.accumulate == 1:
-            return self.apply(params, grads, state), True
+            return self.apply(params, grads, state, reduce_flag), True
         names = list(state.acc)
         acc = [state.acc[k] for k in names]
         gs = [grads[k].to(a.dtype) for k, a in zip(names, acc)]
@@ -193,17 +195,20 @@ class Optimizer:
         if state.mini_step < self.accumulate - 1:
             state.mini_step += 1
             return None, False
-        applied = self.apply(params, state.acc, state)
+        applied = self.apply(params, state.acc, state, reduce_flag)
         torch._foreach_zero_(acc)
         state.mini_step = 0
         return applied, True
 
     @torch.no_grad()
     def apply(self, params: Mapping[str, torch.Tensor],
-              grads: Mapping[str, torch.Tensor], state: OptState) -> torch.Tensor:
+              grads: Mapping[str, torch.Tensor], state: OptState,
+              reduce_flag=None) -> torch.Tensor:
         """One step in place.  Returns the 0-d bool ``applied``: False when a
         gradient was not finite, and then nothing changed (the reference's
-        GradScaler drops such steps, train.py:571-576).
+        GradScaler drops such steps, train.py:571-576).  ``reduce_flag``
+        maps this state's finite flag to the whole gradient's, where the
+        state holds slices of it (``parallel/mesh.shard_state``).
 
         The groups are updated with ``torch._foreach`` operations (a handful
         of launches for all parameters).  A skipped step is decided on the
@@ -214,6 +219,8 @@ class Optimizer:
         names = list(params)
         flat = torch.cat([grads[k].reshape(-1).to(params[k].dtype) for k in names])
         finite = torch.isfinite(flat).all()
+        if reduce_flag is not None:
+            finite = reduce_flag(finite)
         flat = torch.where(finite, flat, torch.zeros_like(flat))
         clean = dict(zip(names, (g.view_as(params[k]) for k, g in zip(
             names, flat.split([params[k].numel() for k in names])))))

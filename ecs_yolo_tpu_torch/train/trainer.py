@@ -16,6 +16,22 @@ policy is a different function.
 A parameter that takes no part in the loss gets a zero gradient, as under
 ``jax.value_and_grad``: at ``time_window=1`` no step reads a spike of the
 step before, so the spread parameters of every ECS-LIF site are unused.
+
+Under a process group (``make_train_step(layout=)``, ``parallel/mesh``)
+each rank takes its rows of the global batch.  The loss is computed inside
+``mesh.data_parallel``: the BN moments and the losses' denominators reduce
+over the data group, so each rank's loss is its part of the global-batch
+loss; the gradients are then summed over the data group in one flat
+all-reduce, and the reported loss and items too.  The model is not wrapped
+in ``DistributedDataParallel``: ``functional_call`` and
+``torch.autograd.grad`` bypass the module hooks its reducer needs (and
+FSDP's).  Under ``model_parallel > 1`` the state holds this model rank's
+slices of the sharded leaves (``mesh.shard_state``): the step all-gathers
+the master parameters it applies, sums the whole gradient over the data
+group, keeps its slice, and the optimizer (whose finite check is taken over
+the model group) and the EMA update the slices.  The kernels see the
+gathered weights as they see any other: a contiguous tensor of the full
+shape.
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ from torch.func import functional_call
 from ..device import resolve_device
 from ..models.yolo import SEGMENT_HEADS, DetectionModel
 from ..nn.segment import compute_loss_panoptic, compute_loss_segment
+from ..parallel import mesh
 from .ema import ema_update
 from .loss_tal import (compute_loss_dual, compute_loss_tal, compute_loss_triple,
                        compute_loss_v10)
@@ -153,21 +170,23 @@ def _tree_map(fn, tree):
 
 def make_grad_fn(model: DetectionModel, hyp: Mapping[str, float],
                  compute_dtype: torch.dtype = torch.float32):
-    """``grad_fn(state, images, targets, t_mask, *extra) -> (total, items,
-    grads)``: the training-mode forward (BN running statistics move), the
-    loss and its gradients onto the master parameters, by torch name.
+    """``grad_fn(state, images, targets, t_mask, *extra, params=None) ->
+    (total, items, grads)``: the training-mode forward (BN running
+    statistics move), the loss and its gradients onto the master parameters
+    (``state.params``, or the whole ``params`` given), by torch name.
     ``extra`` (a segment head's instance masks, and a panoptic head's id
     map) goes to the loss as it is."""
     loss_fn = make_loss_fn(model, hyp)
     f32 = torch.float32
 
-    def grad_fn(state: TrainState, images, targets, t_mask, *extra):
+    def grad_fn(state: TrainState, images, targets, t_mask, *extra, params=None):
         if images.dtype == torch.uint8:
             images = images.to(f32) / 255.0
-        apply_params = state.params
+        masters = state.params if params is None else params
+        apply_params = masters
         if compute_dtype != f32:
             apply_params = {k: v.to(compute_dtype) if v.dtype == f32 else v
-                            for k, v in state.params.items()}
+                            for k, v in masters.items()}
         model.train()
         with torch.enable_grad():
             out = functional_call(model, apply_params,
@@ -177,12 +196,27 @@ def make_grad_fn(model: DetectionModel, hyp: Mapping[str, float],
                                 out)
             total, items = loss_fn(out, targets, t_mask, *extra)
             total = total.to(f32)
-            names = list(state.params)
-            grads = torch.autograd.grad(total, [state.params[k] for k in names],
+            names = list(masters)
+            grads = torch.autograd.grad(total, [masters[k] for k in names],
                                         allow_unused=True, materialize_grads=True)
         return total.detach(), items, dict(zip(names, grads))
 
     return grad_fn
+
+
+@torch.no_grad()
+def _data_sum(total, items, grads, layout: mesh.Layout):
+    """The loss, the items and the gradients summed over the data group: the
+    gradients in one flat float32 bucket (one all-reduce), the loss and the
+    items in another."""
+    names = list(grads)
+    flat = torch.cat([grads[k].reshape(-1) for k in names])
+    torch.distributed.all_reduce(flat, group=layout.data_group)
+    grads = dict(zip(names, (g.view_as(grads[k]) for k, g in zip(
+        names, flat.split([grads[k].numel() for k in names])))))
+    head = torch.cat([total.reshape(1).to(items.dtype), items.reshape(-1)])
+    torch.distributed.all_reduce(head, group=layout.data_group)
+    return head[0].to(total.dtype), head[1:].view_as(items), grads
 
 
 def make_train_step(
@@ -197,6 +231,8 @@ def make_train_step(
     with_masks: bool = False,
     with_semantic: bool = False,
     device: Optional[Union[str, torch.device]] = None,
+    layout: Optional[mesh.Layout] = None,
+    plan: Optional[Mapping[str, int]] = None,
 ):
     """Build the train step ``step(state, images, targets, t_mask) ->
     (state, {"loss", "items", "applied", "boundary"})``.
@@ -235,17 +271,39 @@ def make_train_step(
                          f"with accumulate={tx.accumulate}")
     _check_device(model, device)
     grad_fn = make_grad_fn(model, hyp, compute_dtype)
+    plan = dict(plan or {}) if layout is not None and layout.mp > 1 else {}
+    reduce_flag = None
+    if plan:
+        def reduce_flag(finite):      # apply only where every slice is finite
+            f = finite.to(torch.float32)
+            torch.distributed.all_reduce(f, op=torch.distributed.ReduceOp.MIN,
+                                         group=layout.model_group)
+            return f > 0
 
     def step_fn(state: TrainState, images, targets, t_mask, *extra):
         if len(extra) != n_extra:
             raise TypeError(f"the step takes {3 + n_extra} batch elements, got "
                             f"{3 + len(extra)}")
-        total, items, grads = grad_fn(state, images, targets, t_mask, *extra)
+        with mesh.data_parallel(layout):
+            whole = None
+            if plan:
+                with torch.no_grad():
+                    whole = mesh.gather_tree(state.params, plan, layout)
+                whole = {k: v.requires_grad_(True) if k in plan else v
+                         for k, v in whole.items()}
+            total, items, grads = grad_fn(state, images, targets, t_mask, *extra,
+                                          params=whole)
+        if layout is not None:
+            total, items, grads = _data_sum(total, items, grads, layout)
+            if plan:
+                grads = {k: g.chunk(layout.mp, plan[k])[layout.model_index]
+                         if k in plan else g for k, g in grads.items()}
         if sr > 0:
             srtmp = sparsity_rate(sr, state.step.to(torch.float32)
                                   / max(sr_total_steps, 1))
             grads = add_l1_subgradient(grads, state.params, srtmp, sr)
-        applied, boundary = tx.update(state.params, grads, state.opt_state)
+        applied, boundary = tx.update(state.params, grads, state.opt_state,
+                                      reduce_flag=reduce_flag)
         state.step += 1
         if boundary:
             applies = torch.div(state.step, accumulate, rounding_mode="floor")

@@ -20,9 +20,19 @@ CLI::
         --data data/kitti.yaml [--no-ecs] [--fused-inference] \
         [--device cuda|cpu] [--dtype bf16|fp32] [--fuse]
 
-Not carried over from the JAX ``run``: ``mesh``, ``fuse_post``,
-``chain_batches`` and ``jit_cache`` (devices of the TPU's dispatch), and the
-exported-backend branch (``variables is None``).
+Under an initialised process group the pass is sharded, the counterpart of
+JAX's ``run(mesh=)``: every rank walks the same batches and runs the
+forward and NMS on its rows of each (``host_shard``), rank 0 gathers the
+per-image statistics (``dist.gather_object``), puts them in image order,
+computes the metrics and the COCO json, and broadcasts the result, so
+every rank returns the same dict; ``seen`` and the metrics are the
+one-process pass's.  Each rank decodes whole batches (the host's decode is
+not sharded).  ``python -m torch.distributed.run --nproc_per_node=N -m
+ecs_yolo_tpu_torch.val ...`` runs the CLI so.
+
+Not carried over from the JAX ``run``: ``fuse_post``, ``chain_batches`` and
+``jit_cache`` (devices of the TPU's dispatch), and the exported-backend
+branch (``variables is None``).
 
 Every detection head is served as the JAX ``run`` serves it: NMS takes the
 decoded one2one branch of ``v10Detect`` and ``ASFF_v10Detect``, else the
@@ -39,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from pathlib import Path
 from typing import Dict, Optional, Union
@@ -85,18 +96,21 @@ class MetricAccumulator:
         self.ds = ds
         self.iouv = np.linspace(0.5, 0.95, 10)
         self.stats = []
+        self.keys = []              # each stat's place in the pass
         self.seen = 0
         self.json_dets = [] if save_json is not None else None
         self.cmap = coco80_to_coco91_class() if coco91 else None
 
     def add(self, index: int, labels: np.ndarray, mask: np.ndarray,
-            dets: np.ndarray, meta: Optional[Dict] = None) -> None:
+            dets: np.ndarray, meta: Optional[Dict] = None, key=None) -> None:
         """One real image: ``labels`` ``[M, 5]`` canvas-normalised with
         ``mask``, ``dets`` ``[n, 6]`` canvas-pixel xyxy/conf/cls; ``meta``
-        the dataset's ``meta(index)`` unless given."""
+        the dataset's ``meta(index)`` unless given; ``key`` its place in
+        the pass (``merge`` orders by it)."""
         if not mask.any() and not len(dets):
             return
         self.seen += 1
+        self.keys.append(key)
         meta = meta or self.ds.meta(index)
         gt = labels[mask]
         h, w = meta["canvas_hw"]
@@ -109,11 +123,29 @@ class MetricAccumulator:
             # COCO records (reference save_one_json, val.py:56-78): real
             # image ids, native-space corner-xywh boxes
             for x1, y1, x2, y2, conf, cls in dets:
-                self.json_dets.append(dict(
+                self.json_dets.append((key, dict(
                     image_id=meta["id"],
                     category_id=self.cmap[int(cls)] if self.cmap else int(cls),
                     bbox=[round(float(v), 3) for v in (x1, y1, x2 - x1, y2 - y1)],
-                    score=round(float(conf), 5)))
+                    score=round(float(conf), 5))))
+
+    def merge(self, parts) -> None:
+        """Take the ``(keys, stats, json_dets)`` of every rank's shard in
+        the order of their keys, each key once (the model ranks of one data
+        rank hold the same rows)."""
+        stats, owner, dets = {}, {}, {}
+        for j, (keys, st, jd) in enumerate(parts):
+            for k, v in zip(keys, st):
+                if k not in owner:
+                    owner[k], stats[k] = j, v
+            for k, rec in jd or []:
+                if owner[k] == j:
+                    dets.setdefault(k, []).append(rec)
+        self.keys = sorted(stats)
+        self.stats = [stats[k] for k in self.keys]
+        self.seen = len(self.keys)
+        if self.json_dets is not None:
+            self.json_dets = [(k, r) for k in sorted(dets) for r in dets[k]]
 
     def summary(self, dt) -> Dict:
         """The JAX ``run``'s result dict from the accumulated statistics and
@@ -159,6 +191,7 @@ def run(
     workers: int = 4,
     device: Optional[Union[str, torch.device]] = None,
     dtype: Optional[torch.dtype] = None,
+    host_shard=None,
 ) -> Dict:
     """Returns {mp, mr, map50, map, fitness, speed, per_class} as the JAX
     ``run`` and ``seen``, the number of images that had a label or a
@@ -169,8 +202,25 @@ def run(
     in eval mode where it lies.  ``device`` and ``dtype``, when given, move
     it there and cast its parameters first (BN statistics stay float32).
     ``speed`` is (pre-process, inference, NMS) in ms per image seen, each
-    phase closed by a ``torch.cuda.synchronize()`` on the card."""
+    phase closed by a ``torch.cuda.synchronize()`` on the card.
+
+    Under an initialised process group the pass is sharded (module
+    docstring): ``host_shard=(i, n)`` takes rows ``[i * per, (i + 1) * per)``
+    of every batch (``per = batch_size / n``), by default ``(rank,
+    world)``; every rank of the group must call it (its statistics are
+    gathered); ``speed`` is then rank 0's shard's, per image of it."""
+    import torch.distributed as dist
+
     from .models.yolo import cast_params, head_predictions
+    from .parallel import multihost
+
+    grouped = multihost.initialized()
+    shard = host_shard or (multihost.rank_world() if grouped else (0, 1))
+    if batch_size % shard[1]:
+        raise ValueError(f"val batch {batch_size} not divisible by {shard[1]} "
+                         "data ranks")
+    per = batch_size // shard[1]
+    lo = shard[0] * per
 
     if device is not None:
         model.to(torch.device(device))
@@ -201,7 +251,10 @@ def run(
                    for k, (ims, lbs, ms, n) in enumerate(
                        ds.batches(batch_size, drop_last=False, yield_count=True)))
     with torch.inference_mode():
-        for ims, labels, masks, n_real, idxs in batches:
+        for k, (ims, labels, masks, n_real, idxs) in enumerate(batches):
+            if grouped:         # this rank's rows of the (zero-padded) batch
+                ims, labels, masks = ims[lo:lo + per], labels[lo:lo + per], masks[lo:lo + per]
+                n_real, idxs = max(0, min(n_real - lo, per)), idxs[lo:lo + per]
             t0 = clock()
             x = torch.from_numpy(ims)
             if on_card:
@@ -226,7 +279,20 @@ def run(
                 meta = None if has_meta else dict(
                     id=idxs[si] + 1, native_hw=hw, canvas_hw=hw,
                     ratio_pad=((1.0, 1.0), (0.0, 0.0)))
-                acc.add(idxs[si], labels[si], masks[si], out[si][valid[si]], meta)
+                acc.add(idxs[si], labels[si], masks[si], out[si][valid[si]], meta,
+                        key=(k, lo + si if grouped else si))
+
+    local_seen = acc.seen
+    if grouped:
+        parts = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+        dist.gather_object((acc.keys, acc.stats, acc.json_dets), parts, dst=0)
+        if dist.get_rank() != 0:
+            got = [None]
+            dist.broadcast_object_list(got, src=0)
+            return got[0]
+        acc.merge(parts)
+    if acc.json_dets is not None:
+        acc.json_dets = [rec for _, rec in acc.json_dets]
 
     coco_res = None
     if save_json is not None:
@@ -239,10 +305,15 @@ def run(
             coco_res = evaluate_json(anno_json, save_json)
 
     result = acc.summary(dt)
+    if acc.stats:
+        if grouped:
+            result["speed"] = tuple(1000.0 * t / max(local_seen, 1) for t in dt)
+        if coco_res is not None:
+            result["coco"] = coco_res
+    if grouped:
+        dist.broadcast_object_list([result], src=0)
     if not acc.stats:
         return result
-    if coco_res is not None:
-        result["coco"] = coco_res
     if verbose:
         s = result["speed"]
         print(f"P={result['mp']:.3f} R={result['mr']:.3f} "
@@ -292,8 +363,10 @@ def main(opt) -> Dict:
     import yaml
 
     from .config import SNNConfig
+    from .device import resolve_device
     from .models.utils import fuse_conv_bn
-    from .models.yolo import build_model
+    from .models.yolo import build_model, checkpoint_imgsz
+    from .parallel import multihost
     from .utils.checkpoint import eval_state_dict, load_checkpoint
 
     with open(opt.data) as fh:
@@ -302,9 +375,14 @@ def main(opt) -> Dict:
     split = data.get(opt.task if opt.task != "speed" else "val", data["val"])
     snn = SNNConfig(time_window=opt.time_window, ecs=opt.ecs,
                     fused_inference=opt.fused_inference)
-    model = build_model(opt.cfg, nc=data["nc"], snn=snn, device=opt.device)
-    tree, _ = load_checkpoint(opt.weights)
-    model.load_state_dict(eval_state_dict(tree, opt.use_ema), strict=True)
+    device = resolve_device(opt.device)     # no card and no --device cpu: refused first
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:   # torchrun: sharded
+        device = multihost.initialize(device=device.type)
+    tree, meta = load_checkpoint(opt.weights)
+    sd = eval_state_dict(tree, opt.use_ema)
+    model = build_model(opt.cfg, nc=data["nc"], snn=snn, device=device,
+                        imgsz=checkpoint_imgsz(opt.cfg, sd, meta, opt.imgsz, data["nc"], snn))
+    model.load_state_dict(sd, strict=True)
     if opt.fuse:
         fuse_conv_bn(model)
     results = run(

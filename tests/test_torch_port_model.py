@@ -36,12 +36,13 @@ torch.set_num_threads(2)
 T = 2
 
 
-def _random_variables(init_fn, seed):
+def _random_variables(init_fn, seed, shapes=None):
     """Seeded numpy values in the shape of ``init_fn()``'s variables, found
-    with ``jax.eval_shape`` (no init compile): kernels U(+-1/sqrt(fan_in))
-    as torch's default init, biases U(+-0.2), random BN affine and
-    running statistics so that eval BN is exercised in full, and firing
-    rates (``DSSA``'s statistics) in 0.01-0.21, as a trained block's."""
+    with ``jax.eval_shape`` (no init compile; ``shapes``, that call's result
+    where a caller keeps it): kernels U(+-1/sqrt(fan_in)) as torch's default
+    init, biases U(+-0.2), random BN affine and running statistics so that
+    eval BN is exercised in full, and firing rates (``DSSA``'s statistics)
+    in 0.01-0.21, as a trained block's."""
     rng = np.random.RandomState(seed)
 
     def fill(path, s):
@@ -59,7 +60,7 @@ def _random_variables(init_fn, seed):
             v = (rng.rand(*s.shape) - 0.5) * 0.4
         return v.astype(np.float32)
 
-    shapes = jax.eval_shape(init_fn)
+    shapes = shapes or jax.eval_shape(init_fn)
     return jax.tree_util.tree_map_with_path(
         fill, {k: shapes[k] for k in ("params", "batch_stats") if k in shapes})
 

@@ -89,3 +89,39 @@ def test_an_imported_file_is_not_a_resume_point(jax_dirs, tmp_path):
     out = import_orbax.import_checkpoint(root / "last", tmp_path / "w.pt")
     with pytest.raises(ValueError, match="no optimizer state"):
         PDR.train(TINY, tmp_path, resume=out, device="cpu", save_dir=str(tmp_path / "r"))
+
+
+def test_a_256_px_transformer_checkpoint_loads_strictly_in_the_clis(tmp_path, monkeypatch):
+    """A JAX checkpoint of a ``C3TR`` model holds the 256 px position table
+    JAX's driver builds (``init(imgsz=min(imgsz, 256))``); imported, the
+    detect CLI builds the port's model at the size the table implies and
+    loads it with ``strict=True`` (a 640 px build cannot)."""
+    import yaml
+
+    from ecs_yolo_tpu_torch import detect as port_detect
+    from test_torch_port_repairs import _c3tr_cfg
+
+    jm = jax_yolo.build_model(_c3tr_cfg(), nc=2, snn=JaxSNNConfig())
+    v = _random_variables(lambda: jm.module.init(jax.random.PRNGKey(0),
+                                                 jnp.zeros((1, 256, 256, 3)), training=False), 4)
+    # the directory's tree as orbax reads it back (its disk round trip is held
+    # by the tests above)
+    monkeypatch.setattr(import_orbax, "read_orbax", lambda src: (
+        {"params": v["params"], "batch_stats": v["batch_stats"], "ema_params": v["params"]},
+        {"model_cfg": jm.cfg, "epoch": 0}))
+    out = import_orbax.main([str(tmp_path / "jax"), str(tmp_path / "c3tr.pt")])
+    tree, meta = CK.load_checkpoint(out)
+    sd = CK.eval_state_dict(tree)
+    assert sd["model.3.m.pos"].shape == (1, 1, 64, 8) and "imgsz" not in meta
+    assert port_yolo.checkpoint_imgsz(meta["model_cfg"], sd, meta, 640) == 256
+    with pytest.raises(RuntimeError, match="pos"):
+        port_yolo.build_model(meta["model_cfg"], device="meta").load_state_dict(sd)
+    cfg = tmp_path / "c3tr.yaml"
+    cfg.write_text(yaml.safe_dump(meta["model_cfg"]))
+    seen = []
+    monkeypatch.setattr(port_detect, "run", lambda model, *a, **k: seen.append(model) or [])
+    port_detect.main(port_detect.parse_opt([
+        "--cfg", str(cfg), "--source", str(tmp_path), "--weights", str(out),
+        "--device", "cpu", "--dtype", "fp32"]))
+    assert seen[0].model[3].m.hw == (8, 8)
+    assert all(torch.equal(seen[0].state_dict()[k], t) for k, t in sd.items())

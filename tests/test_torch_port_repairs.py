@@ -3,8 +3,10 @@ cache, which must key on the label files and hold the rows before
 ``single_cls``; the detect CLI, which must read the port's own checkpoint
 format with its EMA parameters; the disk image cache, which must not hand
 out the resized shape as the native size when an image's ``.hw0.npy``
-sidecar is missing; and the RAM-cache guard, which must count images
-smaller than ``img_size`` at the size they are upscaled to.
+sidecar is missing; the RAM-cache guard, which must count images
+smaller than ``img_size`` at the size they are upscaled to; and the model
+size of a ``TransformerBlock`` model, which the driver and the val and
+detect CLIs must take from ``imgsz`` and the checkpoint, not fix at 640 px.
 """
 
 import builtins
@@ -185,3 +187,44 @@ def test_detect_refuses_a_bare_state_dict(monkeypatch, tmp_path, narrow_cfg,
     torch.save(narrow_model.state_dict(), tmp_path / "bare.pt")
     with pytest.raises(ValueError, match="not a checkpoint of this package"):
         _main(monkeypatch, narrow_cfg, tmp_path / "bare.pt", tmp_path)
+
+
+def _c3tr_cfg():
+    """A tiny v1 model with a ``C3TR`` (a ``TransformerBlock``, whose
+    position table serves one image size) at stride 32."""
+    return {"nc": 2, "depth_multiple": 1.0, "width_multiple": 1.0,
+            "anchors": [[10, 14, 23, 27, 37, 58], [81, 82, 135, 169, 344, 319]],
+            "backbone": [[-1, 1, "Conv_1", [8, 3, 4]], [-1, 1, "BasicBlock_2", [16, 3, 4]],
+                         [-1, 1, "BasicBlock_2", [16, 3, 2]]],
+            "head": [[-1, 1, "C3TR", [16]], [[1, 3], 1, "Detect", ["nc", "anchors"]]]}
+
+
+def test_a_transformer_model_trains_at_64_px_and_both_clis_serve_it(tmp_path):
+    """The driver builds at ``min(imgsz, 256)`` (JAX's ``init`` size) and
+    records it; the val and detect CLIs build at the checkpoint's size.
+    Built at 640 px whatever ``imgsz`` said, the model raised at its first
+    64 px forward."""
+    from ecs_yolo_tpu_torch import val as port_val
+    from ecs_yolo_tpu_torch.train import driver as PDR
+    from ecs_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+
+    src = write_split(tmp_path / "s", sizes=[(64, 64), (48, 64)], nc=2)
+    cfg = tmp_path / "c3tr.yaml"
+    cfg.write_text(yaml.safe_dump(_c3tr_cfg()))
+    PDR.train(str(cfg), str(src), str(src), nc=2, epochs=1, batch_size=2, imgsz=64,
+              nbs=2, workers=0, save_dir=str(tmp_path / "run"), loggers_include=("csv",),
+              autoanchor=False, device="cpu")
+    weights = tmp_path / "run" / "weights" / "last.pt"
+    tree, meta = load_checkpoint(weights)
+    assert meta["imgsz"] == 64 and tree["model"]["model.3.m.pos"].shape == (1, 1, 4, 8)
+    data = tmp_path / "data.yaml"
+    data.write_text(yaml.safe_dump(dict(path=str(tmp_path / "s"), val="images", nc=2)))
+    res = port_val.main(port_val.parse_opt([
+        "--weights", str(weights), "--cfg", str(cfg), "--data", str(data), "--imgsz", "64",
+        "--batch-size", "2", "--workers", "0", "--device", "cpu", "--dtype", "fp32"]))
+    assert "map50" in res
+    out = port_detect.main(port_detect.parse_opt([
+        "--cfg", str(cfg), "--nc", "2", "--source", str(src), "--imgsz", "64",
+        "--weights", str(weights), "--device", "cpu", "--dtype", "fp32",
+        "--save-dir", str(tmp_path / "det")]))
+    assert len(out) == 2

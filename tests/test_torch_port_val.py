@@ -11,6 +11,7 @@ test_torch_port_model.py); metrics are held to 1e-5, COCO boxes to 1e-2 px
 and scores to 1e-4, COCOeval numbers to 1e-6.
 """
 
+import functools
 import json
 from pathlib import Path
 
@@ -326,8 +327,9 @@ def test_dataset_label_cache_round_trip(tmp_path):
 
 @pytest.mark.parametrize("what", ["quad", "host_shard", "SegmentDataset"])
 def test_train_half_of_the_dataset_is_refused(what, tmp_path):
-    """What the port's dataset does not take: ``host_shard`` (not ported), a
-    quad collate of a batch not divisible by 4 (refused as JAX refuses it;
+    """What the port's dataset does not take: a ``host_shard`` world that does
+    not divide the batch (JAX's message; the shards themselves are held in
+    test_torch_port_parallel.py), a quad collate of a batch not divisible by 4 (refused as JAX refuses it;
     the collate itself is held to JAX's in test_torch_port_augment.py), and
     the quad collate of ``SegmentDataset``'s mask batches (the dataset
     itself is held to JAX's in test_torch_port_segment.py)."""
@@ -336,8 +338,8 @@ def test_train_half_of_the_dataset_is_refused(what, tmp_path):
         with pytest.raises(ValueError, match="quad"):
             next(PD.Dataset(src, img_size=64).batches(3, quad=True))
     elif what == "host_shard":
-        with pytest.raises(NotImplementedError, match="item 7"):
-            next(PD.Dataset(src, img_size=64).batches(4, host_shard=(0, 2)))
+        with pytest.raises(ValueError, match="global batch 3 not divisible by 2 hosts"):
+            next(PD.Dataset(src, img_size=64).batches(3, host_shard=(0, 2)))
     else:
         with pytest.raises(ValueError, match="quad"):
             next(PD.SegmentDataset(src, img_size=64).batches(4, quad=True))
@@ -383,13 +385,22 @@ def _narrow_res10():
     return d
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_model(ecs: bool, nc: int):
+    """The JAX model and its variables' abstract shapes: one ``jax.eval_shape``
+    for every test of this file that builds it."""
+    jm = jax_yolo.build_model(_narrow_res10(), nc=nc,
+                              snn=JaxSNNConfig(time_window=T, ecs=ecs))
+    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
+    return jm, jax.eval_shape(lambda: jm.module.init(jax.random.PRNGKey(0), x,
+                                                     training=False))
+
+
 def _model_pair(ecs: bool, seed: int, nc: int = 3):
     """(jax model, its variables, the port's model with the same weights)."""
     d = _narrow_res10()
-    jm = jax_yolo.build_model(d, nc=nc, snn=JaxSNNConfig(time_window=T, ecs=ecs))
-    x = jnp.zeros((1, 64, 64, 3), jnp.float32)
-    v = _random_variables(
-        lambda: jm.module.init(jax.random.PRNGKey(0), x, training=False), seed)
+    jm, shapes = _jax_model(ecs, nc)
+    v = _random_variables(None, seed, shapes)
     pm = port_yolo.build_model(d, nc=nc, snn=SNNConfig(time_window=T, ecs=ecs),
                                device="cpu")
     pm.load_state_dict(CV.convert(v["params"], v["batch_stats"], pm.spec), strict=True)
