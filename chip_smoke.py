@@ -136,6 +136,17 @@ the port's paths at full width with random weights from a seed:
   pass again with its weights folded (``--fuse``, phase ``val_fuse``),
   recorded beside the unfused one; and the metric half alone on a perfect
   detector;
+* export and the tools (phase ``tooling``): res10, plain-LIF res10
+  and res10-ee (b8 bf16) exported to TorchScript and ``torch.export``, each
+  artifact loaded back through ``backends.DetectMultiBackend`` bit-equal
+  to the eager model, its K1 / K6 / K2 launches counted through the
+  kernels' ``torch.library`` ops, every site held to its plain version on
+  its own input; eager / TorchScript / pt2 ms (TorchScript also under the
+  JIT's default fuser), the dispatcher's cost a call; ``hub.create(
+  autoshape=True)`` against ``detect.run``; ``val.run`` on the pt2 backend
+  against the native pass; firing rates, a profiler trace, ``autobatch``,
+  ``forward_augment``; two ``evolve`` generations; ``python -m
+  ecs_yolo_tpu_torch.tools export`` and ``firing-rate``;
 * the shared-state ECS-LIF kernel's own entry point,
   ``snn.fused.ecs_lif_fused_v2``, at the 24 site shapes of one res10@640
   forward (bf16, N=8), after its checks at every site shape against the
@@ -174,6 +185,7 @@ power limit, the ``{"kernels": ...}`` summary and ``{"ok": true, "device":
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import subprocess
@@ -3874,9 +3886,365 @@ def phase_parallel(seed: int, root: Path, log) -> dict:
     return out
 
 
+#: the tooling phase: (YAML, SNNConfig fields, the kernel counted, its
+#: launches a forward) of each exported model; res10-ee's stem site is K2's
+#: (ZOO_SITES), its other 21 sites K1's
+TOOL_MODELS = (("resnet10.yaml", {}, "ecs_lif_fused", 24),
+               ("resnet10.yaml", {"ecs": False}, "lif_fused", 24),
+               ("res10-ee.yaml", {}, "ecs_lif_fused_rows", 1))
+TOOL_IMAGES, TOOL_FORMATS, TOOL_WARM_CALLS = 16, ("torchscript", "pt2"), 3
+
+
+TOOLING_NOTE = ("tooling_launches_per_forward: one b8 bf16 forward at 640 px of each model of "
+                "the tooling phase (res10, plain-LIF res10, res10-ee) exported to TorchScript "
+                "and torch.export and loaded back through backends.DetectMultiBackend: the "
+                "kernel's launches through its torch.library op")
+
+
+def tooling_launches(tool: dict, kernel: str) -> dict:
+    """The launches of ``kernel`` in one forward of each exported artifact
+    of the tooling phase."""
+    return {tag: {fmt: tool[tag][fmt]["launches"][kernel] for fmt in TOOL_FORMATS}
+            for tag in ("resnet10", "resnet10-lif", "res10-ee")}
+
+
+def default_fuser_run(path, xb, want) -> dict:
+    """A TorchScript artifact loaded with ``torch.jit.load`` and run under
+    the JIT's default fuser (its elementwise chains fused after the profiled
+    runs; ``backends.DetectMultiBackend`` turns the fuser off): ms a forward
+    and its distance to the eager prediction ``want``."""
+    fused = torch.jit.load(str(path), map_location="cuda")
+    with torch.inference_mode():
+        for _ in range(TOOL_WARM_CALLS + 1):
+            got = fused(xb)
+        ms = cuda_ms(lambda: fused(xb), reps=5)
+    d = (got.float() - want.float()).abs()
+    return {"ms": ms, "bit_equal_to_eager": torch.equal(got, want),
+            "max_abs_diff_to_eager": float(d.max()),
+            "share_off_by_1e-2_rel": float((d > 1e-2 * (1 + want.float().abs())).float().mean())}
+
+
+def recorded_sites(K, FZ, plain_kernels, run):
+    """``run()`` with every kernel op's call held to its plain version on
+    the same input, whatever graph calls the op (eager, TorchScript,
+    ``torch.export``): the ops' implementations (``snn/ops.py`` looks them
+    up at each call) are wrapped for the call.  Returns (result, per site:
+    (implementation, act, spike mismatch share or SiLU error))."""
+    sites, real = [], {"run_k1": K.run_k1, "run_k2": FZ.run_k2, "run_k6": FZ.run_k6}
+
+    def wrap(name, mod):
+        impl = real[name]
+
+        def wrapped(x, *a):
+            out = impl(x, *a)
+            with plain_kernels():
+                want = impl(x, *a)
+            act = a[-1]
+            err = silu_err(out, want, x) if act else float((out != want).float().mean())
+            sites.append((name, act, err))
+            return out
+        setattr(mod, name, wrapped)
+
+    wrap("run_k1", K)
+    wrap("run_k2", FZ)
+    wrap("run_k6", FZ)
+    try:
+        return run(), sites
+    finally:
+        K.run_k1, FZ.run_k2, FZ.run_k6 = real["run_k1"], real["run_k2"], real["run_k6"]
+
+
+def phase_tooling(seed: int, root: Path, log) -> dict:
+    """Export, load-back and the observability tools (``export``,
+    ``backends``, ``hub``, ``autoshape``, ``observe``, ``utils/profiling``,
+    ``models/utils.autobatch`` / ``forward_augment``, ``train/evolve``,
+    ``tools``) at full width, 640 px, T=4:
+
+    * each model of ``TOOL_MODELS`` (BN calibrated, bf16, b8) exported to
+      TorchScript and ``torch.export``, loaded back through
+      ``DetectMultiBackend``: its prediction bit-equal to the eager
+      model's, its kernel's launches a forward from the op's counter, every
+      site held to its plain version on its own input (``recorded_sites``)
+      against the kernel gates; eager / TorchScript / pt2 ms a forward, and
+      a kernel op's call through the dispatcher against its implementation
+      called directly (host us a call);
+    * ``hub.create(autoshape=True)`` from a checkpoint: ``Detections`` on
+      each of four 640 x 640 synthetic images equal to ``detect.run``'s;
+    * ``val.run`` on the pt2 backend equal to the native pass (NMS outputs,
+      metrics);
+    * ``calculate_fr`` on the kernel route against the plain route, a
+      ``profiling.trace`` file naming K1's kernel (its events counted: the
+      profiler may drop a few of a forward's 24), ``autobatch`` at 640 and
+      a forward at its batch, ``forward_augment`` (float32) against the
+      plain route;
+    * two ``evolve`` generations of one epoch on ``TOOL_IMAGES`` images,
+      with their K4 / K5 launches;
+    * ``python -m ecs_yolo_tpu_torch.tools export`` and ``firing-rate``,
+      both at once."""
+    from PIL import Image
+
+    from ecs_yolo_tpu_torch import backends, detect as detect_mod, export, hub, observe
+    from ecs_yolo_tpu_torch import val as val_mod
+    from ecs_yolo_tpu_torch.config import SNNConfig
+    from ecs_yolo_tpu_torch.data.hyps import HYP_SCRATCH
+    from ecs_yolo_tpu_torch.models.utils import autobatch, forward_augment
+    from ecs_yolo_tpu_torch.models.yolo import build_model, cast_params
+    from ecs_yolo_tpu_torch.nn.blocks import _BN
+    from ecs_yolo_tpu_torch.snn import ecs_lif as K
+    from ecs_yolo_tpu_torch.snn import fused as FZ
+    from ecs_yolo_tpu_torch.snn import ops
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.train import driver
+    from ecs_yolo_tpu_torch.train.evolve import evolve
+    from ecs_yolo_tpu_torch.utils import profiling
+    from ecs_yolo_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_phase = time.perf_counter()
+    reset, read = launch_counters()
+    root.mkdir(parents=True, exist_ok=True)
+    imgs = root / "images"
+    imgs.mkdir()
+    rng = np.random.RandomState(seed + 500)
+    for i in range(4):
+        Image.fromarray((rng.rand(IMGSZ, IMGSZ, 3) * 255).astype(np.uint8)).save(
+            imgs / f"{i}.png")
+    val_src = write_val_set(root / "val", seed + 501, TOOL_IMAGES)
+    xb = torch.from_numpy(np.concatenate(
+        [im for _, im, _ in detect_mod.LoadImages(str(imgs), IMGSZ)] * 2)).cuda()
+    out, gates = {}, []
+
+    # --- export and load back ---------------------------------------------------
+    for j, (cfg, fields, kernel, per_forward) in enumerate(TOOL_MODELS):
+        tag = cfg.split(".")[0] + ("-lif" if fields else "")
+        model = build_model(cfg, nc=NC, snn=SNNConfig(**fields),
+                            generator=torch.Generator().manual_seed(seed + 510 + j))
+        calibrate_bn(model, xb, _BN)
+        state32 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        cast_params(model, torch.bfloat16)
+        fwd = export.ExportForward(model).eval()
+        t0 = time.perf_counter()
+        paths = export.run(model, TOOL_FORMATS, root / tag, imgsz=IMGSZ, batch=N)
+        rec = {"phase": "tooling_export", "model": tag, "export_seconds":
+               time.perf_counter() - t0, "kernel": kernel}
+        with torch.no_grad():
+            reset()
+            want = fwd(xb)
+            torch.cuda.synchronize()
+            rec["eager_launches"] = read()
+            rec["eager_ms"] = cuda_ms(lambda: fwd(xb), reps=5)
+        for fmt in TOOL_FORMATS:
+            b = backends.DetectMultiBackend(paths[fmt])
+            first = b.forward(xb)
+            for _ in range(TOOL_WARM_CALLS):    # TorchScript optimises after its profiled runs
+                b.forward(xb)
+            reset()
+            got = b.forward(xb)
+            torch.cuda.synchronize()
+            launches = read()
+            _, sites = recorded_sites(K, FZ, plain_kernels, lambda: b.forward(xb))
+            spikes = [e for _, act, e in sites if not act]
+            silu = [e for _, act, e in sites if act]
+            rec[fmt] = {"bit_equal_to_eager": torch.equal(got, want),
+                        "first_call_bit_equal_to_eager": torch.equal(first, want),
+                        "launches": launches, "op_calls": len(sites),
+                        "worst_site_mismatch_share": max(spikes, default=0.0),
+                        "worst_silu_err": max(silu, default=0.0),
+                        "ms": cuda_ms(lambda: b.forward(xb), reps=5)}
+            # a pure op called twice on the same arguments may run once: TorchScript's
+            # common-subexpression pass merges the plain-LIF sites that share an input
+            # (no spread parameters tell them apart); every other artifact launches
+            # what the eager forward launches
+            merged = fmt == "torchscript" and not fields.get("ecs", True)
+            count_ok = (0 < launches[kernel] <= per_forward if merged else
+                        launches == rec["eager_launches"] and launches[kernel] == per_forward)
+            if fmt == "torchscript" and j == 0:    # the artifact under the JIT's default fuser
+                rec["torchscript_default_fuser"] = default_fuser_run(paths[fmt], xb, want)
+            gates.append((tag, fmt, rec[fmt]["bit_equal_to_eager"]
+                          and rec[fmt]["first_call_bit_equal_to_eager"] and count_ok
+                          and sum(launches.values()) == len(sites)
+                          and all(launches[k] <= v for k, v in rec["eager_launches"].items())
+                          and sites_ok(spikes, silu, torch.bfloat16)))
+        emit(rec, log)
+        out[tag] = rec
+        if j == 0:
+            res10 = (model, state32, paths)
+        else:
+            del model
+    failed = [g[:2] for g in gates if not g[2]]
+    if failed:
+        raise AssertionError(f"tooling: exported artifacts failed their checks: {failed}")
+    model, state32, paths = res10
+
+    # the dispatcher's cost: one site's op call against its implementation
+    x = torch.zeros((T, 1, 8, 8, 64), dtype=torch.bfloat16, device="cuda")
+    params = [torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+              for shape in ((3, 3, 1, 64), (64,), (1, 1, 64, 64), (64,))]
+    cfg_args = ops.cfg_args(SNNConfig())
+    via_op = functools.partial(ops.ecs_lif, x, *params, *cfg_args, False)
+    direct = functools.partial(K.run_k1, x, *params, SNNConfig(), False)
+    turns = []
+    with torch.no_grad():
+        for name, call in (("op", via_op), ("direct", direct), ("direct", direct),
+                           ("op", via_op)):
+            turns.append((name, wall_ms(call, 400) * 1e3))
+    op_us = sum(t for n, t in turns if n == "op") / 2
+    direct_us = sum(t for n, t in turns if n == "direct") / 2
+    rec = {"phase": "tooling_dispatch", "site": list(x.shape), "turns_us_per_call": turns,
+           "op_us_per_call": op_us, "direct_us_per_call": direct_us,
+           "dispatcher_us_per_call": op_us - direct_us,
+           "dispatcher_us_per_res10_forward": 24 * (op_us - direct_us),
+           "res10_eager_ms": out["resnet10"]["eager_ms"],
+           "res10_images_per_s": N / out["resnet10"]["eager_ms"] * 1e3}
+    emit(rec, log)
+    out["dispatch"] = rec
+
+    ckpt = save_checkpoint(root / "res10.pt", state32, None, {"imgsz": IMGSZ})
+    # --- hub / AutoShape against detect.run ------------------------------------
+    shaped = hub.create("resnet10.yaml", str(ckpt), nc=NC, autoshape=True, imgsz=IMGSZ)
+    cast_params(shaped.model, torch.bfloat16)
+    reset()
+    dets = [shaped(str(p)) for p in sorted(imgs.glob("*.png"))]
+    k1_auto = read()["ecs_lif_fused"]
+    ref = detect_mod.run(shaped.model, str(imgs), imgsz=IMGSZ)
+    rec = {"phase": "tooling_autoshape", "images": len(dets),
+           "detections": [len(d.pred[0]) for d in dets], "k1_launches": k1_auto,
+           "equal_to_detect_run": len(dets) == len(ref) == 4 and all(
+               np.array_equal(d.pred[0], r[1]) for d, r in zip(dets, ref))}
+    emit(rec, log)
+    out["autoshape"] = rec
+    if not rec["equal_to_detect_run"] or k1_auto != 24 * 4:
+        raise AssertionError(f"tooling: AutoShape differs from detect.run: {rec}")
+
+    # --- val.run on the pt2 backend against the native pass ---------------------
+    metrics = ("mp", "mr", "map50", "map", "fitness", "seen")
+    res_n, outs_n = recorded_nms(val_mod, lambda: val_mod.run(
+        model, str(val_src), imgsz=IMGSZ, batch_size=N))
+    reset()
+    res_b, outs_b = recorded_nms(val_mod, lambda: val_mod.run(
+        backends.DetectMultiBackend(paths["pt2"]), str(val_src), imgsz=IMGSZ, batch_size=N))
+    k1_val = read()["ecs_lif_fused"]
+    rec = {"phase": "tooling_val", "images": TOOL_IMAGES, "native": {k: res_n[k] for k in metrics},
+           "pt2": {k: res_b[k] for k in metrics}, "forwards": len(outs_b), "k1_launches": k1_val,
+           "equal": all(res_n[k] == res_b[k] for k in metrics) and len(outs_n) == len(outs_b)
+           and all(torch.equal(a, c) and torch.equal(b, d)
+                   for (a, b), (c, d) in zip(outs_n, outs_b))}
+    emit(rec, log)
+    out["val"] = rec
+    if not rec["equal"] or k1_val != 24 * len(outs_b):
+        raise AssertionError(f"tooling: val.run on the pt2 backend differs: {rec}")
+
+    # --- observability -----------------------------------------------------------
+    batches = [(xb[:4].cpu().numpy(),), (xb[4:].cpu().numpy(),)]
+    reset()
+    rates = observe.calculate_fr(model, batches)
+    k1_fr = read()["ecs_lif_fused"]
+    with plain_kernels():
+        rates_p = observe.calculate_fr(model, batches)
+    with profiling.trace(root / "trace") as trace_path, torch.no_grad():
+        model(xb)
+    events = json.loads(trace_path.read_text()).get("traceEvents", [])
+    k1_events = sum(1 for e in events if "ecs_lif_kernel" in str(e.get("name", "")))
+    t0 = time.perf_counter()
+    best = autobatch(model, imgsz=IMGSZ)
+    with torch.no_grad():
+        z = model(torch.zeros((best, IMGSZ, IMGSZ, 3), device="cuda"))[0]
+    autobatch_s = time.perf_counter() - t0
+    cast_params(model, torch.float32)
+    model.load_state_dict(state32)
+    xa = xb[:2].float()
+    za = forward_augment(model, xa)
+    with plain_kernels():
+        za_p = forward_augment(model, xa)
+    d = (za - za_p).abs()
+    rec = {"phase": "tooling_observe", "rate_sites": len(rates), "k1_launches": k1_fr,
+           "rates_max_abs_diff_vs_plain": max(abs(rates[k] - rates_p[k]) for k in rates),
+           "rates_keys_equal": sorted(rates) == sorted(rates_p),
+           "mean_rate": float(np.mean(list(rates.values()))),
+           "trace_file": trace_path.name, "trace_k1_events": k1_events,
+           "autobatch": best, "autobatch_forward_finite": bool(torch.isfinite(z).all()),
+           "autobatch_seconds": autobatch_s,
+           "forward_augment_shape": list(za.shape),
+           "forward_augment_share_off_by_1e-3_rel": float(
+               (d > 1e-3 * (1 + za_p.abs())).float().mean()),
+           "forward_augment_max_abs_err": float(d.max())}
+    emit(rec, log)
+    out["observe"] = rec
+    if (not rec["rates_keys_equal"] or len(rates) != 24 or k1_fr != 48
+            or rec["rates_max_abs_diff_vs_plain"] > SPIKE_BOUND[torch.bfloat16]
+            or not k1_events or best < 1 or not rec["autobatch_forward_finite"]
+            or not torch.isfinite(za).all()
+            or rec["forward_augment_share_off_by_1e-3_rel"] > 1e-3):
+        raise AssertionError(f"tooling: the observability checks failed: {rec}")
+    del model, res10, xb
+
+    # --- two evolve generations -----------------------------------------------------
+    gens = []
+
+    def train_fn(h):
+        reset()
+        t0 = time.perf_counter()
+        _, best_fit, hist = driver.train(
+            "resnet10.yaml", str(val_src), str(val_src), nc=NC, hyp=h, epochs=1,
+            batch_size=N, imgsz=IMGSZ, nbs=N, bf16=True, seed=seed, workers=4,
+            autoanchor=False, loggers_include=("csv",),
+            save_dir=str(root / "evolve" / f"gen{len(gens)}"))
+        torch.cuda.synchronize()
+        gens.append({"fitness": best_fit, "micro_steps": hist[-1]["micro_steps"],
+                     "seconds": time.perf_counter() - t0, "launches": read()})
+        return best_fit
+
+    best_hyp = evolve(train_fn, dict(HYP_SCRATCH), generations=2, save_dir=root / "evolve",
+                      seed=seed)
+    rows = [r.split(",") for r in (root / "evolve" / "evolve.csv").read_text().splitlines()]
+    rec = {"phase": "tooling_evolve", "generations": gens, "csv_rows": len(rows) - 1,
+           "mutated_in_generation_1": sorted(k for k, a, b in zip(rows[0], rows[1], rows[2])
+                                             if k != "fitness" and a != b),
+           "best_fitness": max(g["fitness"] for g in gens), "best_hyp_is_base":
+           best_hyp == dict(HYP_SCRATCH)}
+    emit(rec, log)
+    out["evolve"] = rec
+    if len(rows) != 3 or not rec["mutated_in_generation_1"] or any(
+            g["launches"]["binary_dw3_conv"] != 57 * g["micro_steps"]
+            or g["launches"]["packed_spread"] != 15 * g["micro_steps"] for g in gens):
+        raise AssertionError(f"tooling: evolve failed its checks: {rec}")
+
+    # --- the tools CLI, both commands at once -------------------------------------
+    t_cli = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    cli = [sys.executable, "-m", "ecs_yolo_tpu_torch.tools"]
+    cmds = {"export": cli + ["export", "--cfg", "resnet10.yaml", "--nc", str(NC), "--imgsz",
+                             str(IMGSZ), "--include", "torchscript", "--out",
+                             str(root / "cli_export")],
+            "firing-rate": cli + ["firing-rate", "--weights", str(ckpt), "--cfg",
+                                  "resnet10.yaml", "--nc", str(NC), "--data",
+                                  str(val_src), "--imgsz", str(IMGSZ), "--batches", "2",
+                                  "--out", str(root / "cli_fr")]}
+    procs = {k: subprocess.Popen(c, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True) for k, c in cmds.items()}
+    try:
+        done = {}
+        for k, p in procs.items():
+            o, e = p.communicate(timeout=300)
+            done[k] = {"rc": p.returncode, "stdout_tail": o[-300:], "stderr_tail": e[-300:]}
+    finally:        # whatever failed, no command outlives the phase
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rec = {"phase": "tooling_cli", "commands": done, "seconds": time.perf_counter() - t_cli,
+           "exported": (root / "cli_export" / "model.torchscript").is_file(),
+           "rates_saved": (root / "cli_fr" / "fr_firerate.npy").is_file(),
+           "phase_seconds": time.perf_counter() - t_phase}
+    emit(rec, log)
+    out["cli"] = rec
+    if any(v["rc"] != 0 for v in done.values()) or not rec["exported"] or not rec["rates_saved"]:
+        raise AssertionError(f"tooling: the tools CLI failed: {rec}")
+    return out
+
+
 #: the phases in their order; those of SET_PHASES share the synthetic sets
 SET_PHASES = ("train_run", "train_opts", "heads", "events", "segment", "zoo", "rtdetr_nms",
-              "parallel")
+              "parallel", "tooling")
 PHASES = ("serve", "train", *SET_PHASES, "val", "k3_path", "bench")
 
 
@@ -4071,7 +4439,8 @@ def main(argv=None) -> int:
                 "segment": lambda: phase_segment(opt.seed, Path(sets) / "segment", log),
                 "zoo": lambda: phase_zoo(opt.seed, Path(sets) / "zoo", log),
                 "rtdetr_nms": lambda: phase_rtdetr_nms(opt.seed, log),
-                "parallel": lambda: phase_parallel(opt.seed, Path(sets) / "parallel", log)}
+                "parallel": lambda: phase_parallel(opt.seed, Path(sets) / "parallel", log),
+                "tooling": lambda: phase_tooling(opt.seed, Path(sets) / "tooling", log)}
             done = {}
             for name in SET_PHASES:
                 if name in sel:
@@ -4131,6 +4500,8 @@ def main(argv=None) -> int:
             zoo_detect_launches={c: zoo["models"][c]["detect_launches"]["ecs_lif_fused"]
                                  for c in ZOO_DETECT_CFGS},
             parallel_val_launches=done["parallel"]["val"]["k1_launches"],
+            tooling_launches_per_forward=tooling_launches(done["tooling"], "ecs_lif_fused"),
+            tooling_note=TOOLING_NOTE,
             zoo_note=f"zoo_*: the {len(ZOO_SITES)} YAMLs and the {len(PROBES)} probe models "
                      f"({', '.join(PROBES)}) of the zoo phase at 640 px, one forward each "
                      f"(b{N} for the YAMLs of {', '.join(ZOO_TIMED)}, else b{ZOO_BATCH}), "
@@ -4207,6 +4578,8 @@ def main(argv=None) -> int:
                  f"launches over the {VAL_IMAGES // N} forwards of the val pass; ms "
                  "is the device time of lif_fused from calls replayed in a CUDA "
                  "graph, wrapper_ms the same calls eager",
+            tooling_launches_per_forward=tooling_launches(done["tooling"], "lif_fused"),
+            tooling_note=TOOLING_NOTE,
             events_launches_per_forward=events["forward_plain_lif"]["k6_launches"],
             events_ms=events["k6"].ms, events_plain_ms=events["k6"].plain_ms,
             events_bound_ms=events["k6"].bound_ms,
@@ -4241,6 +4614,8 @@ def main(argv=None) -> int:
                  f"fused_inference, N={N}, T={T}, bf16 (the site behind the stem "
                  "reads a broadcast x); launches over the "
                  f"{VAL_IMAGES // N} forwards of the val pass",
+            tooling_launches_per_forward=tooling_launches(done["tooling"], "ecs_lif_fused_rows"),
+            tooling_note=TOOLING_NOTE,
             zoo_launches_per_forward=zoo_launches(zoo, "ecs_lif_fused_rows"),
             zoo_stem_site=zoo_sites_sum([zoo["stem"]]),
             zoo_note="zoo_*: the first K2 site on a model path, the neuron on the raw "

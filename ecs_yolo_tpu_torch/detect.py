@@ -22,6 +22,7 @@ the one2many map list to NMS; the port does not copy that.
 from __future__ import annotations
 
 import argparse
+import functools
 from pathlib import Path
 from typing import List, Optional
 
@@ -87,19 +88,28 @@ def run(
     names: Optional[List[str]] = None,
 ):
     """Returns ``[(path, detections [n, 6] native xyxy/conf/cls)]``, one per
-    image.  ``model`` is a built ``DetectionModel``; it runs in eval mode on
-    its own device and dtype."""
+    image.  ``model`` is a built ``DetectionModel``, which runs in eval mode
+    on its own device and dtype, or a ``backends.DetectMultiBackend``
+    wrapping an exported artifact (reference detect.py:97)."""
     from .models.yolo import head_predictions
 
-    model.eval()
-    device = next(model.parameters()).device
-    head = model.head_info["name"]
+    if hasattr(model, "predict"):
+        from .backends import backend_predictions
+
+        device, head = model.device, model.head_name
+        predict = functools.partial(backend_predictions, model)
+    else:
+        model.eval()
+        device = next(model.parameters()).device
+        head = model.head_info["name"]
+
+        def predict(x):
+            return head_predictions(head, model(x), model.head_info["nc"])
     if save_dir:
         Path(save_dir).mkdir(parents=True, exist_ok=True)
     results = []
     for path, im, im0 in LoadImages(source, img_size=imgsz):
-        pred = head_predictions(head, model(torch.from_numpy(im).to(device)),
-                                model.head_info["nc"])
+        pred = predict(torch.from_numpy(im).to(device))
         out, valid = non_max_suppression(
             pred, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
             has_obj=head == "Detect")

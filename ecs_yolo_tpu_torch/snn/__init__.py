@@ -17,7 +17,9 @@ wrapper                              source                   TPU kernel it repl
 ===================================  =======================  ==============================================
 
 The first three are the eval routes of a neuron site (``nn/blocks.MemUpdate``
-chooses); ``ecs_lif_fused_v2`` computes the second's function in the first's
+chooses), and each wrapper calls its kernel through a ``torch.library``
+custom op (``ops.py``: ``ecs_yolo_torch::ecs_lif``, ``::ecs_lif_rows``,
+``::lif``), so that a traced or exported model runs the same kernels; ``ecs_lif_fused_v2`` computes the second's function in the first's
 launch design, with the recurrence's state in the block's shared memory
 where it fits (float32), and, as in the JAX package, is reached only through its own
 entry point; the last two run the spread inside the training T-loop.  The

@@ -16,9 +16,11 @@ of items for the whole launch (:func:`k1_block_items`).
 :func:`k1_grid_walk_reference` walks a plan in plain PyTorch, step by step,
 item by item and K-chunk by K-chunk, for the CPU tests.
 
-The wrapper takes the plain loop (``snn/neuron.ecs_lif_scan``) for a tensor
-on the CPU or inside ``route.plain_kernels()``, and only then.  For a CUDA
-tensor it launches the kernel or raises.  Its ctypes entry is bound once,
+The wrapper calls the op ``torch.ops.ecs_yolo_torch.ecs_lif``
+(``snn/ops.py``), whose implementation (:func:`run_k1`) takes the plain loop
+(``snn/neuron.ecs_lif_scan``) for a tensor on the CPU or inside
+``route.plain_kernels()``, and only then.  For a CUDA tensor it launches the
+kernel or raises.  Its ctypes entry is bound once,
 the plan, the occupancy and the rounded constants are cached, and no
 parameter is copied where its dtype matches x's: the kernel reads the
 weights through their strides.  ``ecs_lif_fused.launches`` counts the
@@ -37,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import SNNConfig
+from . import ops
 from .neuron import _const, ecs_lif_scan, make_spread
 from .route import use_kernel
 from .spread import _entry, _sms, _stream
@@ -249,6 +252,15 @@ def check_params(x, dw_kernel, dw_bias, pw_kernel, pw_bias,
         raise ValueError("one image of x must hold fewer than 2^31 elements")
 
 
+def _start_address(x: torch.Tensor) -> int:
+    """Where x starts: its address, or for a tensor without storage (an
+    exporter's fake tensor) its offset into a storage the allocator aligns."""
+    try:
+        return x.data_ptr()
+    except RuntimeError:
+        return x.storage_offset() * x.element_size()
+
+
 def layout_refusal(x: torch.Tensor) -> Optional[str]:
     """Why this kernel does not take the layout of ``x`` ``[T, N, H, W, C]``,
     or None when it does.  It reads 16-byte groups of eight channels, so it
@@ -264,7 +276,7 @@ def layout_refusal(x: torch.Tensor) -> Optional[str]:
         return f"x's T stride must be 0 or N*H*W*C, got {x.stride(0)}"
     if c % 8:
         return f"the kernel takes C % 8 == 0, got C={c}"
-    if x.device.type == "cuda" and x.data_ptr() % 16:
+    if x.device.type == "cuda" and _start_address(x) % 16:
         return "x must start on a 16-byte boundary"
     if x.dtype in DTYPE_CODES:
         try:
@@ -365,7 +377,20 @@ def ecs_lif_fused(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
     ``dw_bias`` ``[C]``, ``pw_kernel`` ``[1, 1, C, C]``, ``pw_bias`` ``[C]``;
     they are cast to x's dtype (no copy where they have it) and read through
     their strides.  x's T axis may be a broadcast (stride 0).
+
+    The call goes through the op ``torch.ops.ecs_yolo_torch.ecs_lif``
+    (``snn/ops.py``), whose implementation is :func:`run_k1`; a tensor on
+    another device than CUDA or the CPU is refused here.
     """
+    use_kernel(x)
+    return ops.ecs_lif(x, dw_kernel, dw_bias, pw_kernel, pw_bias, *ops.cfg_args(cfg), act)
+
+
+def run_k1(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
+           act: bool = False) -> torch.Tensor:
+    """The op's implementation: the plain version for a CPU tensor or inside
+    ``plain_kernels()``, else K1's launch, counted in
+    ``ecs_lif_fused.launches``."""
     if not use_kernel(x):
         return ecs_lif_reference(x, dw_kernel, dw_bias, pw_kernel, pw_bias,
                                  cfg, act)

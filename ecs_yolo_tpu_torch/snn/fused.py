@@ -21,7 +21,10 @@ Counterpart of ``ecs_yolo_tpu/snn/pallas_kernels.py``:
 All are forward-only, as their TPU kernels: training and autograd keep the
 T-loops of ``snn/neuron.py``.
 
-Each wrapper takes its plain version for a tensor on the CPU or inside
+``lif_fused`` and ``ecs_lif_fused_rows`` call their ops
+(``torch.ops.ecs_yolo_torch.lif`` and ``.ecs_lif_rows``, ``snn/ops.py``),
+whose implementations are :func:`run_k6` and :func:`run_k2`; K3 is called
+directly.  Each takes its plain version for a tensor on the CPU or inside
 ``route.plain_kernels()``, and only then.  For a CUDA tensor it launches its
 kernel or raises.  ``lif_fused.launches``, ``ecs_lif_fused_rows.launches``
 and ``ecs_lif_fused_v2.launches`` count the launches.
@@ -42,6 +45,7 @@ from ..config import SNNConfig
 from .ecs_lif import (DTYPE_CODES, K1_SLICES, K1_TILE, SMEM_PER_BLOCK, _barrier, _consts,
                       _fail_on, _occupancy, _pw_vec, check_params, k1_block_items,
                       k1_smem, k1_window)
+from . import ops
 from .neuron import _const, lif_scan
 from .route import use_kernel
 from .spread import _entry, _sms, _stream
@@ -72,7 +76,17 @@ def _lif_consts(dtype: torch.dtype, thresh: float, decay: float):
 def lif_fused(x: torch.Tensor, cfg: SNNConfig, act: bool = False) -> torch.Tensor:
     """Plain-LIF spikes of ``x`` ``[T, ...]`` (float32 or bfloat16), any
     shape behind T.  The dims behind T must be dense; the T axis may be a
-    broadcast (stride 0)."""
+    broadcast (stride 0).  The call goes through the op
+    ``torch.ops.ecs_yolo_torch.lif`` (``snn/ops.py``), whose implementation
+    is :func:`run_k6`."""
+    use_kernel(x)
+    return ops.lif(x, *ops.cfg_args(cfg), act)
+
+
+def run_k6(x: torch.Tensor, cfg: SNNConfig, act: bool = False) -> torch.Tensor:
+    """The op's implementation: the plain version for a CPU tensor or inside
+    ``plain_kernels()``, else K6's launch, counted in
+    ``lif_fused.launches``."""
     if not use_kernel(x):
         return lif_reference(x, cfg, act)
     if x.dim() < 2:
@@ -325,7 +339,20 @@ def ecs_lif_fused_rows(x, dw_kernel, dw_bias, pw_kernel, pw_bias,
     they are cast to x's dtype (no copy where they have it) and read through
     their strides.  The update of ``ecs`` after the last step, which the TPU
     kernel computes and nobody observes, is skipped.
+
+    The call goes through the op ``torch.ops.ecs_yolo_torch.ecs_lif_rows``
+    (``snn/ops.py``), whose implementation is :func:`run_k2`.
     """
+    use_kernel(x)
+    return ops.ecs_lif_rows(x, dw_kernel, dw_bias, pw_kernel, pw_bias,
+                            *ops.cfg_args(cfg), act)
+
+
+def run_k2(x, dw_kernel, dw_bias, pw_kernel, pw_bias, cfg: SNNConfig,
+           act: bool = False) -> torch.Tensor:
+    """The op's implementation: the plain version for a CPU tensor or inside
+    ``plain_kernels()``, else K2's launch, counted in
+    ``ecs_lif_fused_rows.launches``."""
     if not use_kernel(x):
         return ecs_lif_rows_reference(x, dw_kernel, dw_bias, pw_kernel,
                                       pw_bias, cfg, act)

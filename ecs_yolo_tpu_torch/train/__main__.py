@@ -20,8 +20,10 @@ The flags are ``train.py``'s; the data and hyp YAMLs are read the same way
 (``path``/``train``/``val``/``nc``; ``close_mosaic`` popped from the hyp).
 ``--device`` names a torch device and defaults to the CUDA card.
 ``--single-cls`` also reaches the datasets (see ``train/driver.py``).
-``--evolve`` is not ported yet and raises ``NotImplementedError`` naming
-its ROADMAP item.
+``--evolve N`` runs the hyp GA of ``train/evolve.py`` for N generations,
+one ``train()`` run each with val on (the train split where ``--noval``),
+its fitness the run's best val fitness; the best hyps go to
+``{project}/{name}/hyp_evolve.yaml``.
 
 On several GPUs, one process each, launched by torchrun (its ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT`` join the
@@ -98,7 +100,7 @@ def parse_opt(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device; the CUDA card when omitted")
     p.add_argument("--evolve", type=int, nargs="?", const=300, default=0,
-                   help="not ported yet")
+                   help="evolve the hyps for N generations (train/evolve.py)")
     p.add_argument("--events", action="store_true",
                    help="train from pre-voxelized event samples "
                         "(reference g1-resnet/train_g1.py)")
@@ -111,9 +113,6 @@ def main(opt):
     from ..utils.general import LOGGER
     from .driver import train
 
-    if opt.evolve:
-        raise NotImplementedError("--evolve (train/evolve.py) is not ported yet "
-                                  "(ROADMAP Queue 1 item 13)")
     if opt.local_rank is not None:
         os.environ.setdefault("LOCAL_RANK", str(opt.local_rank))
     device = opt.device
@@ -130,19 +129,17 @@ def main(opt):
             hyp = yaml.safe_load(fh)
     close_mosaic = int(hyp.pop("close_mosaic", 0)) if hyp else 0
     LOGGER.info(f"train: cfg={opt.cfg} data={opt.data} nc={data['nc']}")
-    return train(
+    kwargs = dict(
         cfg=opt.cfg,
         train_path=str(train_path),
         val_path=str(val_path) if val_path else None,
         nc=1 if opt.single_cls else data["nc"],
-        hyp=hyp,
         epochs=opt.epochs,
         batch_size=opt.batch_size,
         imgsz=opt.imgsz,
         optimizer=opt.optimizer,
         cos_lr=not opt.linear_lr,
         patience=opt.patience,
-        save_dir=f"{opt.project}/{opt.name}",
         max_labels=opt.max_labels,
         close_mosaic=close_mosaic,
         seed=opt.seed,
@@ -166,6 +163,24 @@ def main(opt):
         single_cls=opt.single_cls,
         device=device,
     )
+    if opt.evolve:
+        # the GA over the hyp space (reference train.py --evolve): the
+        # fitness of a generation is its run's best val fitness
+        from ..data.hyps import HYP_SCRATCH
+        from .evolve import evolve
+
+        if kwargs["val_path"] is None:
+            kwargs["val_path"] = kwargs["train_path"]
+
+        def train_fn(h):
+            return train(hyp=h, save_dir=f"{opt.project}/{opt.name}/gen", **kwargs)[1]
+
+        best = evolve(train_fn, {**HYP_SCRATCH, **hyp}, generations=opt.evolve,
+                      save_dir=f"{opt.project}/{opt.name}", seed=opt.seed)
+        with open(Path(opt.project) / opt.name / "hyp_evolve.yaml", "w") as fh:
+            yaml.safe_dump(best, fh)
+        return best
+    return train(hyp=hyp, save_dir=f"{opt.project}/{opt.name}", **kwargs)
 
 
 if __name__ == "__main__":

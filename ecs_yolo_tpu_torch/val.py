@@ -31,8 +31,9 @@ not sharded).  ``python -m torch.distributed.run --nproc_per_node=N -m
 ecs_yolo_tpu_torch.val ...`` runs the CLI so.
 
 Not carried over from the JAX ``run``: ``fuse_post``, ``chain_batches`` and
-``jit_cache`` (devices of the TPU's dispatch), and the exported-backend
-branch (``variables is None``).
+``jit_cache`` (devices of the TPU's dispatch).  The exported-backend branch
+(JAX: ``variables is None``) is a ``backends.DetectMultiBackend`` passed as
+the model: its prediction, on its device, goes to the same NMS.
 
 Every detection head is served as the JAX ``run`` serves it: NMS takes the
 decoded one2one branch of ``v10Detect`` and ``ASFF_v10Detect``, else the
@@ -48,6 +49,7 @@ size = canvas, no letterbox, image ids 1, 2, ... in order.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -198,8 +200,9 @@ def run(
     detection; with ``save_json`` + ``anno_json`` also a ``coco`` sub-dict
     from COCOeval.
 
-    ``model`` is a built ``DetectionModel`` with its weights loaded; it runs
-    in eval mode where it lies.  ``device`` and ``dtype``, when given, move
+    ``model`` is a built ``DetectionModel`` with its weights loaded, which
+    runs in eval mode where it lies, or a ``backends.DetectMultiBackend``
+    (an exported artifact), which runs on its own device and dtype.  ``device`` and ``dtype``, when given, move
     it there and cast its parameters first (BN statistics stay float32).
     ``speed`` is (pre-process, inference, NMS) in ms per image seen, each
     phase closed by a ``torch.cuda.synchronize()`` on the card.
@@ -222,15 +225,26 @@ def run(
     per = batch_size // shard[1]
     lo = shard[0] * per
 
-    if device is not None:
-        model.to(torch.device(device))
-    if dtype is not None:
-        cast_params(model, dtype)
-    model.eval()
-    dev = next(model.parameters()).device
+    if hasattr(model, "predict"):
+        # an exported artifact or checkpoint behind backends.DetectMultiBackend
+        # (JAX's run with variables None): it serves on its own device/dtype
+        from .backends import backend_predictions
+
+        dev, head = model.device, model.head_name
+        predict = functools.partial(backend_predictions, model)
+    else:
+        if device is not None:
+            model.to(torch.device(device))
+        if dtype is not None:
+            cast_params(model, dtype)
+        model.eval()
+        dev = next(model.parameters()).device
+        head = model.head_info["name"]
+
+        def predict(x):
+            return head_predictions(head, model(x), model.head_info["nc"])
     ds = dataset or Dataset(data_path, img_size=imgsz, augment=False,
                             max_labels=max_labels, uint8_out=True)
-    head = model.head_info["name"]
     has_obj = head == "Detect"
     acc = MetricAccumulator(ds, save_json, coco91)
     dt = [0.0, 0.0, 0.0]
@@ -262,7 +276,7 @@ def run(
             if x.dtype == torch.uint8:
                 x = x.float() / 255.0
             t1 = clock()
-            pred = head_predictions(head, model(x), model.head_info["nc"])
+            pred = predict(x)
             t2 = clock()
             out, valid = non_max_suppression(
                 pred, conf_thres=conf_thres, iou_thres=iou_thres,

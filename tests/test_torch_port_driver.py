@@ -642,5 +642,8 @@ def test_training_needs_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PDR.train(_narrow("resnet10.yaml"), tmp_path, save_dir=str(tmp_path / "r"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PCLI.main(PCLI.parse_opt(["--evolve", "3"]))
+    # the GA's generations train too
+    data = tmp_path / "data.yaml"
+    data.write_text(f"path: {tmp_path}\ntrain: images\nnc: 2\n")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PCLI.main(PCLI.parse_opt(["--evolve", "3", "--data", str(data), "--hyp", ""]))

@@ -28,6 +28,7 @@ from ecs_yolo_tpu_torch.config import SNNConfig
 from ecs_yolo_tpu_torch.nn import blocks as PB
 from ecs_yolo_tpu_torch.snn import ecs_lif as K1
 from ecs_yolo_tpu_torch.snn import fused as FZ
+from ecs_yolo_tpu_torch.snn import ops
 from ecs_yolo_tpu_torch.snn.neuron import lif_scan
 
 torch.set_num_threads(2)
@@ -171,6 +172,9 @@ def test_a_kernel_that_cannot_build_raises_and_nothing_falls_back(name, monkeypa
     before = getattr(FZ, name).launches
     with pytest.raises(RuntimeError, match="nvcc not found"):
         getattr(FZ, name)(*args, CFG)
+    if name in OP_OF:       # the op the wrapper calls raises the same, called alone too
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            OP_OF[name](*args, *ops.cfg_args(CFG), False)
     assert getattr(FZ, name).launches == before
     # what the kernels do not take is refused before any build
     with pytest.raises(TypeError):
@@ -194,6 +198,59 @@ def test_a_kernel_that_cannot_build_raises_and_nothing_falls_back(name, monkeypa
             FZ.ecs_lif_fused_v2(*site(8, 8, 4000), CFG)
         with pytest.raises(ValueError, match="largest block_rows that fits is 12$"):
             FZ.ecs_lif_fused_v2(*site(40, 40, 384), CFG, block_rows=13)
+
+
+#: the ops the wrappers call (``snn/ops.py``); K3 has none, its entry point is
+#: the function itself
+OP_OF = {"lif_fused": ops.lif, "ecs_lif_fused_rows": ops.ecs_lif_rows}
+
+
+class _StubLib:
+    """A built library whose every C function succeeds and is counted."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, fn_name):
+        stub = self
+
+        class Entry:
+            def __call__(self, *args):
+                stub.calls.append(fn_name)
+                return 0
+        return Entry()
+
+
+@pytest.mark.parametrize("op", ["ecs_lif", "ecs_lif_rows", "lif"])
+def test_each_op_call_off_the_cpu_route_counts_one_launch(op, monkeypatch):
+    """Where the op's implementation takes the kernel route (``use_kernel``
+    true; a stub library in place of the built one), each call through the
+    op launches once and adds one to its wrapper's count; on the CPU route
+    it counts nothing."""
+    from ecs_yolo_tpu_torch import _build
+    from ecs_yolo_tpu_torch.snn import spread as S
+
+    lib = _StubLib()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(S, "_entries", {})
+    for mod in (K1, FZ):
+        monkeypatch.setattr(mod, "_stream", lambda t: 7)
+    wrapper = {"ecs_lif": K1.ecs_lif_fused, "ecs_lif_rows": FZ.ecs_lif_fused_rows,
+               "lif": FZ.lif_fused}[op]
+    x = (np.random.RandomState(4).randn(4, 1, 8, 6, 8) * 0.7).astype(np.float32)
+    ts = [torch.from_numpy(a) for a in (x,) + _params(8, 1)]     # C % 8 == 0: K1's too
+    args = ts[:1] if op == "lif" else ts
+    call = lambda: getattr(ops, op)(*args, *ops.cfg_args(CFG), False)  # noqa: E731
+    before = wrapper.launches
+    call()
+    assert wrapper.launches == before and not lib.calls        # the CPU route
+    for mod in (K1, FZ):
+        monkeypatch.setattr(mod, "use_kernel", lambda x: True)
+    for k in range(1, 4):
+        out = call()
+        assert wrapper.launches == before + k
+        assert out.shape == args[0].shape and out.is_contiguous()
+    assert sum(c.endswith("_fwd") for c in lib.calls) == 3
 
 
 # --- MemUpdate's dispatch ----------------------------------------------------------
