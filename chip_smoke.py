@@ -147,6 +147,15 @@ the port's paths at full width with random weights from a seed:
   against the native pass; firing rates, a profiler trace, ``autobatch``,
   ``forward_augment``; two ``evolve`` generations; ``python -m
   ecs_yolo_tpu_torch.tools export`` and ``firing-rate``;
+* video frames (phase ``loaders``): two synthetic 640 x 480 GIFs of 8
+  frames through ``data/loaders.py``'s ``LoadVideo`` (b1) and
+  ``LoadStreams`` (both clips, b2), res10 at 640 px, bf16, on K1 and (plain
+  LIF, ``LoadVideo``) on K6, each batch through ``detect.predictor`` /
+  ``detect.frame_detections``: every site held to its plain version, the
+  detections equal to the ``plain_kernels()`` rerun, 24 launches a forward;
+  ms a frame and the loader's share timed with ``utils/general.Profile``,
+  the idle share of the b1 pass; ``select_device("")`` and the decoder
+  taken (imageio, else Pillow);
 * the shared-state ECS-LIF kernel's own entry point,
   ``snn.fused.ecs_lif_fused_v2``, at the 24 site shapes of one res10@640
   forward (bf16, N=8), after its checks at every site shape against the
@@ -4242,9 +4251,204 @@ def phase_tooling(seed: int, root: Path, log) -> dict:
     return out
 
 
+#: the loaders phase: two clips of LOADER_FRAMES frames, H x W; res10 on each route
+LOADER_FRAMES, LOADER_HW = 8, (480, 640)
+LOADER_MODELS = (("resnet10", {}, "ecs_lif_fused"), ("resnet10-lif", {"ecs": False}, "lif_fused"))
+LOADER_SITES = 24
+LOADERS_NOTE = ("loaders_launches_per_forward: res10 (bf16, 640 px) serving the frames of "
+                f"two synthetic {LOADER_HW[1]}x{LOADER_HW[0]} GIFs through data/loaders: "
+                "LoadVideo at b1 and LoadStreams over both clips at b2, each forward, NMS and "
+                "rescale as detect.run does them")
+
+
+def write_clips(root: Path, seed: int) -> list:
+    """Two animated GIFs of ``LOADER_FRAMES`` frames (``LOADER_HW``), written
+    with PIL as palette images (no quantizing): seeded noise of 192 colours
+    with four filled rectangles of four more colours moving across it."""
+    from PIL import Image
+
+    root.mkdir(parents=True, exist_ok=True)
+    h, w = LOADER_HW
+    paths = []
+    for c in range(2):
+        rng = np.random.RandomState(seed + 600 + c)
+        palette = np.concatenate([rng.randint(64, 160, (192, 3)), rng.randint(0, 256, (64, 3))])
+        bg = rng.randint(0, 192, (h, w)).astype(np.uint8)
+        boxes = [(rng.randint(0, h // 2), rng.randint(0, w // 2), rng.randint(40, h // 2),
+                  rng.randint(40, w // 2), rng.randint(-24, 25, 2)) for _ in range(4)]
+        ims = []
+        for f in range(LOADER_FRAMES):
+            idx = bg.copy()
+            for k, (y, x, bh, bw, (dy, dx)) in enumerate(boxes):
+                y0, x0 = (y + f * dy) % (h - bh), (x + f * dx) % (w - bw)
+                idx[y0:y0 + bh, x0:x0 + bw] = 192 + k
+            im = Image.fromarray(idx, mode="P")
+            im.putpalette(palette.astype(np.uint8).tobytes())
+            ims.append(im)
+        path = root / f"clip{c}.gif"
+        ims[0].save(path, save_all=True, append_images=ims[1:], duration=40, loop=0)
+        paths.append(str(path))
+    return paths
+
+
+def loader_batches(loader):
+    """``(im, [original, ...])`` of each batch of ``loader``; a stream's
+    readers closed at the end."""
+    try:
+        for _, im, ims0 in loader:
+            yield im, ims0 if isinstance(ims0, list) else [ims0]
+    finally:
+        if hasattr(loader, "close"):
+            loader.close()
+
+
+def phase_loaders(seed: int, root: Path, log) -> dict:
+    """Serving video frames through ``data/loaders.py`` (phase ``loaders``):
+    two synthetic clips (``write_clips``) read by ``LoadVideo`` (b1, the
+    first clip) and by ``LoadStreams`` (both clips, one reader thread each,
+    b2); res10 at full width, nc 13, 640 px, T=4, BN calibrated on the
+    first clip's frames, bf16, on K1 (ECS-LIF) and on K6 (plain LIF, over
+    ``LoadVideo``).  Each frame batch goes through ``detect.predictor`` and
+    ``detect.frame_detections`` (the forward, NMS and the rescale to the
+    original frame of ``detect.run``).
+
+    A checked pass first: every forward's sites held to the plain version
+    of their kernel on their own input (K1 within ``SPIKE_BOUND``, K6
+    equal), its detections equal to its ``plain_kernels()`` rerun, 24
+    launches of the route's kernel a forward and none of another.  Then the
+    timed pass, the main path, with the counters set to 0 just before it and
+    read just after: ``utils/general.Profile`` around the loader's ``next``
+    and around the forward, NMS and rescale (synchronized inside the block):
+    ms a frame and the loader's share; the first clip's ``LoadVideo`` pass
+    again under the profiler for the card's idle share.  Also:
+    ``select_device("")`` returns the card; which decoder the loaders took
+    (imageio where it imports, else Pillow)."""
+    from ecs_yolo_tpu_torch import detect as detect_mod
+    from ecs_yolo_tpu_torch.config import SNNConfig
+    from ecs_yolo_tpu_torch.data import loaders
+    from ecs_yolo_tpu_torch.models.yolo import build_model, cast_params
+    from ecs_yolo_tpu_torch.nn.blocks import MemUpdate, _BN
+    from ecs_yolo_tpu_torch.snn.route import plain_kernels
+    from ecs_yolo_tpu_torch.utils.general import Profile, select_device
+
+    t_phase = time.perf_counter()
+    reset, read = launch_counters()
+    devs = select_device("")
+    try:
+        import imageio  # noqa: F401
+        decoder = "imageio"
+    except ImportError:
+        decoder = "pillow"
+    clips = write_clips(root, seed)
+    frames = [[f for _, _, f in loaders.LoadVideo(c, IMGSZ)] for c in clips]
+    xb = torch.from_numpy(np.concatenate([im for _, im, _ in loaders.LoadVideo(clips[0], IMGSZ)])
+                          ).cuda()
+    rec = {"phase": "loaders", "select_device": [str(d) for d in devs], "decoder": decoder,
+           "imageio_importable": decoder == "imageio", "frames_per_clip": LOADER_FRAMES,
+           "frame_hw": list(LOADER_HW), "clip_seconds": time.perf_counter() - t_phase}
+    ok = [("select_device", devs == [torch.device("cuda", i)
+                                     for i in range(torch.cuda.device_count())]),
+          ("frames", [len(f) for f in frames] == [LOADER_FRAMES] * 2
+           and frames[0][0].shape == (*LOADER_HW, 3))]
+    out = {}
+    for j, (tag, fields, kernel) in enumerate(LOADER_MODELS):
+        model = build_model("resnet10.yaml", nc=NC, snn=SNNConfig(**fields),
+                            generator=torch.Generator().manual_seed(seed + 700 + j))
+        calibrate_bn(model, xb, _BN)
+        cast_params(model, torch.bfloat16)
+        sites = [m for m in model.modules() if isinstance(m, MemUpdate)]
+        device, head, predict = detect_mod.predictor(model)
+        feeds = {"video_b1": lambda: loaders.LoadVideo(clips[0], IMGSZ)}
+        if j == 0:
+            feeds["streams_b2"] = lambda: loaders.LoadStreams(clips, IMGSZ)
+        out[tag] = {}
+        for feed, make in feeds.items():
+            # the checked pass: sites against their plain versions, NMS against the rerun
+            shares, silu, equal, batches, last = [], [], [], 0, None
+            reset()
+            with torch.no_grad():
+                for im, ims0 in loader_batches(make()):
+                    x = torch.from_numpy(im).to(device)
+                    pred, seen = captured_sites(sites, lambda: predict(x))
+                    dets = detect_mod.frame_detections(pred, head, im.shape[1:3], ims0)
+                    with plain_kernels():
+                        want = detect_mod.frame_detections(predict(x), head, im.shape[1:3],
+                                                           ims0)
+                    s, e = site_errors(seen, plain_kernels)
+                    shares += s
+                    silu += e
+                    equal.append(all(np.array_equal(a, b) for a, b in zip(dets, want)))
+                    batches, last = batches + 1, ims0
+                    del seen
+            checked = read()
+            # the main path, timed: counts set to 0 just before, read just after
+            p_load, p_fwd, n_frames, n_batches = Profile(), Profile(), 0, 0
+            reset()
+            with torch.no_grad():
+                it = loader_batches(make())
+                while True:
+                    with p_load:
+                        item = next(it, None)
+                    if item is None:
+                        break
+                    im, ims0 = item
+                    with p_fwd:
+                        pred = predict(torch.from_numpy(im).to(device))
+                        detect_mod.frame_detections(pred, head, im.shape[1:3], ims0)
+                        torch.cuda.synchronize()
+                    n_frames, n_batches = n_frames + len(ims0), n_batches + 1
+            launches = read()
+            r = {"batches_checked": batches, "batches_timed": n_batches,
+                 "frames_timed": n_frames, "launches": launches, "checked_launches": checked,
+                 "launches_per_forward": launches[kernel] / max(n_batches, 1),
+                 "worst_site_mismatch_share": max(shares, default=0.0),
+                 "worst_silu_err": max(silu, default=0.0), "sites_checked": len(shares) + len(silu),
+                 "nms_equal_to_plain": all(equal), "ms_per_frame": (p_load.t + p_fwd.t)
+                 / max(n_frames, 1) * 1e3, "forward_nms_ms_per_frame": p_fwd.t
+                 / max(n_frames, 1) * 1e3, "loader_share": p_load.t / max(p_load.t + p_fwd.t,
+                                                                          1e-9)}
+            if feed == "streams_b2":
+                r["last_batch_is_each_clip_last_frame"] = last is not None and all(
+                    np.array_equal(a, f[-1]) for a, f in zip(last, frames))
+                ok.append((f"{tag}/{feed}/last", r["last_batch_is_each_clip_last_frame"]))
+            if feed == "video_b1" and j == 0:
+                def video_pass():
+                    for im, ims0 in loader_batches(make()):
+                        pred = predict(torch.from_numpy(im).to(device))
+                        detect_mod.frame_detections(pred, head, im.shape[1:3], ims0)
+                with torch.no_grad():
+                    r["profile"] = profile_step(video_pass)
+            gate = (max(shares, default=0.0) == 0.0 if kernel == "lif_fused"
+                    else max(shares, default=0.0) <= SPIKE_BOUND[torch.bfloat16])
+            frames_ok = n_frames == (LOADER_FRAMES if feed == "video_b1" else 2 * n_batches)
+            ok.append((f"{tag}/{feed}", gate and all(equal) and frames_ok
+                       and max(silu, default=0.0) <= LIF_SILU_ULPS_BF16
+                       and len(shares) + len(silu) == LOADER_SITES * batches
+                       and checked[kernel] == LOADER_SITES * batches
+                       and launches[kernel] == LOADER_SITES * n_batches > 0
+                       and sum(launches.values()) == launches[kernel]
+                       and sum(checked.values()) == checked[kernel]))
+            emit({"phase": "loaders_serve", "model": tag, "feed": feed, "kernel": kernel, **r},
+                 log)
+            out[tag][feed] = r
+        del model
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    rec["failed"] = [name for name, good in ok if not good]
+    emit(rec, log)
+    if rec["failed"]:
+        raise AssertionError(f"loaders: failed checks {rec['failed']}")
+    return out
+
+
+def loaders_launches(rec: dict, kernel: str) -> dict:
+    """Launches of ``kernel`` a forward in each feed of the loaders phase."""
+    return {f"{tag}/{feed}": r["launches_per_forward"] for tag, feeds in rec.items()
+            for feed, r in feeds.items() if r["launches"][kernel]}
+
+
 #: the phases in their order; those of SET_PHASES share the synthetic sets
 SET_PHASES = ("train_run", "train_opts", "heads", "events", "segment", "zoo", "rtdetr_nms",
-              "parallel", "tooling")
+              "parallel", "tooling", "loaders")
 PHASES = ("serve", "train", *SET_PHASES, "val", "k3_path", "bench")
 
 
@@ -4440,7 +4644,8 @@ def main(argv=None) -> int:
                 "zoo": lambda: phase_zoo(opt.seed, Path(sets) / "zoo", log),
                 "rtdetr_nms": lambda: phase_rtdetr_nms(opt.seed, log),
                 "parallel": lambda: phase_parallel(opt.seed, Path(sets) / "parallel", log),
-                "tooling": lambda: phase_tooling(opt.seed, Path(sets) / "tooling", log)}
+                "tooling": lambda: phase_tooling(opt.seed, Path(sets) / "tooling", log),
+                "loaders": lambda: phase_loaders(opt.seed, Path(sets) / "loaders", log)}
             done = {}
             for name in SET_PHASES:
                 if name in sel:
@@ -4502,6 +4707,8 @@ def main(argv=None) -> int:
             parallel_val_launches=done["parallel"]["val"]["k1_launches"],
             tooling_launches_per_forward=tooling_launches(done["tooling"], "ecs_lif_fused"),
             tooling_note=TOOLING_NOTE,
+            loaders_launches_per_forward=loaders_launches(done["loaders"], "ecs_lif_fused"),
+            loaders_note=LOADERS_NOTE,
             zoo_note=f"zoo_*: the {len(ZOO_SITES)} YAMLs and the {len(PROBES)} probe models "
                      f"({', '.join(PROBES)}) of the zoo phase at 640 px, one forward each "
                      f"(b{N} for the YAMLs of {', '.join(ZOO_TIMED)}, else b{ZOO_BATCH}), "
@@ -4580,6 +4787,8 @@ def main(argv=None) -> int:
                  "graph, wrapper_ms the same calls eager",
             tooling_launches_per_forward=tooling_launches(done["tooling"], "lif_fused"),
             tooling_note=TOOLING_NOTE,
+            loaders_launches_per_forward=loaders_launches(done["loaders"], "lif_fused"),
+            loaders_note=LOADERS_NOTE,
             events_launches_per_forward=events["forward_plain_lif"]["k6_launches"],
             events_ms=events["k6"].ms, events_plain_ms=events["k6"].plain_ms,
             events_bound_ms=events["k6"].bound_ms,

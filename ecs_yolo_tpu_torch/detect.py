@@ -75,6 +75,38 @@ def _save(path, im0, dets, save_dir: Path, save_txt: bool, names):
                          f"{conf:.4f}\n")
 
 
+def predictor(model):
+    """``(device, head name, predict)`` of a built ``DetectionModel`` (put
+    in eval mode; it runs on its own device and dtype) or of a
+    ``backends.DetectMultiBackend``; ``predict(x)`` is what NMS takes."""
+    from .models.yolo import head_predictions
+
+    if hasattr(model, "predict"):
+        from .backends import backend_predictions
+
+        return model.device, model.head_name, functools.partial(backend_predictions, model)
+    model.eval()
+    head = model.head_info["name"]
+    return (next(model.parameters()).device, head,
+            lambda x: head_predictions(head, model(x), model.head_info["nc"]))
+
+
+def frame_detections(pred, head: str, lb_shape, ims0, conf_thres: float = 0.25,
+                     iou_thres: float = 0.45, max_det: int = 300) -> List[np.ndarray]:
+    """NMS over a batch's predictions, each image's boxes mapped from the
+    letterboxed ``lb_shape`` (H, W) back to its original in ``ims0``:
+    ``[n, 6]`` native xyxy / conf / cls arrays, one an image."""
+    out, valid = non_max_suppression(pred, conf_thres=conf_thres, iou_thres=iou_thres,
+                                     max_det=max_det, has_obj=head == "Detect")
+    results = []
+    for i, im0 in enumerate(ims0):
+        dets = out[i][valid[i]].cpu().numpy()
+        if len(dets):
+            dets[:, :4] = scale_to_native(dets[:, :4], lb_shape, im0.shape[:2])
+        results.append(dets)
+    return results
+
+
 @torch.no_grad()
 def run(
     model: torch.nn.Module,
@@ -91,32 +123,14 @@ def run(
     image.  ``model`` is a built ``DetectionModel``, which runs in eval mode
     on its own device and dtype, or a ``backends.DetectMultiBackend``
     wrapping an exported artifact (reference detect.py:97)."""
-    from .models.yolo import head_predictions
-
-    if hasattr(model, "predict"):
-        from .backends import backend_predictions
-
-        device, head = model.device, model.head_name
-        predict = functools.partial(backend_predictions, model)
-    else:
-        model.eval()
-        device = next(model.parameters()).device
-        head = model.head_info["name"]
-
-        def predict(x):
-            return head_predictions(head, model(x), model.head_info["nc"])
+    device, head, predict = predictor(model)
     if save_dir:
         Path(save_dir).mkdir(parents=True, exist_ok=True)
     results = []
     for path, im, im0 in LoadImages(source, img_size=imgsz):
         pred = predict(torch.from_numpy(im).to(device))
-        out, valid = non_max_suppression(
-            pred, conf_thres=conf_thres, iou_thres=iou_thres, max_det=max_det,
-            has_obj=head == "Detect")
-        dets = out[0][valid[0]].cpu().numpy()
-        if len(dets):
-            dets[:, :4] = scale_to_native(dets[:, :4], im.shape[1:3],
-                                          im0.shape[:2])
+        dets, = frame_detections(pred, head, im.shape[1:3], [im0], conf_thres, iou_thres,
+                                 max_det)
         results.append((path, dets))
         if save_dir:
             _save(path, im0, dets, Path(save_dir), save_txt, names)

@@ -101,6 +101,16 @@ def get_lib() -> ctypes.CDLL:
         return _lib
 
 
+def is_available() -> bool:
+    """Whether the library builds and loads here.  Nothing falls back on
+    ``False``: a caller that wants the PIL route asks for it itself."""
+    try:
+        get_lib()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
 def _u8(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 

@@ -321,3 +321,13 @@ class ASFF_v10Detect(_ASFFHead):
                  ch: Sequence[int], snn: SNNConfig = DEFAULT_SNN):
         super().__init__(ch, snn)
         self.det = v10Detect(nc, reg_max, strides, ch, snn)
+
+
+#: the head names a YAML may give its last row (JAX's ``HEAD_NAMES``; the
+#: classes are in ``models/yolo.HEADS``, ``Segment`` and ``Panoptic`` from
+#: ``nn/segment.py``)
+HEAD_NAMES = (
+    "Detect", "DDetect", "DualDetect", "DualDDetect",
+    "TripleDetect", "TripleDDetect", "v10Detect",
+    "ASFF_DDetect", "ASFF_v10Detect", "Segment", "Panoptic",
+)

@@ -1,6 +1,6 @@
 """Box format conversions and the IoU family (counterpart of
-``ecs_yolo_tpu/ops/boxes.py``: ``xywh2xyxy``, ``xyxy2xywh``, ``box_iou``,
-``bbox_iou``, ``clip_coords``, ``scale_coords``)."""
+``ecs_yolo_tpu/ops/boxes.py``: ``xywh2xyxy``, ``xyxy2xywh``, ``xywhn2xyxy``,
+``box_iou``, ``bbox_iou``, ``wiou``, ``clip_coords``, ``scale_coords``)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,15 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
 def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
     x1y1, x2y2 = x[..., :2], x[..., 2:4]
     return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1, x[..., 4:]], dim=-1)
+
+
+def xywhn2xyxy(x: torch.Tensor, w=640, h=640, padw=0, padh=0) -> torch.Tensor:
+    """Normalized xywh -> pixel xyxy (reference utils/general.py).  The scale
+    and pad are float32 as in the JAX function, so a float64 ``x`` stays
+    float64 and a float32 one float32."""
+    scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=x.device)
+    pad = torch.tensor([padw, padh, padw, padh], dtype=torch.float32, device=x.device)
+    return xywh2xyxy(x[..., :4]) * scale + pad
 
 
 def box_iou(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
@@ -111,6 +120,20 @@ def bbox_iou(box1, box2, xywh: bool = True, GIoU: bool = False,
     omiga_h = (h1 - h2).abs() / torch.maximum(h1, h2)
     shape_cost = (1 - torch.exp(-omiga_w)) ** 4 + (1 - torch.exp(-omiga_h)) ** 4
     return _ret(iou - _pow(0.5 * (distance_cost + shape_cost) + eps))
+
+
+def wiou(box1, box2, xywh: bool = True, eps: float = 1e-7):
+    """WIoU v1 (reference utils/metrics.py:313-318): ``(iou, penalty)``, where
+    ``penalty = exp(rho2 / c2)`` weights the loss of outlier boxes; ``eps`` in
+    the IoU as ``bbox_iou`` takes it and once more in ``c2``, as in JAX."""
+    iou_v = bbox_iou(box1, box2, xywh=xywh, eps=eps)
+    b1, b2 = (xywh2xyxy(box1), xywh2xyxy(box2)) if xywh else (box1, box2)
+    cw = torch.maximum(b1[..., 2], b2[..., 2]) - torch.minimum(b1[..., 0], b2[..., 0])
+    ch = torch.maximum(b1[..., 3], b2[..., 3]) - torch.minimum(b1[..., 1], b2[..., 1])
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = ((b2[..., 0] + b2[..., 2] - b1[..., 0] - b1[..., 2]) ** 2
+            + (b2[..., 1] + b2[..., 3] - b1[..., 1] - b1[..., 3]) ** 2) / 4
+    return iou_v, torch.exp(rho2 / c2)
 
 
 def clip_coords(boxes: torch.Tensor, shape) -> torch.Tensor:

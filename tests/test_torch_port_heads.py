@@ -6,7 +6,9 @@ made of (``Conv_B``, ``Conv``, ``GSConv``, ``ASFF2``), the heads
 and two branches), the
 five anchor-free YAMLs (spec and strides, head bias init, the optimizer
 groups and the ``sr`` predicates of every parameter, the folded conv/bn
-pairs), one of them (``res10-dualplain``) whole in eval and training,
+pairs), whole models in eval and training (``res10-dualplain``,
+``res10v10``, ``res10-dual``, ``res10-triple``, ``res10-panoptic``,
+``resnet10-v9``),
 ``v10_postprocess``, and ``val.run`` / ``detect.run`` on a v10 and a dual
 model handing NMS what the JAX ``val.run`` hands it.
 
@@ -330,21 +332,47 @@ def test_yaml_matches_jax(cfg):
     assert len(reset) > 8 and "model.0" in folded
 
 
-def test_whole_dual_model_matches_jax_f64_in_eval_and_training():
-    """``res10-dualplain`` narrowed, whole, in both packages with every
-    weight converted (strict load): the eval output (the decoded main
-    branch and both branches' maps), the training output and the moved BN
-    statistics, in float64 to 1e-9.  This holds the backbone-to-head wiring
-    (the head's inputs ``[8, 10, 9, 11]``, aux then main) that the head
-    cases above feed by hand.  JAX's model is built as its ``build_model``
-    builds it, with the strides ``test_yaml_matches_jax`` probed (its probe
-    is a whole trace more); one cheap-compile jit; ≈ 14 s."""
-    d = _narrow("res10-dualplain.yaml")
+#: the whole models held to JAX, with the leaf count of their eval and
+#: training outputs: the dual, triple and v10 wirings, the panoptic head and
+#: the v9 wiring (``CBLinear`` / ``CBFuse``).  res10v8 and res10-seg are left
+#: out for time: their files are res10v10's and res10-panoptic's row for row
+#: but the head (each head is held alone above and in
+#: test_torch_port_segment), so their backbone-to-head wiring is held here.
+WHOLE = {"res10-dualplain.yaml": (5, 4), "res10v10.yaml": (5, 4), "res10-dual.yaml": (5, 4),
+         "res10-triple.yaml": (7, 6), "res10-panoptic.yaml": (6, 5),
+         "resnet10-v9.yaml": (7, 6)}
+
+
+def _narrow_whole(cfg):
+    """``cfg`` at width 1/4; ``CBLinear`` groups, which the YAML gives
+    unscaled, narrowed by the same factor (as ``test_torch_port_zoo``'s
+    ``_narrow`` does at 1/8)."""
+    d = _narrow(cfg)
+    for row in d["head"]:
+        if row[2] == "CBLinear":
+            row[3] = [[c // 4 for c in row[3][0]]]
+    return d
+
+
+@pytest.mark.parametrize("cfg", list(WHOLE))
+def test_whole_dual_model_matches_jax_f64_in_eval_and_training(cfg):
+    """``cfg`` narrowed, whole, in both packages with every weight converted
+    (strict load): the eval output (decoded predictions and every branch's
+    maps), the training output and the moved BN statistics, in float64 to
+    1e-9 (statistics 1e-12).  This holds the backbone-to-head wiring (the
+    head's ``from`` list, e.g. res10-dual's ``[11, 12, 10, 6]``, the v9
+    ``CBLinear`` / ``CBFuse`` taps) that the head cases above feed by hand.
+    JAX's model is built as its ``build_model`` builds it, with the strides
+    of the port's build (its probe is a whole trace more); one
+    cheap-compile jit."""
+    d = _narrow_whole(cfg)
     snn = JaxSNNConfig(time_window=T)
+    pm = port_yolo.build_model(d, nc=3, snn=SNNConfig(time_window=T), device="cpu", imgsz=64)
+    strides = tuple(pm.head_info["strides"])
     spec, save, chs, head = jax_yolo.parse_model(dict(d, nc=3), 3)
-    head["strides"] = STRIDES
+    head["strides"] = strides
     module = jax_yolo.DetectionModel(
-        spec=jax_yolo._with_head_args(spec, head["index"], head["name"], head, STRIDES),
+        spec=jax_yolo._with_head_args(spec, head["index"], head["name"], head, strides),
         save=save, snn=snn, packing=jax_yolo._plan_packing(spec, chs, snn.packed_c64),
         tinv_prefix=jax_yolo._t_invariant_prefix(spec, save) if snn.stem_dedup else 0)
     v = _random_variables(lambda: module.init(jax.random.PRNGKey(0),
@@ -358,18 +386,19 @@ def test_whole_dual_model_matches_jax_f64_in_eval_and_training():
     with jax.enable_x64():
         v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), v)
         want, (want_t, upd) = jax.jit(run, compiler_options=_FAST)(v64, x)
-    pm = port_yolo.build_model(d, nc=3, snn=SNNConfig(time_window=T), device="cpu")
     pm.load_state_dict(CV.convert(v["params"], v["batch_stats"], pm.spec), strict=True)
     pm = pm.double()
     xt = torch.from_numpy(x)
     with torch.no_grad():
         got = pm.eval()(xt)
     got_t = pm.train()(xt)
-    assert len(_leaves(got)) == 5 and len(_leaves(got_t)) == 4
+    assert (len(_leaves(got)), len(_leaves(got_t))) == WHOLE[cfg]
     _assert_tree_close(got, want)
     _assert_tree_close(got_t, want_t)
     sd = pm.state_dict()
-    for k, w in CV.convert({}, upd["batch_stats"], pm.spec).items():
+    moved = CV.convert({}, upd["batch_stats"], pm.spec)
+    assert moved
+    for k, w in moved.items():
         np.testing.assert_allclose(sd[k].numpy(), w.numpy(), atol=1e-12, rtol=0, err_msg=k)
 
 
