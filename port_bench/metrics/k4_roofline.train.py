@@ -1,0 +1,7 @@
+"""K4 (csrc/spread_dw3.cu) in the traced training micro-steps: its bound at
+the configuration's site shapes (counts/) over its device time, in %."""
+from port_bench.core.readers import roofline
+
+
+def read(rec):
+    return roofline(rec, "k4", "spread_dw3_kernel")
